@@ -1,0 +1,45 @@
+"""Architecture registry of the port.
+
+``get_config(arch, smoke=False)`` → ModelConfig with the exact published
+numbers (or the reduced smoke variant), as in ``repro.configs.registry``.
+Only the architectures whose model family is ported are known here; the
+rest of the JAX package's zoo raises with a pointer to ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+from repro_torch.configs import qwen1p5_0p5b
+from repro_torch.models.config import ModelConfig
+
+_MODULES = {m.ARCH: m for m in (qwen1p5_0p5b,)}
+
+#: the JAX package's architectures that wait for later slices of the port
+PENDING_ARCHS = (
+    "granite-moe-1b-a400m",
+    "deepseek-v3-671b",
+    "llama3-405b",
+    "internlm2-20b",
+    "gemma3-4b",
+    "phi-3-vision-4.2b",
+    "rwkv6-7b",
+    "jamba-v0.1-52b",
+    "whisper-tiny",
+)
+
+
+def list_archs() -> List[str]:
+    return list(_MODULES)
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    if arch in PENDING_ARCHS:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported to repro_torch yet; see ROADMAP.md "
+            f"(modules to port) — ported: {list(_MODULES)}"
+        )
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {list(_MODULES)}")
+    m = _MODULES[arch]
+    return m.smoke() if smoke else m.full()

@@ -1,0 +1,102 @@
+"""The PyTorch port stands alone: it imports without JAX, never imports the
+JAX package, and asking for the card without one raises instead of
+falling back to the CPU."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+
+def _port_modules():
+    return sorted(
+        m.name
+        for m in pkgutil.walk_packages([str(PORT)], prefix="repro_torch.")
+        if not m.name.endswith("__main__")
+    )
+
+
+def test_every_port_module_imports_without_jax():
+    mods = ["repro_torch"] + _port_modules()
+    assert "repro_torch.serving.engine" in mods and "repro_torch.kernels._build" in mods
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'repro' or k.startswith('repro.') for k in sys.modules), "
+        "sorted(k for k in sys.modules if k.startswith('repro.'))\n"
+        "print('IMPORTED', len(sys.modules))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin", "HOME": str(REPO)},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "IMPORTED" in proc.stdout
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_no_jax_or_reference_imports(path):
+    bad = [
+        m for m in _imports(REPO / path)
+        if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro.")
+        or m.startswith("jaxlib") or m.startswith("flax")
+    ]
+    assert not bad, f"{path} imports {bad}"
+
+
+def _entry_points():
+    from repro_torch.configs import get_config
+    from repro_torch.core.streams import new_token
+    from repro_torch.device import resolve_device
+    from repro_torch.models import api
+
+    cfg = get_config("qwen1.5-0.5b", smoke=True)
+    return {
+        "resolve_device": lambda: resolve_device("cuda"),
+        "init_params": lambda: api.init_params(cfg, torch.Generator().manual_seed(0)),
+        "init_cache": lambda: api.init_cache(cfg, 2, 16),
+        "new_token": lambda: new_token("cuda"),
+        "serve_cli": lambda: __import__("repro_torch.launch.serve", fromlist=["main"]).main(["--requests", "1"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["resolve_device", "init_params", "init_cache", "new_token", "serve_cli"])
+def test_cuda_requested_without_cuda_raises(name):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the no-card refusal cannot be observed here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _entry_points()[name]()
+
+
+def test_unported_configs_raise_with_roadmap_pointer():
+    from repro_torch.configs import get_config, list_archs
+
+    assert list_archs() == ["qwen1.5-0.5b"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("rwkv6-7b")
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
