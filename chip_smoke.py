@@ -6,11 +6,13 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds every
 kernel against its plain PyTorch version on the card, serves requests with
 the full-width ``qwen1.5-0.5b`` (random weights from a seed) through
-``ServeEngine`` with the flash kernel on every prefill, and runs an
-on-stream datatype enqueue (MPIX stream → ``pack_send`` → ``dispatch_enqueue``
-→ progress engine, then an ``OffloadWindow``) over a live KV leaf of the
-served engine. Each phase prints one JSON line; any failure exits non-zero
-before the last line. The last two lines are the per-kernel summary, the
+``ServeEngine`` with the flash kernel on every prefill, runs an on-stream
+datatype enqueue (MPIX stream → ``pack_send`` → ``dispatch_enqueue`` →
+progress engine, then an ``OffloadWindow``) over a live KV leaf of the
+served engine, and serves requests with the full-width ``rwkv6-7b``
+(32 layers, d_model 4096, bf16, random weights from a seed) with the WKV-6
+kernel on every prefill. Each phase prints one JSON line; any failure exits
+non-zero before the last line. The last two lines are the per-kernel summary, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when CUDA is unavailable or when the
 repository's ``src/`` is missing. Imports nothing of JAX.
@@ -35,6 +37,9 @@ sys.path.insert(0, str(ROOT / "src"))
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
+# exp/log results: 16 per SM per clock (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, cc 9.0) x 132 SMs x 1.98 GHz boost
+H100_SFU_PER_S = 16 * 132 * 1.98e9
 TIMED_REPS = 20
 
 # main-path shapes: the full-width qwen1.5-0.5b prefill (16 heads, hd 64)
@@ -43,6 +48,11 @@ TIMED_REPS = 20
 FLASH_SERVE_S = (128, 256, 384)
 KV_LEAF = (24, 4, 512, 1024)
 KV_SPAN = 256
+# WKV-6: the reference's sweep (test_kernels.py:71) at B = 2, H = 2, and the
+# full-width rwkv6-7b prefill of the longest served prompt (B = 1, 64 heads)
+WKV_SWEEP = ((64, 32), (128, 64), (256, 64), (96, 32))
+WKV_SERVE = (1, 448, 64)
+RWKV_SERVE_S = (128, 256, 448)
 
 
 def emit(phase: str, **kw) -> None:
@@ -92,10 +102,24 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def within(a, b, tol: float) -> bool:
-    """assert_allclose semantics: |a - b| <= tol + tol * |b| elementwise."""
+def within(a, b, tol: float, rtol=None) -> bool:
+    """assert_allclose semantics: |a - b| <= tol + rtol * |b| elementwise
+    (``rtol`` defaults to ``tol``)."""
     a, b = a.float(), b.float()
-    return bool(((a - b).abs() <= tol + tol * b.abs()).all().item())
+    rtol = tol if rtol is None else rtol
+    return bool(((a - b).abs() <= tol + rtol * b.abs()).all().item())
+
+
+def host_ms(torch, fn, reps=5) -> float:
+    """Median host-clock ms of ``fn`` alone, between two syncs."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
 
 
 def bytes_equal(torch, a, b) -> bool:
@@ -203,7 +227,78 @@ def phase_kernels(torch, timer):
     )
     emit("kernels", kernel="dt_pack", cases=pack_rows, shape=dict(nseg=nseg, seg_len=seg, stride=stride, start=start,
          out_len=out_len, dtype="bfloat16"), pack=pack_t, unpack=unpack_t)
-    return dict(flash_times=flash_times, flash_err=serve_err, pack=pack_t, unpack=unpack_t)
+    wkv = wkv6_kernel_rows(torch, timer, gen)
+    return dict(flash_times=flash_times, flash_err=serve_err, pack=pack_t, unpack=unpack_t, wkv=wkv)
+
+
+def wkv6_bound(B, S, H, chunk, hs=64) -> dict:
+    """The least time the card needs for one WKV-6 call: each input read
+    and each output written once (w/r/k/v and y, state0 and the last
+    state, the bonus), the fp32 operations of the chunked form, and its
+    exp/log results; the largest of the three times."""
+    n = B * H * (S // chunk)  # (batch, head, chunk) tiles
+    tri = chunk * (chunk - 1) // 2  # strict lower triangle of the scores
+    nbytes = (5 * B * S * H * hs + 2 * B * H * hs * hs + H * hs) * 4
+    flops = n * (4 * tri * hs          # r·k·e^{Δ} summed over i
+                 + 2 * tri * hs        # scores @ v over the triangle
+                 + 3 * chunk * hs      # bonus diagonal
+                 + 2 * chunk * hs      # diag · v
+                 + 2 * chunk * hs * hs  # (r e^{cw_prev}) @ S
+                 + 2 * chunk * hs * hs  # k_remᵀ @ v
+                 + 2 * hs * hs         # e^{cw_last} ⊙ S
+                 + 4 * chunk * hs)     # log-cumsum, cw_prev, r and k decays
+    sfu = n * (tri * hs + 3 * chunk * hs + hs)  # exp over the triangle, log w, two decays, e^{cw_last}
+    t = dict(bytes=nbytes / H100_BYTES_PER_S * 1e3, fp32=flops / H100_FP32_FLOPS * 1e3, sfu=sfu / H100_SFU_PER_S * 1e3)
+    top = max(t, key=t.get)
+    return dict(bytes=nbytes, flops=flops, exp_log=sfu, bytes_ms=t["bytes"], fp32_ms=t["fp32"], exp_log_ms=t["sfu"],
+                bound_ms=t[top], bound_by="bytes" if top == "bytes" else "operations", set_by=top)
+
+
+def wkv6_kernel_rows(torch, timer, gen):
+    """K3 against its plain version: the reference's sweep at 5e-4, the
+    strong-decay case (finite, 1e-3 abs / 1e-2 rel), and the served shape
+    with a non-zero state0, timed there."""
+    from repro_torch.kernels import rwkv6_scan as wk
+
+    def inputs(B, S, H):
+        n = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+        w = torch.sigmoid(n(B, S, H, 64)) * 0.5 + 0.45
+        return w, n(B, S, H, 64), n(B, S, H, 64), n(B, S, H, 64), n(H, 64) * 0.1, n(B, H, 64, 64) * 0.1
+
+    rows = []
+    for S, chunk in WKV_SWEEP:
+        args = inputs(2, S, 2)
+        y, st = wk.wkv6(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        yp, sp = wk.wkv6_plain(*args, chunk=chunk)
+        row = dict(B=2, S=S, H=2, chunk=chunk, tol=5e-4, max_abs_err=max(max_err(y, yp), max_err(st, sp)),
+                   ok=within(y, yp, 5e-4) and within(st, sp, 5e-4))
+        rows.append(row)
+        check(row["ok"], f"wkv6 vs plain within 5e-4: {row}")
+
+    w, r, k, v, _, _ = inputs(1, 64, 1)
+    w = torch.full_like(w, 1e-6)
+    u, s0 = torch.zeros(1, 64, device="cuda"), torch.zeros(1, 1, 64, 64, device="cuda")
+    y, _ = wk.wkv6(w, r, k, v, u, s0, chunk=32)
+    torch.cuda.synchronize()
+    yp, _ = wk.wkv6_plain(w, r, k, v, u, s0, chunk=32)
+    strong = dict(S=64, chunk=32, w=1e-6, finite=bool(torch.isfinite(y).all()), max_abs_err=max_err(y, yp),
+                  ok=bool(torch.isfinite(y).all()) and within(y, yp, 1e-3, 1e-2))
+    check(strong["ok"], f"wkv6 strong decay finite and within 1e-3/1e-2: {strong}")
+
+    B, S, H = WKV_SERVE
+    args = inputs(B, S, H)
+    y, st = wk.wkv6(*args, chunk=64)
+    torch.cuda.synchronize()
+    yp, sp = wk.wkv6_plain(*args, chunk=64)
+    err = max(max_err(y, yp), max_err(st, sp))
+    served = dict(B=B, S=S, H=H, chunk=64, tol=5e-4, max_abs_err=err, y_scale=yp.abs().max().item(),
+                  ok=within(y, yp, 5e-4) and within(st, sp, 5e-4))
+    check(served["ok"], f"wkv6 vs plain at the served shape within 5e-4: {served}")
+    served.update(ms=timer(lambda: wk.wkv6(*args, chunk=64)), plain_ms=timer(lambda: wk.wkv6_plain(*args, chunk=64)),
+                  library_ms=None, library_note="no single PyTorch call computes WKV-6", **wkv6_bound(B, S, H, 64))
+    emit("kernels", kernel="wkv6", cases=rows, strong_decay=strong, served=served)
+    return served
 
 
 def phase_serve(torch):
@@ -297,21 +392,11 @@ def phase_serve(torch):
 
     # where the serve time goes: one prefill of the longest prompt and one
     # batched decode step, each alone on the host clock between two syncs
-    def host_ms(fn, reps=5):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(times)
-
     cache = api.init_cache(cfg, 4, 512, "cuda")
     step_tok = torch.zeros(4, dtype=torch.long, device="cuda")
     step_pos = torch.full((4,), 400, dtype=torch.long, device="cuda")
-    prefill_ms = host_ms(lambda: api.prefill(cfg, model, {"tokens": prompts[2][None]}, max_len=512))
-    decode_ms = host_ms(lambda: api.decode_step(cfg, model, cache, step_tok, step_pos))
+    prefill_ms = host_ms(torch, lambda: api.prefill(cfg, model, {"tokens": prompts[2][None]}, max_len=512))
+    decode_ms = host_ms(torch, lambda: api.decode_step(cfg, model, cache, step_tok, step_pos))
     # a decode step reads every weight and the whole KV cache once
     kv_bytes = sum(t.numel() * t.element_size() for group in cache for entry in group for t in entry)
     param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
@@ -409,6 +494,183 @@ def phase_enqueue(torch, eng):
     return launches
 
 
+def rwkv_route_errors(torch, cfg, model, p) -> dict:
+    """On prompt ``p`` (448 tokens): the last logits of the kernel route
+    against the default route, and of one decode step after a 447-token
+    prefill against the 448-token prefill; each as max |a - b| over the
+    second's largest magnitude. Every logit must be finite. Returns the
+    errors and the default route's logits."""
+    from repro_torch.models import api
+    from repro_torch.models import rwkv6 as R
+
+    with torch.no_grad():
+        l_kernel = R.rwkv_forward(cfg, model, {"tokens": p[None]}, use_kernel=True)[0][:, -1]
+        l_default = R.rwkv_forward(cfg, model, {"tokens": p[None]}, use_kernel=False)[0][:, -1]
+    l_pre, state = api.prefill(cfg, model, {"tokens": p[None, :-1]}, max_len=512)
+    l_dec, _ = api.decode_step(cfg, model, state, torch.as_tensor(p[-1:], device="cuda"),
+                               torch.full((1,), len(p) - 1, dtype=torch.long, device="cuda"))
+    for name, t in (("kernel", l_kernel), ("default", l_default), ("prefill_447", l_pre), ("decode", l_dec)):
+        check(bool(torch.isfinite(t).all()) and t.shape == (1, cfg.vocab), f"{cfg.param_dtype} {name} logits finite")
+    return dict(kernel_vs_default=max_err(l_kernel, l_default) / l_default.abs().max().item(),
+                decode_vs_prefill=max_err(l_dec, l_kernel) / l_kernel.abs().max().item(),
+                logit_scale=l_kernel.abs().max().item()), l_default
+
+
+def rwkv_layer_route_errors(torch, cfg, model, p) -> list:
+    """Every layer's time-mix on one shared input (the kernel route's own
+    activations), through both WKV routes: max |kernel - default| over the
+    default output's largest magnitude, per layer. One bf16 rounding apart
+    at most, before any later layer can compound it."""
+    from repro_torch.models import rwkv6 as R
+    from repro_torch.models.common import apply_norm, embed
+
+    errs = []
+    with torch.no_grad():
+        x = embed(cfg, model.embed, torch.as_tensor(p, device="cuda")[None].long())
+        st = R.init_state(cfg, 1, device="cuda")
+        for l, layer in enumerate(model.layers):
+            h = apply_norm(cfg, layer.ln1, x)
+            a_k = R._time_mix(cfg, layer, h, st["x_tm"][l], st["wkv"][l], True)[0]
+            a_d = R._time_mix(cfg, layer, h, st["x_tm"][l], st["wkv"][l], False)[0]
+            errs.append(max_err(a_k, a_d) / a_d.abs().max().item())
+            x, _ = R._layer(cfg, layer, x, {k: st[k][l] for k in R.STATE_KEYS}, True)
+    return errs
+
+
+def phase_serve_rwkv(torch):
+    """Full-width rwkv6-7b behind ServeEngine, the WKV-6 kernel on every
+    prefill (every prompt length is a multiple of 64), none in decode."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.progress import ProgressEngine
+    from repro_torch.kernels import rwkv6_scan as wk
+    from repro_torch.models import api
+    from repro_torch.models import rwkv6 as R
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = get_config("rwkv6-7b").replace(attn_impl="flash")
+    t0 = time.perf_counter()
+    model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    lens = [RWKV_SERVE_S[i % len(RWKV_SERVE_S)] for i in range(8)]
+    prompts = [rng.integers(0, cfg.vocab, (n,)) for n in lens]
+
+    # warm-up (library handles, allocator) outside the counted run
+    for p in prompts[: len(RWKV_SERVE_S)]:
+        api.prefill(cfg, model, {"tokens": p[None]}, max_len=512)
+    torch.cuda.synchronize()
+
+    pe = ProgressEngine()
+    eng = ServeEngine(cfg, model, max_batch=4, max_len=512, progress_engine=pe, step_schedule=True)
+    decode_launches = []
+    plain_decode = eng._decode
+
+    def counted_decode(*a):  # K3 launches inside each decode step
+        before = wk.wkv6.launches
+        out = plain_decode(*a)
+        decode_launches.append(wk.wkv6.launches - before)
+        return out
+
+    eng._decode = counted_decode
+    torch.cuda.reset_peak_memory_stats()
+    wk.wkv6.launches = 0  # count the main path only
+    errors = []
+
+    def drive():
+        try:
+            eng.run_until_done()
+        except BaseException as e:  # surfaced on the main thread below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+    submitted = time.perf_counter()
+    worker = threading.Thread(target=drive, name="serve-rwkv-driver")
+    worker.start()
+    done_at, order = {}, []
+    pending = list(reqs)
+    deadline = time.monotonic() + 600
+    while pending and time.monotonic() < deadline and not errors:
+        r = eng.wait_any(pending, timeout=1.0)
+        if r is not None:
+            done_at[r.rid] = time.perf_counter()
+            order.append(r.rid)
+            pending.remove(r)
+    worker.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wk.wkv6.launches
+    decode_steps = eng.step_schedule.stats()["replays"]
+    pe.stop_all()
+    if errors:
+        raise errors[0]
+    check(not worker.is_alive(), "serve driver thread finished")
+    check(not pending, f"{len(pending)} requests never completed")
+    check(all(r.done and len(r.out_tokens) == 16 for r in reqs),
+          f"every request has 16 tokens: {[len(r.out_tokens) for r in reqs]}")
+    check(launches == cfg.n_layers * len(reqs), f"wkv6 launches {launches} == {cfg.n_layers} layers x {len(reqs)} prefills")
+    check(len(decode_launches) > 0 and sum(decode_launches) == 0, f"no wkv6 launch in {len(decode_launches)} decode steps")
+    toks = sum(len(r.out_tokens) for r in reqs)
+    lats = [done_at[r.rid] - submitted for r in reqs]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # one 448-token prompt: the kernel route against the default route and
+    # a decode step after a 447-token prefill against the 448-token prefill,
+    # in bf16 (reported, and every layer held on a shared input) and on an
+    # fp32 copy of the same weights (held whole-model)
+    p = prompts[2]
+    check(len(p) == 448, "the third prompt has 448 tokens")
+    bf16, l_default16 = rwkv_route_errors(torch, cfg, model, p)
+    layer_errs = rwkv_layer_route_errors(torch, cfg, model, p)
+    tol_layer = 2e-2  # the reference's kernel-vs-default bound (test_kernels.py:114)
+    check(max(layer_errs) <= tol_layer, f"every layer's time-mix, kernel vs default route: {max(layer_errs)} <= {tol_layer}")
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model32 = R.RWKVLM(cfg32, "cuda")
+    model32.load_state_dict(model.state_dict())  # same weights, widened
+    fp32, l_default32 = rwkv_route_errors(torch, cfg32, model32, p)
+    # the model's own bf16 rounding noise at this depth: the default route
+    # in bf16 against the same route in fp32
+    bf16["default_bf16_vs_fp32"] = max_err(l_default16, l_default32) / l_default32.abs().max().item()
+    del model32
+    torch.cuda.empty_cache()
+    tol_route32 = 1e-3  # fp32 everywhere: only summation order differs
+    tol_decode = 5e-2  # the reference's decode-vs-full bound (test_models_smoke.py:107)
+    check(fp32["kernel_vs_default"] <= tol_route32,
+          f"fp32 kernel vs default route, last logits: rel {fp32['kernel_vs_default']} <= {tol_route32}")
+    check(fp32["decode_vs_prefill"] <= tol_decode,
+          f"fp32 decode after 447 vs prefill of 448: rel {fp32['decode_vs_prefill']} <= {tol_decode}")
+
+    # where the serve time goes: one 448-token prefill and one batched
+    # decode step, each alone on the host clock between two syncs
+    cache = api.init_cache(cfg, 4, 512, "cuda")
+    step_tok = torch.zeros(4, dtype=torch.long, device="cuda")
+    step_pos = torch.full((4,), 400, dtype=torch.long, device="cuda")
+    prefill_ms = host_ms(torch, lambda: api.prefill(cfg, model, {"tokens": p[None]}, max_len=512))
+    decode_ms = host_ms(torch, lambda: api.decode_step(cfg, model, cache, step_tok, step_pos))
+    # a decode step reads every weight once and reads and writes the state
+    state_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    param_bytes = sum(q.numel() * q.element_size() for q in model.parameters())
+    decode_bound_ms = (param_bytes + 2 * state_bytes) / H100_BYTES_PER_S * 1e3
+    del cache
+
+    emit("serve_rwkv", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.d_model // 64,
+         params=n_params, param_counts_total=cfg.param_counts()["total"], init_s=init_s, requests=len(reqs),
+         prompt_lens=lens, max_new_tokens=16, max_batch=4, max_len=512, tokens=toks, wall_s=wall,
+         tokens_per_s=toks / wall,
+         latency_p50_ms=float(np.percentile(lats, 50) * 1e3), latency_p95_ms=float(np.percentile(lats, 95) * 1e3),
+         completion_order=order, wkv6_launches=launches, wkv6_launches_in_decode=sum(decode_launches),
+         prefills=len(reqs), decode_steps=decode_steps, prefill_448_host_ms=prefill_ms,
+         decode_step_host_ms=decode_ms, decode_step_bound_ms=decode_bound_ms, peak_mem_gb=peak_gb,
+         logits_bf16=bf16, logits_fp32=fp32, tol_fp32_kernel_vs_default=tol_route32,
+         tol_decode_vs_prefill=tol_decode, layer_time_mix_rel_bf16=layer_errs, tol_layer=tol_layer,
+         device=torch.cuda.get_device_name(0))
+    return dict(launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -426,14 +688,22 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     info = _build.build_info()
-    regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln and " 0 bytes spill" not in ln]
+    regs, src = {}, None
+    for ln in info["log"].splitlines():  # the first four register/spill lines of each source
+        if ln.startswith("== "):
+            src = ln[3:].strip()
+            regs[src] = []
+        elif src and len(regs[src]) < 4 and ("registers" in ln or "spill" in ln and " 0 bytes spill" not in ln):
+            regs[src].append(ln.strip())
     emit("build", seconds=time.perf_counter() - t0, compiled=info["built"], library=str(Path(info["path"]).relative_to(ROOT)),
-         ptxas=regs[:8])
+         ptxas=regs)
 
     timer = Timer(torch)
     kern = phase_kernels(torch, timer)
     eng, serve = phase_serve(torch)
     enq = phase_enqueue(torch, eng)
+    del eng
+    rwkv = phase_serve_rwkv(torch)
 
     ft = kern["flash_times"][-1]  # the longest served prompt, S = 384
     entries = [
@@ -449,6 +719,10 @@ def main() -> int:
              replaces="src/repro/kernels/dt_pack.py:78", launches=enq["dt_unpack"], max_abs_err=0.0,
              ms=kern["unpack"]["ms"], plain_ms=kern["unpack"]["plain_ms"], bound_ms=kern["unpack"]["bound_ms"],
              bound_by="bytes", library_ms=kern["unpack"]["library_ms"]),
+        dict(name="wkv6", route="cuda", source="src/repro_torch/csrc/rwkv6_scan.cu",
+             replaces="src/repro/kernels/rwkv6_scan.py:81", launches=rwkv["launches"],
+             max_abs_err=kern["wkv"]["max_abs_err"], ms=kern["wkv"]["ms"], plain_ms=kern["wkv"]["plain_ms"],
+             bound_ms=kern["wkv"]["bound_ms"], bound_by=kern["wkv"]["bound_by"], library_ms=None),
     ]
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} launched on the main path")

@@ -10,10 +10,10 @@ from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import qwen1p5_0p5b
+from repro_torch.configs import qwen1p5_0p5b, rwkv6_7b
 from repro_torch.models.config import ModelConfig
 
-_MODULES = {m.ARCH: m for m in (qwen1p5_0p5b,)}
+_MODULES = {m.ARCH: m for m in (qwen1p5_0p5b, rwkv6_7b)}
 
 #: the JAX package's architectures that wait for later slices of the port
 PENDING_ARCHS = (
@@ -23,7 +23,6 @@ PENDING_ARCHS = (
     "internlm2-20b",
     "gemma3-4b",
     "phi-3-vision-4.2b",
-    "rwkv6-7b",
     "jamba-v0.1-52b",
     "whisper-tiny",
 )

@@ -1,9 +1,10 @@
 """Public wrappers around the port's kernels, mirroring
 ``repro.kernels.ops``: the integration points the models and the enqueue
-path call (flash attention for GQA layers, dt_pack for datatype-described
-send buffers). Each wrapper launches the CUDA kernel for CUDA tensors and
-the kernel's plain PyTorch version for CPU tensors. ``wkv6`` waits for the
-RWKV-6 kernel (ROADMAP K3).
+path call (flash attention for GQA layers, the chunked WKV for RWKV-6,
+dt_pack for datatype-described send buffers). Each wrapper launches the
+CUDA kernel for CUDA tensors and the kernel's plain PyTorch version for CPU
+tensors. The reference's ``interpret`` switch has no counterpart: the
+tensor's device decides.
 """
 
 from __future__ import annotations
@@ -11,14 +12,21 @@ from __future__ import annotations
 from repro_torch.core import datatype as dt
 from repro_torch.kernels import dt_pack as _dtp
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rwkv6_scan as _wkv
 
-__all__ = ["gqa_flash_attention", "pack_datatype", "unpack_datatype"]
+__all__ = ["gqa_flash_attention", "wkv6", "pack_datatype", "unpack_datatype"]
 
 
 def gqa_flash_attention(q, k, v, causal: bool = True):
     """q (B,S,nq,hd); k/v (B,S,nkv,hd) → (B,S,nq,hd). GQA by head index:
     query head h reads KV head h // (nq // nkv) — no repeated KV copy."""
     return _fa.flash_attention(q, k, v, causal=causal)
+
+
+def wkv6(w, r, k, v, bonus, state0, chunk: int = 64):
+    """w/r/k/v (B,S,H,64) fp32; bonus (H,64); state0 (B,H,64,64) →
+    (y (B,S,H,64), state (B,H,64,64)). S must be a multiple of ``chunk``."""
+    return _wkv.wkv6(w, r, k, v, bonus, state0, chunk=chunk)
 
 
 def _kernel_info(dtype_descr: dt.Datatype, info, itemsize: int):

@@ -1,12 +1,17 @@
 """Serving driver: continuous-batching engine + request-level stats.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke --attn-impl flash
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --no-smoke \
+        --attn-impl flash --prompt-lens 128,256,448 --max-len 512
 
 Runs on the card by default (``--device cpu`` for the plain path). The
 JAX driver's ``--smoke`` flag cannot be switched off; here it is
 ``--smoke/--no-smoke``. ``--prompt-lens`` sets the prompt lengths the
-requests cycle over (default: the JAX driver's 4..10 token prompts); the
-flash kernel serves prefills whose length is a multiple of 128.
+requests cycle over (default: the JAX driver's 4..10 token prompts).
+``--attn-impl flash`` selects the sequence mixer's kernel: for the
+transformer, the flash kernel on prefills whose length is a multiple of
+128; for RWKV-6, the WKV-6 kernel on prefills whose length is a multiple
+of 64. Other prefills and every decode step take the plain path.
 """
 
 from __future__ import annotations
@@ -29,7 +34,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction, default=True)
     ap.add_argument("--attn-impl", choices=("einsum", "flash"), default=None,
-                    help="override the config's attention implementation")
+                    help="override the config's sequence-mixer implementation: flash selects the "
+                         "flash kernel (transformer, prefill length %% 128 == 0) or the WKV-6 "
+                         "kernel (rwkv6, prefill length %% 64 == 0)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
@@ -81,7 +88,8 @@ def main(argv=None):
     print(
         f"[serve] latency p50={np.percentile(lats,50)*1e3:.0f}ms "
         f"p95={np.percentile(lats,95)*1e3:.0f}ms max_batch={args.max_batch} "
-        f"(continuous batching over {args.max_batch} KV slots)"
+        f"(continuous batching over {args.max_batch} "
+        f"{'recurrent-state' if cfg.family == 'ssm_rwkv' else 'KV'} slots)"
     )
 
 

@@ -1,16 +1,16 @@
 """Public model API of the port: the JAX package's dispatch surface.
 
-    init_params(cfg, generator, device)       → TransformerLM (nn.Module)
+    init_params(cfg, generator, device)       → TransformerLM | RWKVLM (nn.Module)
     loss_fn(cfg, params, batch)               → (loss, metrics)
-    init_cache(cfg, B, max_len, device)       → decode cache
+    init_cache(cfg, B, max_len, device)       → decode cache / recurrent state
     prefill(cfg, params, batch, max_len)      → (last_logits, cache)
     decode_step(cfg, params, cache, tok, pos) → (logits, cache)
 
 Batches are dicts with ``tokens`` (numpy or tensor) and an optional
-``loss_mask``. Only the transformer family is ported; the other families
-(RWKV, Jamba, Whisper) raise ``NotImplementedError`` with a pointer to
-ROADMAP.md. Entry points that create tensors run on ``cuda`` unless the
-caller passes ``device="cpu"``; the others run where ``params`` live.
+``loss_mask``. The dense transformer and RWKV-6 families are ported; Jamba
+and Whisper raise ``NotImplementedError`` with a pointer to ROADMAP.md.
+Entry points that create tensors run on ``cuda`` unless the caller passes
+``device="cpu"``; the others run where ``params`` live.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.config import ModelConfig
 
@@ -28,7 +29,7 @@ def _family(cfg: ModelConfig) -> str:
     if cfg.encdec:
         f = "encdec"
     elif cfg.family == "ssm_rwkv":
-        f = "rwkv"
+        return "rwkv"
     elif cfg.family == "hybrid":
         f = "jamba"
     else:
@@ -39,25 +40,30 @@ def _family(cfg: ModelConfig) -> str:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
-    _family(cfg)
+    if _family(cfg) == "rwkv":
+        return rwkv_mod.init_rwkv(cfg, generator, resolve_device(device))
     return tf_mod.init_lm(cfg, generator, resolve_device(device))
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
-    _family(cfg)
+    if _family(cfg) == "rwkv":
+        return rwkv_mod.rwkv_loss(cfg, params, batch)
     return tf_mod.lm_loss(cfg, params, batch)
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda"):
-    _family(cfg)
+    if _family(cfg) == "rwkv":
+        return rwkv_mod.init_state(cfg, B, max_len, resolve_device(device))
     return tf_mod.init_cache(cfg, B, max_len, resolve_device(device))
 
 
 def prefill(cfg: ModelConfig, params, batch, max_len=None):
-    _family(cfg)
+    if _family(cfg) == "rwkv":
+        return rwkv_mod.rwkv_prefill(cfg, params, batch, max_len)
     return tf_mod.prefill(cfg, params, batch, max_len)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
-    _family(cfg)
+    if _family(cfg) == "rwkv":
+        return rwkv_mod.rwkv_decode_step(cfg, params, cache, tokens, pos)
     return tf_mod.decode_step(cfg, params, cache, tokens, pos)

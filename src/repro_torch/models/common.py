@@ -1,4 +1,4 @@
-"""Shared neural building blocks of the dense transformer, in PyTorch.
+"""Shared neural building blocks of the dense transformer and RWKV-6, in PyTorch.
 
 Mirrors the dense parts of ``repro.models.common`` operation for
 operation, so the two packages agree within rounding:
@@ -13,10 +13,15 @@ operation, so the two packages agree within rounding:
 * activations run in ``cfg.compute_dtype``, norms and softmax in fp32.
 
 Parameters are any string-keyed mapping of tensors (the port's
-``nn.ParameterDict``s). The flash gate of :func:`gqa_attention_full` is the
-reference's: ``attn_impl == "flash"``, causal, no sliding window and
-``S % 128 == 0``; it calls the flash kernel for CUDA tensors and its plain
-version for CPU tensors.
+``nn.ParameterDict``s). The init helpers (``dense_init``, ``norm_params``,
+``embed_params``) keep the reference's distributions but draw from a
+``torch.Generator``, whose numbers differ from ``jax.random``'s: tests
+carry JAX weights across with ``models.convert.params_from_numpy``.
+
+The flash gate of :func:`gqa_attention_full` is the reference's:
+``attn_impl == "flash"``, causal, no sliding window and ``S % 128 == 0``;
+it calls the flash kernel for CUDA tensors and its plain version for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 
 __all__ = [
+    "dense_init",
+    "norm_params",
+    "embed_params",
     "rms_norm",
     "apply_norm",
     "rope_freqs",
@@ -45,6 +53,36 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
+
+# ----------------------------------------------------------------------
+# init
+# ----------------------------------------------------------------------
+
+
+def dense_init(generator: torch.Generator, shape, scale=None, dtype=torch.bfloat16, device=None):
+    """Normal draws times ``scale`` (default ``1/sqrt(shape[0])``, the
+    reference's fan-in), drawn in fp32 on the generator's device and cast."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    draw = torch.randn(tuple(shape), generator=generator, device=generator.device, dtype=torch.float32)
+    return (draw * scale).to(device=device or generator.device, dtype=dtype)
+
+
+def norm_params(cfg: ModelConfig, d: int, device) -> dict:
+    """Norm weights as the reference initialises them: layernorm ``w = 1,
+    b = 0``; rmsnorm (scaled by ``1 + w``) ``w = 0``."""
+    if cfg.norm == "layernorm":
+        return {"w": torch.ones((d,), dtype=cfg.pdtype, device=device),
+                "b": torch.zeros((d,), dtype=cfg.pdtype, device=device)}
+    return {"w": torch.zeros((d,), dtype=cfg.pdtype, device=device)}
+
+
+def embed_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+    """Token embedding at scale 0.02 and, when untied, an output projection
+    at ``1/sqrt(d_model)``."""
+    p = {"tok": dense_init(generator, (cfg.vocab, cfg.d_model), 0.02, cfg.pdtype, device)}
+    if not cfg.tie_embeddings:
+        p["out"] = dense_init(generator, (cfg.d_model, cfg.vocab), None, cfg.pdtype, device)
+    return p
 
 # ----------------------------------------------------------------------
 # norms

@@ -143,7 +143,8 @@ class ModelConfig:
     moe_scatter_combine: bool = False    # 1 scatter-add instead of k gathers
     attn_impl: str = "einsum"      # einsum | flash (CUDA kernel on the card,
     #                                its plain version on CPU — full-seq
-    #                                causal self-attention paths only)
+    #                                causal self-attention paths, and the
+    #                                RWKV-6 WKV in prefills of S % 64 == 0)
     fsdp_gather_layers: bool = False  # explicit per-layer weight gather to
     #                                TP-only layout inside the scan (fixes
     #                                GSPMD's partial-AR choice under fsdp)

@@ -3,11 +3,14 @@
 :func:`params_from_numpy` takes the JAX params pytree with every leaf
 already converted to numpy (``np.asarray``): nested dicts/lists/tuples,
 per-layer leaves stacked on axis 0 as ``repro.models.transformer.init_lm``
-builds them. It returns a :class:`~repro_torch.models.transformer.TransformerLM`
-holding the same values. ``np.asarray`` of a JAX bfloat16 array is an
-``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` refuses, so such
-leaves travel as their 16-bit pattern (``int16``) and are re-viewed as
-``torch.bfloat16``. Nothing here imports JAX.
+and ``repro.models.rwkv6.init_rwkv`` (``jax.vmap`` over layers) build them.
+It returns a :class:`~repro_torch.models.transformer.TransformerLM`, or an
+:class:`~repro_torch.models.rwkv6.RWKVLM` for the RWKV family, holding the
+same values; a key set that differs from the port's raises.
+``np.asarray`` of a JAX bfloat16 array is an ``ml_dtypes.bfloat16``
+array, which ``torch.from_numpy`` refuses, so such leaves travel as their
+16-bit pattern (``int16``) and are re-viewed as ``torch.bfloat16``.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.rwkv6 import RWKVLM
 from repro_torch.models.transformer import TransformerLM, layer_groups
 
 __all__ = ["params_from_numpy", "tensor_from_numpy"]
@@ -39,9 +43,39 @@ def _assign(dst: torch.nn.Parameter, src, what: str) -> None:
     dst.copy_(t)
 
 
+def _same_keys(mod, src, what: str) -> None:
+    if set(mod.keys()) != set(src.keys()):
+        raise ValueError(f"{what}: keys {sorted(src)} != {sorted(mod.keys())}")
+
+
+def _rwkv_from_numpy(cfg: ModelConfig, tree, device) -> RWKVLM:
+    model = RWKVLM(cfg, device)
+    _same_keys(model.embed, tree["embed"], "embed")
+    for k, p in model.embed.items():
+        _assign(p, tree["embed"][k], f"embed.{k}")
+    _same_keys(model.final_norm, tree["final_norm"], "final_norm")
+    for k, p in model.final_norm.items():
+        _assign(p, tree["final_norm"][k], f"final_norm.{k}")
+    src = tree["layers"]
+    expected = model.layers[0].leaf_names()
+    if set(src) != expected:
+        raise ValueError(f"layers: keys {sorted(src)} != {sorted(expected)}")
+    for l, layer in enumerate(model.layers):
+        for part in ("ln1", "ln2", "ln_x"):
+            mod = getattr(layer, part)
+            _same_keys(mod, src[part], f"layers.{part}")
+            for k, p in mod.items():
+                _assign(p, np.asarray(src[part][k])[l], f"layers.{part}.{k}[{l}]")
+        for k, p in layer.p.items():
+            _assign(p, np.asarray(src[k])[l], f"layers.{k}[{l}]")
+    return model
+
+
 @torch.no_grad()
-def params_from_numpy(cfg: ModelConfig, tree, device="cuda") -> TransformerLM:
+def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     """The port's model holding the values of the JAX params ``tree``."""
+    if cfg.family == "ssm_rwkv":
+        return _rwkv_from_numpy(cfg, tree, resolve_device(device))
     model = TransformerLM(cfg, resolve_device(device))
     for k, p in model.embed.items():
         _assign(p, tree["embed"][k], f"embed.{k}")

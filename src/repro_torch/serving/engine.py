@@ -1,4 +1,5 @@
-"""Batched serving engine: continuous batching over a slotted KV cache.
+"""Batched serving engine: continuous batching over a slotted KV cache
+(or, for RWKV-6, a slotted recurrent state).
 
 Requests are admitted into free slots; each ``step()`` decodes one token
 for every active slot (a single ``decode_step`` over the whole batch —
@@ -53,8 +54,17 @@ class Request:
 
 
 def _leaves(cache):
-    """The cache's tensors in a fixed order (groups → pattern → K, V)."""
-    return [t for group in cache for entry in group for t in entry]
+    """The tensors of a nested dict/list/tuple cache in a fixed order: dict
+    keys sorted, sequences in order — the order ``jax.tree`` walks. That
+    covers the transformer's groups → pattern → (K, V) and RWKV's
+    ``{"wkv", "x_cm", "x_tm"}`` state."""
+    if isinstance(cache, torch.Tensor):
+        return [cache]
+    if isinstance(cache, dict):
+        return [t for key in sorted(cache) for t in _leaves(cache[key])]
+    if isinstance(cache, (list, tuple)):
+        return [t for sub in cache for t in _leaves(sub)]
+    raise TypeError(f"cache leaf of type {type(cache).__name__} is not a tensor")
 
 
 def _cache_signature(cache):

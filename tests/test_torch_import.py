@@ -95,8 +95,8 @@ def test_cuda_requested_without_cuda_raises(name):
 def test_unported_configs_raise_with_roadmap_pointer():
     from repro_torch.configs import get_config, list_archs
 
-    assert list_archs() == ["qwen1.5-0.5b"]
+    assert list_archs() == ["qwen1.5-0.5b", "rwkv6-7b"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("rwkv6-7b")
+        get_config("jamba-v0.1-52b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")

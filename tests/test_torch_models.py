@@ -158,7 +158,7 @@ def test_init_params_uses_reference_scales():
 
 @pytest.mark.parametrize("arch_kw,match", [
     (dict(local_global_pattern=5), "local/global"),
-    (dict(family="ssm_rwkv"), "rwkv"),
+    (dict(family="hybrid"), "jamba"),
     (dict(mtp_depth=1), "multi-token"),
 ])
 def test_unported_model_parts_raise(arch_kw, match):
