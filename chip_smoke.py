@@ -2,6 +2,7 @@
 """End-to-end check of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --timer-ab   # only time flash and K3 under both timers
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds every
 kernel against its plain PyTorch version on the card, serves requests with
@@ -53,6 +54,12 @@ KV_SPAN = 256
 WKV_SWEEP = ((64, 32), (128, 64), (256, 64), (96, 32))
 WKV_SERVE = (1, 448, 64)
 RWKV_SERVE_S = (128, 256, 448)
+# device ms of the first designs at the main-path shapes (flash bf16 at
+# S = 384, K3 at the served shape), before the tensor-core and per-chunk
+# redesigns, as earlier versions of this script measured them on an NVIDIA
+# H100 80GB HBM3 at 700.00 W; printed on a line of their own as recorded
+# values, not measured in this run
+FIRST_DESIGN_MS = {"flash_attention": 0.05554, "wkv6": 0.3134}
 
 
 def emit(phase: str, **kw) -> None:
@@ -76,10 +83,15 @@ def nvidia_smi_line() -> str:
 class Timer:
     """Median device time of a callable over TIMED_REPS launches, each
     timed with its own CUDA events, with the 50 MB L2 flushed before each
-    launch (the serving path finds these operands cold)."""
+    launch (the serving path finds these operands cold). A short device
+    spin after the flush keeps the card busy while the host enqueues the
+    call, so the events time the device's work and not the host's."""
 
-    def __init__(self, torch):
+    SPIN_CYCLES = 200_000  # ~0.1 ms at the H100's clocks, longer than a wrapper's host time
+
+    def __init__(self, torch, spin: bool = True):
         self.torch = torch
+        self.spin_cycles = self.SPIN_CYCLES if spin else 0
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
     def __call__(self, fn) -> float:
@@ -89,6 +101,8 @@ class Timer:
         pairs = []
         for _ in range(TIMED_REPS):
             self.flush.zero_()
+            if self.spin_cycles:
+                torch.cuda._sleep(self.spin_cycles)
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
             fn()
@@ -151,6 +165,10 @@ def phase_kernels(torch, timer):
         (1, 256, 8, 8, 128, torch.float32, True, 2e-5),  # hd 128
         (1, 256, 16, 16, 64, torch.float32, False, 2e-5),  # non-causal
         (2, 128, 16, 4, 128, torch.bfloat16, True, 2e-2),
+        (1, 256, 16, 16, 64, torch.bfloat16, False, 2e-2),  # tensor cores, non-causal
+        (1, 512, 16, 16, 64, torch.bfloat16, True, 2e-2),  # the engine's max_len
+        (1, 256, 16, 4, 64, torch.bfloat16, True, 2e-2),  # GQA 16:4 at hd 64
+        (1, 256, 8, 8, 128, torch.bfloat16, False, 2e-2),  # hd 128, every K/V tile
     ]
     flash_rows = []
     serve_err = 0.0
@@ -178,9 +196,9 @@ def phase_kernels(torch, timer):
         nbytes = 4 * q.numel() * q.element_size()  # q, k, v read once, out written once
         flops = 4 * 16 * 64 * S * (S + 1) // 2  # QK^T and PV over the causal triangle
         t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
-        flash_times.append(dict(S=S, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes, flops=flops,
-                                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                                fp32_pipe_ms=flops / H100_FP32_FLOPS * 1e3))
+        flash_times.append(dict(S=S, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ms_over_library=ms / lib_ms,
+                                bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                                bound_by="bytes" if t_bytes >= t_ops else "operations"))
     emit("kernels", kernel="flash_attention", cases=flash_rows, timings=flash_times)
 
     # dt_pack / dt_unpack: byte-exact over the reference sweep shapes and
@@ -285,6 +303,17 @@ def wkv6_kernel_rows(torch, timer, gen):
     strong = dict(S=64, chunk=32, w=1e-6, finite=bool(torch.isfinite(y).all()), max_abs_err=max_err(y, yp),
                   ok=bool(torch.isfinite(y).all()) and within(y, yp, 1e-3, 1e-2))
     check(strong["ok"], f"wkv6 strong decay finite and within 1e-3/1e-2: {strong}")
+
+    # more (batch, head) pairs than SMs, and one chunk entered from state0
+    for B, S, H in ((4, 448, 64), (1, 64, 64)):
+        args = inputs(B, S, H)
+        y, st = wk.wkv6(*args, chunk=64)
+        torch.cuda.synchronize()
+        yp, sp = wk.wkv6_plain(*args, chunk=64)
+        row = dict(B=B, S=S, H=H, chunk=64, tol=5e-4, max_abs_err=max(max_err(y, yp), max_err(st, sp)),
+                   ok=within(y, yp, 5e-4) and within(st, sp, 5e-4))
+        rows.append(row)
+        check(row["ok"], f"wkv6 vs plain within 5e-4: {row}")
 
     B, S, H = WKV_SERVE
     args = inputs(B, S, H)
@@ -671,8 +700,39 @@ def phase_serve_rwkv(torch):
     return dict(launches=launches)
 
 
+def phase_timer_ab(torch) -> None:
+    """Flash (bf16, S = 384) and K3 (the served shape) timed with and
+    without the Timer's device spin, in turns (spin, none, none, spin), so
+    that times taken before the spin can be set beside times taken with it.
+    Run as ``chip_smoke.py --timer-ab``; copied beside another checkout's
+    ``src/``, it times that checkout's kernels."""
+    from repro_torch.kernels import flash_attention as fa, rwkv6_scan as wk
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    q, k, v = (n(1, FLASH_SERVE_S[-1], 16, 64).to(torch.bfloat16) for _ in range(3))
+    B, S, H = WKV_SERVE
+    wkv_args = (torch.sigmoid(n(B, S, H, 64)) * 0.5 + 0.45, n(B, S, H, 64), n(B, S, H, 64), n(B, S, H, 64),
+                n(H, 64) * 0.1, n(B, H, 64, 64) * 0.1)
+    timers = {"spin": Timer(torch), "no_spin": Timer(torch, spin=False)}
+    out = {}
+    for name, fn in (("flash_attention", lambda: fa.flash_attention(q, k, v)),
+                     ("wkv6", lambda: wk.wkv6(*wkv_args, chunk=64))):
+        out[name] = {key: [] for key in timers}
+        for key in ("spin", "no_spin", "no_spin", "spin"):
+            out[name][key].append(timers[key](fn))
+    emit("timer_ab", **out)
+
+
 def main() -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--timer-ab", action="store_true",
+                    help="only build and time flash and K3 with and without the Timer's device spin")
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this check needs an NVIDIA GPU", file=sys.stderr)
@@ -689,15 +749,20 @@ def main() -> int:
     _build.load()
     info = _build.build_info()
     regs, src = {}, None
-    for ln in info["log"].splitlines():  # the first four register/spill lines of each source
+    for ln in info["log"].splitlines():  # every kernel's registers, shared memory and spills
         if ln.startswith("== "):
             src = ln[3:].strip()
             regs[src] = []
-        elif src and len(regs[src]) < 4 and ("registers" in ln or "spill" in ln and " 0 bytes spill" not in ln):
-            regs[src].append(ln.strip())
+        elif src and "Compiling entry function" in ln:
+            regs[src].append(ln.split("'")[1])
+        elif src and ("registers" in ln or "spill" in ln):
+            regs[src].append(ln.split(":", 1)[-1].strip())
     emit("build", seconds=time.perf_counter() - t0, compiled=info["built"], library=str(Path(info["path"]).relative_to(ROOT)),
          ptxas=regs)
 
+    if args.timer_ab:
+        phase_timer_ab(torch)
+        return 0
     timer = Timer(torch)
     kern = phase_kernels(torch, timer)
     eng, serve = phase_serve(torch)
@@ -728,6 +793,7 @@ def main() -> int:
         check(e["launches"] > 0, f"{e['name']} launched on the main path")
         check(all(isinstance(e[k], (int, float)) and math.isfinite(e[k]) for k in ("ms", "plain_ms", "bound_ms")),
               f"{e['name']} timings measured")
+    emit("first_design", measured_in_this_run=False, ms=FIRST_DESIGN_MS)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

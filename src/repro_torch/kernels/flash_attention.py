@@ -4,7 +4,10 @@ Replaces the Pallas TPU kernel ``flash_attention_kernel`` /
 ``flash_attention`` (``src/repro/kernels/flash_attention.py``) together
 with the GQA head folding of ``repro.kernels.ops.gqa_flash_attention``.
 The CUDA source, with its note on what bounds it on the card and what its
-design does about that, is ``csrc/flash_attention.cu``.
+design does about that, is ``csrc/flash_attention.cu``: bf16 runs on the
+tensor cores (``wgmma``, K/V tiles through a two-stage ``cp.async`` ring,
+P kept in registers), fp32 on the CUDA cores. The wrapper picks the kernel
+by dtype; neither falls back to the other.
 
 Layout is the JAX package's: q ``(B, S, nq, hd)``, k/v ``(B, S, nkv, hd)``,
 out ``(B, S, nq, hd)`` in q's dtype. Query head ``h`` reads KV head
@@ -23,7 +26,7 @@ import math
 
 import torch
 
-__all__ = ["flash_attention", "flash_attention_plain", "KERNEL_HEAD_DIMS", "KERNEL_BLOCK"]
+__all__ = ["flash_attention", "flash_attention_plain", "tensor_core_layout_error", "KERNEL_HEAD_DIMS", "KERNEL_BLOCK"]
 
 #: head dims the CUDA kernel is instantiated for
 KERNEL_HEAD_DIMS = (64, 128)
@@ -46,6 +49,19 @@ def flash_attention_plain(q, k, v, causal: bool = True):
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bnst,btnd->bsnd", p, vf).to(q.dtype)
+
+
+def tensor_core_layout_error(ptrs, strides):
+    """Why the bf16 kernel cannot read q/k/v with these base addresses
+    (bytes) and ``(batch, seq, head)`` element strides, or ``None``. Its
+    16-byte ``cp.async`` copies need every base 16-byte aligned and every
+    stride a multiple of 8 bf16 elements."""
+    for name, ptr, st in zip("qkv", ptrs, strides):
+        if ptr % 16:
+            return f"flash_attention bf16 kernel needs 16-byte aligned {name}, got address {ptr:#x}"
+        if any(s_ % 8 for s_ in st):
+            return f"flash_attention bf16 kernel needs {name} strides that are multiples of 8 elements, got {tuple(st)}"
+    return None
 
 
 def _check(q, k, v) -> None:
@@ -81,6 +97,10 @@ def flash_attention(q, k, v, causal: bool = True):
         raise ValueError(f"flash_attention kernel needs S % {KERNEL_BLOCK} == 0, got S={S}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention kernel needs a unit stride over hd")
+    if q.dtype == torch.bfloat16:
+        err = tensor_core_layout_error([t.data_ptr() for t in (q, k, v)], [t.stride()[:3] for t in (q, k, v)])
+        if err:
+            raise ValueError(err)
     from repro_torch.kernels import _build
 
     lib = _build.load()

@@ -3,10 +3,13 @@
 Replaces the Pallas TPU kernel ``wkv6_kernel`` / ``wkv6_chunked``
 (``src/repro/kernels/rwkv6_scan.py``). The CUDA source, with its note on
 what bounds it on the card (the exp of the intra-chunk triangle, ahead of
-the bytes and the fp32 operations) and what its design does about that
-(each exp once, on the fly, for ``j < t`` only; the ``(c, c, hs)``
-log-difference tensor never stored; tiles and the state in shared memory),
-is ``csrc/rwkv6_scan.cu``.
+the bytes and the fp32 operations) and what its design does about that,
+is ``csrc/rwkv6_scan.cu``. One call launches two passes over a grid of
+one block per (batch, head, chunk): the first computes everything a chunk
+needs of itself (the scores for ``j < t`` only, each exp on the fly, the
+intra-chunk ``y``, the chunk's state increment ``U_c`` and decay), the
+second carries the state to its chunk and adds the inter-chunk ``y``. The
+passes hand over through three scratch tensors the wrapper allocates.
 
 With ``cw`` the inclusive in-chunk cumsum of ``log(max(w, 1e-38))``,
 ``cw_prev = cw - log w`` and ``cw_last = cw[-1]``, every chunk computes
@@ -35,7 +38,7 @@ import ctypes
 
 import torch
 
-__all__ = ["wkv6", "wkv6_plain", "KERNEL_CHUNKS", "HEAD_SIZE"]
+__all__ = ["wkv6", "wkv6_plain", "state_alignment_error", "KERNEL_CHUNKS", "HEAD_SIZE"]
 
 #: chunk lengths the CUDA kernel is instantiated for
 KERNEL_CHUNKS = (32, 64)
@@ -70,6 +73,15 @@ def wkv6_plain(w, r, k, v, bonus, state0, chunk: int = 64):
         ys.append(scores @ vc + diag * vc + (rc * torch.exp(cw_prev)) @ state)
         state = torch.exp(cw_last).transpose(-1, -2) * state + (kc * torch.exp(cw_last - cw)).transpose(-1, -2) @ vc
     return torch.cat(ys, dim=2).permute(0, 2, 1, 3).contiguous(), state
+
+
+def state_alignment_error(ptr: int):
+    """Why the kernel cannot read ``state0`` at this base address (bytes),
+    or ``None``: its second pass reads the state as float4, which needs a
+    16-byte aligned base."""
+    if ptr % 16:
+        return f"wkv6 kernel needs a 16-byte aligned state0, got address {ptr:#x}"
+    return None
 
 
 def _check(w, r, k, v, bonus, state0, chunk: int) -> None:
@@ -110,12 +122,20 @@ def wkv6(w, r, k, v, bonus, state0, chunk: int = 64):
 
     lib = _build.load()
     bonus, state0 = bonus.contiguous(), state0.contiguous()
+    err = state_alignment_error(state0.data_ptr())
+    if err:
+        raise ValueError(err)
     y = torch.empty((B, S, H, hs), dtype=torch.float32, device=w.device)
     s_out = torch.empty((B, H, hs, hs), dtype=torch.float32, device=w.device)
+    # scratch the two passes hand over: each chunk's state increment U_c,
+    # its decay e^{cw_last} and r * e^{cw_prev}, channel-major per chunk
+    nc = S // chunk
+    parts = [torch.empty(shape, dtype=torch.float32, device=w.device)
+             for shape in ((B, H, nc, hs, hs), (B, H, nc, hs), (B, H, nc, hs, chunk))]
     strides = (ctypes.c_int64 * 12)(*(s for t in (w, r, k, v) for s in t.stride()[:3]))
     rc = lib.repro_wkv6_fwd(
         w.data_ptr(), r.data_ptr(), k.data_ptr(), v.data_ptr(), bonus.data_ptr(), state0.data_ptr(),
-        y.data_ptr(), s_out.data_ptr(), B, S, H, hs, chunk, strides,
+        y.data_ptr(), s_out.data_ptr(), *(t.data_ptr() for t in parts), B, S, H, hs, chunk, strides,
         torch.cuda.current_stream(w.device).cuda_stream,
     )
     if rc != 0:

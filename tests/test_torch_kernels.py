@@ -120,6 +120,37 @@ def test_flash_attention_validates_shapes(bad, match):
         tfa.flash_attention(q, k, k)
 
 
+@pytest.mark.parametrize("ptrs,strides,match", [
+    ((0, 4096, 8192), ((384 * 1024, 1024, 64),) * 3, None),  # the served layout
+    ((0, 4096, 8192), ((0, 3072, 64), (0, 3072, 64), (0, 1024, 128)), None),  # views of a fused qkv
+    ((8, 4096, 8192), ((384 * 1024, 1024, 64),) * 3, "16-byte aligned q"),
+    ((0, 4098, 8192), ((384 * 1024, 1024, 64),) * 3, "16-byte aligned k"),
+    ((0, 4096, 8192), ((384 * 1024, 1024, 64), (384 * 1024, 1020, 64), (384 * 1024, 1024, 64)), "k strides"),
+    ((0, 4096, 8192), ((384 * 1024, 1024, 64), (384 * 1024, 1024, 64), (384 * 1024, 1024, 66)), "v strides"),
+    ((0, 4096, 8192), ((5, 1024, 64), (384 * 1024, 1024, 64), (384 * 1024, 1024, 64)), "q strides"),
+])
+def test_flash_attention_tensor_core_layout(ptrs, strides, match):
+    err = tfa.tensor_core_layout_error(ptrs, strides)
+    if match is None:
+        assert err is None
+    else:
+        assert err is not None and match in err
+
+
+@pytest.mark.parametrize("ptr,ok", [
+    (0, True), (16, True), (64 * 64 * 4 * 3, True), (0x7F0000001000, True),  # slices of a (L, B, H, 64, 64) state
+    (4, False), (8, False), (12, False), (0x7F0000001004, False),
+])
+def test_wkv6_state_alignment(ptr, ok):
+    from repro_torch.kernels import rwkv6_scan as twkv
+
+    err = twkv.state_alignment_error(ptr)
+    if ok:
+        assert err is None
+    else:
+        assert err is not None and "16-byte aligned state0" in err
+
+
 # ------------------------------------------------------------ dt_pack
 
 

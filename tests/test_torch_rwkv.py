@@ -102,15 +102,76 @@ def _wkv_inputs(seed, B, S, H, hs=64):
 # ------------------------------------------------------------ wkv6
 
 
-@pytest.mark.parametrize("S,chunk", [(64, 32), (128, 64), (256, 64), (96, 32)])
+WKV_SWEEP = [(64, 32), (128, 64), (256, 64), (96, 32)]
+_PALLAS = {}
+
+
+def _pallas_wkv6(S, chunk):
+    """The JAX Pallas kernel (interpret mode) on the sweep inputs of
+    ``(S, chunk)``, once per module: it is the slow part of this file."""
+    if (S, chunk) not in _PALLAS:
+        args = _wkv_inputs(S + chunk, 2, S, 2)
+        _PALLAS[S, chunk] = jwkv.wkv6_chunked(*map(jnp.asarray, args), chunk=chunk, interpret=True)
+    return _PALLAS[S, chunk]
+
+
+def _wkv6_three_pass(w, r, k, v, bonus, state0, chunk):
+    """The CUDA kernel's decomposition in plain PyTorch, in its log2 units
+    and with its cw_prev (the cumsum up to the token before):
+    pass 1 per chunk (scores for j < t, intra-chunk y, the increment
+    U_c = (k ⊙ 2^{cw_last - cw})ᵀ v, the decay 2^{cw_last}, r ⊙ 2^{cw_prev});
+    the carry S_c = 2^{cw_last,c} ⊙ S_{c-1} + U_c from state0; pass 2
+    y += (r ⊙ 2^{cw_prev}) @ S_{c-1}, the state entering chunk c."""
+    B, S, H, hs = w.shape
+    nc = S // chunk
+    w, r, k, v = (a.permute(0, 2, 1, 3).reshape(B, H, nc, chunk, hs) for a in (w, r, k, v))
+    cw = torch.cumsum(torch.log2(torch.clamp_min(w, 1e-38)), dim=3)
+    cwp = torch.cat([torch.zeros_like(cw[..., :1, :]), cw[..., :-1, :]], dim=3)  # cw of token t - 1
+    cwl = cw[..., -1:, :]
+    below = torch.ones((chunk, chunk), dtype=torch.bool).tril(-1)[..., None]
+    D = torch.where(below, cwp[..., :, None, :] - cw[..., None, :, :], torch.tensor(float("-inf")))
+    scores = (r[..., :, None, :] * k[..., None, :, :] * torch.exp2(D)).sum(-1)
+    diag = (r * bonus[None, :, None, None, :] * k).sum(-1, keepdim=True)
+    y = scores @ v + diag * v
+    U = (k * torch.exp2(cwl - cw)).transpose(-1, -2) @ v
+    ecl = torch.exp2(cwl).transpose(-1, -2)
+    entering, state = [], state0
+    for c in range(nc):
+        entering.append(state)
+        state = ecl[:, :, c] * state + U[:, :, c]
+    y = y + (r * torch.exp2(cwp)) @ torch.stack(entering, dim=2)
+    return y.reshape(B, H, S, hs).permute(0, 2, 1, 3), state
+
+
+@pytest.mark.parametrize("S,chunk", WKV_SWEEP)
 def test_wkv6_plain_matches_pallas_and_oracle(S, chunk):
     args = _wkv_inputs(S + chunk, 2, S, 2)
     y, s = tops.wkv6(*map(torch.from_numpy, args), chunk=chunk)
-    y_pl, s_pl = jwkv.wkv6_chunked(*map(jnp.asarray, args), chunk=chunk, interpret=True)
+    y_pl, s_pl = _pallas_wkv6(S, chunk)
     y_ref, s_ref = jref.wkv6_ref(*map(jnp.asarray, args))
     for a, b in ((y, y_pl), (s, s_pl), (y, y_ref), (s, s_ref)):
         _close(a, b, 5e-4)
     assert twkv.wkv6.launches == 0  # CPU tensors never reach the kernel
+
+
+@pytest.mark.parametrize("S,chunk", WKV_SWEEP)
+def test_wkv6_three_pass_decomposition_matches(S, chunk):
+    args = _wkv_inputs(S + chunk, 2, S, 2)
+    assert np.abs(args[-1]).max() > 0  # a non-zero state0 enters chunk 0
+    y, s = _wkv6_three_pass(*map(torch.from_numpy, args), chunk=chunk)
+    y_plain, s_plain = twkv.wkv6_plain(*map(torch.from_numpy, args), chunk=chunk)
+    y_pl, s_pl = _pallas_wkv6(S, chunk)
+    for a, b in ((y, y_plain), (s, s_plain), (y, y_pl), (s, s_pl)):
+        _close(a, b, 5e-4)
+
+
+def test_wkv6_three_pass_strong_decay_stays_finite():
+    w, r, k, v, _, s0 = _wkv_inputs(7, 1, 64, 1)
+    args = [torch.from_numpy(a) for a in (np.full_like(w, 1e-6), r, k, v, np.zeros((1, 64), np.float32), s0)]
+    y, s = _wkv6_three_pass(*args, chunk=32)
+    y_plain, s_plain = twkv.wkv6_plain(*args, chunk=32)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    np.testing.assert_allclose(_f32(y), _f32(y_plain), atol=1e-3, rtol=1e-2)
 
 
 def test_wkv6_strong_decay_stays_finite():
