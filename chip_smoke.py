@@ -2,7 +2,7 @@
 """End-to-end check of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --timer-ab   # only time flash and K3 under both timers
+    python3 chip_smoke.py --timer-ab   # only time the kernels under the timer's variants
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds every
 kernel against its plain PyTorch version on the card, serves requests with
@@ -55,11 +55,32 @@ WKV_SWEEP = ((64, 32), (128, 64), (256, 64), (96, 32))
 WKV_SERVE = (1, 448, 64)
 RWKV_SERVE_S = (128, 256, 448)
 # device ms of the first designs at the main-path shapes (flash bf16 at
-# S = 384, K3 at the served shape), before the tensor-core and per-chunk
-# redesigns, as earlier versions of this script measured them on an NVIDIA
-# H100 80GB HBM3 at 700.00 W; printed on a line of their own as recorded
-# values, not measured in this run
-FIRST_DESIGN_MS = {"flash_attention": 0.05554, "wkv6": 0.3134}
+# S = 384, K3 at the served shape, the pack at the enqueue span), before the
+# tensor-core, per-chunk and pack redesigns, as earlier versions of this
+# script measured them on an NVIDIA H100 80GB HBM3 at 700.00 W with the
+# Timer's earlier flush (zero_(), which leaves the L2 dirty); printed on a
+# line of their own as recorded values, not measured in this run
+FIRST_DESIGN_MS = {"flash_attention": 0.05554, "wkv6": 0.3134, "dt_pack": 0.01538}
+# the pack's timed shapes: (buffer, nseg, seg_len, stride, start). "kv" is a
+# full-width qwen1.5-0.5b K leaf (24, 4, 512, 16*64) bf16 flattened, "column"
+# 2^24 fp32. served_span is the enqueue phase's layout (slot 1, position 128);
+# page_span one 32 KiB page of it per layer; token_view one position per
+# layer; vector_column an MPI vector type's 16-byte column; misaligned_span
+# served_span one element later (2-byte alignment)
+_KV_START = (1 * KV_LEAF[2] + 128) * KV_LEAF[3]
+PACK_SHAPES = {
+    "served_span": ("kv", KV_LEAF[0], KV_SPAN * KV_LEAF[3], KV_LEAF[1] * KV_LEAF[2] * KV_LEAF[3], _KV_START),
+    "page_span": ("kv", KV_LEAF[0], 16 * KV_LEAF[3], KV_LEAF[1] * KV_LEAF[2] * KV_LEAF[3], _KV_START),
+    "token_view": ("kv", KV_LEAF[0], KV_LEAF[3], KV_LEAF[1] * KV_LEAF[2] * KV_LEAF[3], _KV_START),
+    "vector_column": ("column", 1 << 20, 4, 16, 0),
+    "misaligned_span": ("kv", KV_LEAF[0], KV_SPAN * KV_LEAF[3], KV_LEAF[1] * KV_LEAF[2] * KV_LEAF[3], _KV_START + 1),
+}
+# device ms of the first-design pack at those shapes under the read flush: the
+# mean of two runs of `chip_smoke.py --timer-ab` on the checkout before the
+# pack redesign, in one call on an NVIDIA H100 80GB HBM3 at 700.00 W;
+# recorded values, not measured in this run
+FIRST_DESIGN_PACK_MS = {"served_span": 0.011744, "page_span": 0.006000, "token_view": 0.005768,
+                        "vector_column": 0.028856, "misaligned_span": 0.020392}
 
 
 def emit(phase: str, **kw) -> None:
@@ -83,7 +104,10 @@ def nvidia_smi_line() -> str:
 class Timer:
     """Median device time of a callable over TIMED_REPS launches, each
     timed with its own CUDA events, with the 50 MB L2 flushed before each
-    launch (the serving path finds these operands cold). A short device
+    launch (the serving path finds these operands cold). The flush reads a
+    256 MB buffer, so the L2 is left holding clean lines: a write flush
+    (``ZeroFlushTimer``, the earlier timer) leaves up to 50 MB of dirty lines
+    whose write-backs fall inside the next timed launch. A short device
     spin after the flush keeps the card busy while the host enqueues the
     call, so the events time the device's work and not the host's."""
 
@@ -94,13 +118,16 @@ class Timer:
         self.spin_cycles = self.SPIN_CYCLES if spin else 0
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
+    def flush_l2(self) -> None:
+        self.flush.view(self.torch.int64).sum()
+
     def __call__(self, fn) -> float:
         torch = self.torch
         for _ in range(3):
             fn()
         pairs = []
         for _ in range(TIMED_REPS):
-            self.flush.zero_()
+            self.flush_l2()
             if self.spin_cycles:
                 torch.cuda._sleep(self.spin_cycles)
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -143,6 +170,48 @@ def bytes_equal(torch, a, b) -> bool:
 # ----------------------------------------------------------------------
 # phases
 # ----------------------------------------------------------------------
+
+
+def pack_plan_of(dp, buf, out, nseg, seg, stride, start) -> dict:
+    """The pack's plan for these tensors."""
+    item = buf.element_size()
+    return dp.pack_plan(nseg, seg * item, stride * item, buf.data_ptr() + start * item, out.data_ptr())._asdict()
+
+
+def pack_buffers(torch, gen) -> dict:
+    """The buffers of PACK_SHAPES, random from ``gen``."""
+    return dict(kv=torch.randn(math.prod(KV_LEAF), generator=gen, device="cuda").to(torch.bfloat16),
+                column=torch.randn(1 << 24, generator=gen, device="cuda"))
+
+
+def pack_shape_rows(torch, timer, bufs, check_exact: bool) -> dict:
+    """The pack at each of PACK_SHAPES: its time, a dense ``copy_`` of the
+    same byte count and the strided view's ``.contiguous()`` timed the same
+    way, and the bytes bound (each packed byte read once and written once)."""
+    from repro_torch.kernels import dt_pack as dp
+
+    rows = {}
+    for name, (which, nseg, seg, stride, start) in PACK_SHAPES.items():
+        buf = bufs[which]
+        item = buf.element_size()
+        out = dp.dt_pack(buf, nseg=nseg, seg_len=seg, stride=stride, start=start)
+        torch.cuda.synchronize()
+        if check_exact:
+            check(bytes_equal(torch, out, dp.dt_pack_plain(buf, nseg, seg, stride, start)),
+                  f"dt_pack byte-exact at {name}")
+        a, b = torch.empty_like(out), torch.empty_like(out)
+        nbytes = 2 * nseg * seg * item
+        ms = timer(lambda: dp.dt_pack(buf, nseg=nseg, seg_len=seg, stride=stride, start=start))
+        bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+        rows[name] = dict(
+            nseg=nseg, seg_len=seg, stride=stride, start=start, dtype=str(buf.dtype).split(".")[-1],
+            ms=ms, bytes=nbytes, bound_ms=bound_ms, bound_by="bytes", share_of_bound=bound_ms / ms,
+            library_ms=timer(lambda: buf.as_strided((nseg, seg), (stride, 1), start).contiguous()),
+            dense_copy_ms=timer(lambda: b.copy_(a)),
+        )
+        rows[name]["ms_over_dense_copy"] = ms / rows[name]["dense_copy_ms"]
+        del out, a, b
+    return rows
 
 
 def phase_kernels(torch, timer):
@@ -201,50 +270,70 @@ def phase_kernels(torch, timer):
                                 bound_by="bytes" if t_bytes >= t_ops else "operations"))
     emit("kernels", kernel="flash_attention", cases=flash_rows, timings=flash_times)
 
-    # dt_pack / dt_unpack: byte-exact over the reference sweep shapes and
-    # the enqueue phase's KV span (start = slot 1, position 128)
+    # dt_pack / dt_unpack: byte-exact over the reference sweep shapes, the
+    # enqueue phase's KV span (start = slot 1, position 128) and edge layouts
     sweep = [(64, 8, 16, torch.float32, 0), (128, 16, 64, torch.float32, 0), (256, 4, 8, torch.bfloat16, 0),
              (32, 32, 32, torch.float32, 0), (61, 8, 16, torch.float32, 0), (300, 16, 4096, torch.float32, 0),
              (61, 8, 16, torch.float32, 3), (256, 4, 8, torch.bfloat16, 1)]
-    L, Bs, T, W = KV_LEAF
-    span = (L, KV_SPAN * W, Bs * T * W, (1 * T + 128) * W)  # nseg, seg_len, stride, start
-    sweep.append((span[0], span[1], span[2], torch.bfloat16, span[3]))
+    served = PACK_SHAPES["served_span"]
+    sweep.append((*served[1:4], torch.bfloat16, served[4]))
+    step = 8192  # bf16 elements: 16 KiB, several of the plan's span units
+    sweep += [
+        (1, 150000, 150000, torch.float32, 0),  # one segment
+        (1, 5 * step, 5 * step, torch.bfloat16, 0),  # one segment of several block steps
+        (3, 2 * step + 24, 3 * step, torch.bfloat16, 0),  # segments that are not whole steps
+        (5, 8001, 10000, torch.bfloat16, 0),  # 16k + 2 bytes per segment
+        (4, 4 * step, 8 * step, torch.bfloat16, 1),  # src 2 bytes off 16
+        (4, 2 * step, 4 * step, torch.float32, 1),  # src 4 bytes off 16
+        (4, 2 * step, 4 * step, torch.float32, 2),  # src 8 bytes off 16
+        (9, 4099, 5003, torch.uint8, 1),  # a uint8 buffer: 1-byte accesses
+        (4, 65536, 1 << 29, torch.uint8, 16),  # byte offsets past 2 GiB
+        (4, 16385, 1 << 29, torch.uint8, 0),  # vector indices past 2^31: 64-bit index
+    ]
     pack_rows = []
     for nseg, seg, stride, dtype, start in sweep:
         n = start + nseg * stride
-        buf = torch.randn(n, generator=gen, device="cuda").to(dtype)
+        if dtype == torch.uint8:
+            buf = torch.randint(0, 256, (n,), generator=gen, device="cuda", dtype=torch.uint8)
+        else:
+            buf = torch.randn(n, generator=gen, device="cuda").to(dtype)
         out = dp.dt_pack(buf, nseg=nseg, seg_len=seg, stride=stride, start=start)
         back = dp.dt_unpack(out, nseg=nseg, seg_len=seg, stride=stride, start=start, out_len=n)
         torch.cuda.synchronize()
         ok_pack = bytes_equal(torch, out, dp.dt_pack_plain(buf, nseg, seg, stride, start))
         ok_unpack = bytes_equal(torch, back, dp.dt_unpack_plain(out, nseg, seg, stride, start, n))
         row = dict(nseg=nseg, seg_len=seg, stride=stride, start=start, dtype=str(dtype).split(".")[-1],
+                   plan=pack_plan_of(dp, buf, out, nseg, seg, stride, start),
                    pack_byte_exact=ok_pack, unpack_byte_exact=ok_unpack)
         pack_rows.append(row)
         check(ok_pack and ok_unpack, f"dt_pack/dt_unpack byte-exact: {row}")
+        del buf, out, back
+    torch.cuda.empty_cache()
 
-    nseg, seg, stride, start = span
-    out_len = L * Bs * T * W
-    buf = torch.randn(out_len, generator=gen, device="cuda").to(torch.bfloat16)
-    packed = dp.dt_pack(buf, nseg=nseg, seg_len=seg, stride=stride, start=start)
+    bufs = pack_buffers(torch, gen)
+    shapes = pack_shape_rows(torch, timer, bufs, check_exact=True)
+    for name, (which, nseg, seg, stride, start) in PACK_SHAPES.items():
+        out = torch.empty(nseg * seg, dtype=bufs[which].dtype, device="cuda")
+        shapes[name]["plan"] = pack_plan_of(dp, bufs[which], out, nseg, seg, stride, start)
+        del out
+    kv, nseg, seg, stride, start = bufs["kv"], *served[1:]
+    out_len = kv.numel()
+    packed = dp.dt_pack(kv, nseg=nseg, seg_len=seg, stride=stride, start=start)
     zeros = torch.zeros(out_len, dtype=torch.bfloat16, device="cuda")
-    item = 2
-    pack_bytes = 2 * nseg * seg * item
-    unpack_bytes = nseg * seg * item + out_len * item
-    pack_t = dict(
-        ms=timer(lambda: dp.dt_pack(buf, nseg=nseg, seg_len=seg, stride=stride, start=start)),
-        plain_ms=timer(lambda: dp.dt_pack_plain(buf, nseg, seg, stride, start)),
-        library_ms=timer(lambda: buf.as_strided((nseg, seg), (stride, 1), start).contiguous()),
-        bytes=pack_bytes, bound_ms=pack_bytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
-    )
+    pack_t = dict(shapes["served_span"], plain_ms=timer(lambda: dp.dt_pack_plain(kv, nseg, seg, stride, start)))
+    unpack_bytes = nseg * seg * 2 + out_len * 2
     unpack_t = dict(
         ms=timer(lambda: dp.dt_unpack(packed, nseg=nseg, seg_len=seg, stride=stride, start=start, out_len=out_len)),
         plain_ms=timer(lambda: dp.dt_unpack_plain(packed, nseg, seg, stride, start, out_len)),
         library_ms=timer(lambda: torch.as_strided_scatter(zeros, packed.view(nseg, seg), (nseg, seg), (stride, 1), start)),
         bytes=unpack_bytes, bound_ms=unpack_bytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
     )
+    # the timer's floor: an empty kernel between the two events
+    floor_ms = timer(lambda: torch.cuda._sleep(1))
     emit("kernels", kernel="dt_pack", cases=pack_rows, shape=dict(nseg=nseg, seg_len=seg, stride=stride, start=start,
-         out_len=out_len, dtype="bfloat16"), pack=pack_t, unpack=unpack_t)
+         out_len=out_len, dtype="bfloat16"), shapes=shapes, pack=pack_t, unpack=unpack_t, timer_floor_ms=floor_ms)
+    del bufs, kv, packed, zeros
+    torch.cuda.empty_cache()
     wkv = wkv6_kernel_rows(torch, timer, gen)
     return dict(flash_times=flash_times, flash_err=serve_err, pack=pack_t, unpack=unpack_t, wkv=wkv)
 
@@ -701,12 +790,20 @@ def phase_serve_rwkv(torch):
 
 
 def phase_timer_ab(torch) -> None:
-    """Flash (bf16, S = 384) and K3 (the served shape) timed with and
-    without the Timer's device spin, in turns (spin, none, none, spin), so
-    that times taken before the spin can be set beside times taken with it.
+    """The timer's variants, each in turns so that a change of timer can be
+    told from noise, and the pack's timed shapes under the default timer.
+
+    - flush: the pack at the served span, the unpack, a dense ``copy_`` of
+      the same bytes, flash (bf16, S = 384), K3 (the served shape) and an
+      empty kernel with the L2 flushed by a read and by ``zero_()`` (zero,
+      read, read, zero);
+    - spin: flash and K3 with and without the device spin (spin, none, none,
+      spin);
+    - pack_shapes: every pack shape with its dense copy and library call.
+
     Run as ``chip_smoke.py --timer-ab``; copied beside another checkout's
     ``src/``, it times that checkout's kernels."""
-    from repro_torch.kernels import flash_attention as fa, rwkv6_scan as wk
+    from repro_torch.kernels import dt_pack as dp, flash_attention as fa, rwkv6_scan as wk
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     n = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
@@ -714,14 +811,36 @@ def phase_timer_ab(torch) -> None:
     B, S, H = WKV_SERVE
     wkv_args = (torch.sigmoid(n(B, S, H, 64)) * 0.5 + 0.45, n(B, S, H, 64), n(B, S, H, 64), n(B, S, H, 64),
                 n(H, 64) * 0.1, n(B, H, 64, 64) * 0.1)
-    timers = {"spin": Timer(torch), "no_spin": Timer(torch, spin=False)}
-    out = {}
-    for name, fn in (("flash_attention", lambda: fa.flash_attention(q, k, v)),
-                     ("wkv6", lambda: wk.wkv6(*wkv_args, chunk=64))):
-        out[name] = {key: [] for key in timers}
+    bufs = pack_buffers(torch, gen)
+    kv, (_, nseg, seg, stride, start) = bufs["kv"], PACK_SHAPES["served_span"]
+    packed = dp.dt_pack(kv, nseg=nseg, seg_len=seg, stride=stride, start=start)
+    a, b = torch.empty_like(packed), torch.empty_like(packed)
+    rows = {
+        "dt_pack": lambda: dp.dt_pack(kv, nseg=nseg, seg_len=seg, stride=stride, start=start),
+        "dt_unpack": lambda: dp.dt_unpack(packed, nseg=nseg, seg_len=seg, stride=stride, start=start,
+                                          out_len=kv.numel()),
+        "dense_copy": lambda: b.copy_(a),
+        "flash_attention": lambda: fa.flash_attention(q, k, v),
+        "wkv6": lambda: wk.wkv6(*wkv_args, chunk=64),
+        "empty_kernel": lambda: torch.cuda._sleep(1),  # the timer's floor
+    }
+    class ZeroFlushTimer(Timer):  # the timer before the read flush
+        def flush_l2(self) -> None:
+            self.flush.zero_()
+
+    flushes = {"zero": ZeroFlushTimer(torch), "read": Timer(torch)}
+    flush = {}
+    for name, fn in rows.items():
+        flush[name] = {key: [] for key in flushes}
+        for key in ("zero", "read", "read", "zero"):
+            flush[name][key].append(flushes[key](fn))
+    spins = {"spin": flushes["read"], "no_spin": Timer(torch, spin=False)}
+    spin = {}
+    for name in ("flash_attention", "wkv6"):
+        spin[name] = {key: [] for key in spins}
         for key in ("spin", "no_spin", "no_spin", "spin"):
-            out[name][key].append(timers[key](fn))
-    emit("timer_ab", **out)
+            spin[name][key].append(spins[key](rows[name]))
+    emit("timer_ab", flush=flush, spin=spin, pack_shapes=pack_shape_rows(torch, flushes["read"], bufs, check_exact=False))
 
 
 def main() -> int:
@@ -731,7 +850,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--timer-ab", action="store_true",
-                    help="only build and time flash and K3 with and without the Timer's device spin")
+                    help="only build and time the kernels under the Timer's flushes and spin, and the pack's shapes")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -793,7 +912,8 @@ def main() -> int:
         check(e["launches"] > 0, f"{e['name']} launched on the main path")
         check(all(isinstance(e[k], (int, float)) and math.isfinite(e[k]) for k in ("ms", "plain_ms", "bound_ms")),
               f"{e['name']} timings measured")
-    emit("first_design", measured_in_this_run=False, ms=FIRST_DESIGN_MS)
+    emit("first_design", measured_in_this_run=False, flush="zero", ms=FIRST_DESIGN_MS,
+         pack_shapes_read_flush_ms=FIRST_DESIGN_PACK_MS)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -96,7 +96,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     p64 = ctypes.POINTER(ctypes.c_int64)
     lib.repro_flash_attention_fwd.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, p64, p64, p64, i32, vp]
     lib.repro_flash_attention_fwd.restype = i32
-    lib.repro_dt_pack.argtypes = [vp, vp, i64, i64, i64, vp]
+    lib.repro_dt_pack.argtypes = [vp, vp, i64, i64, i64, i32, i64, i64, vp]
     lib.repro_dt_pack.restype = i32
     lib.repro_dt_unpack.argtypes = [vp, vp, i64, i64, i64, i64, i64, vp]
     lib.repro_dt_unpack.restype = i32

@@ -11,15 +11,69 @@ Both work on a flat 1-D buffer and a uniform layout: ``nseg`` segments of
 buffer's base — the TPU wrapper's padded ``(nseg, stride)`` window copy is
 never built — and move bytes only, so they are byte-exact for any dtype.
 
+:func:`pack_plan` fixes how the pack kernel runs from the layout and the
+two pointers' alignment alone: the access width and the grid of equal spans
+of the packed output. The kernel's own index arithmetic (32- or 64-bit
+indices, the multiply-shift divide) is chosen by the C entry.
+
 :func:`dt_pack`/:func:`dt_unpack` launch the kernels for CUDA tensors and
 run :func:`dt_pack_plain`/:func:`dt_unpack_plain` for CPU tensors only.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
-__all__ = ["dt_pack", "dt_unpack", "dt_pack_plain", "dt_unpack_plain"]
+__all__ = ["dt_pack", "dt_unpack", "dt_pack_plain", "dt_unpack_plain", "PackPlan", "pack_plan", "access_width"]
+
+H100_SMS = 132
+BLOCKS_PER_SM = 8  # 256-thread blocks: the 2048 threads an H100 SM holds
+SPAN_UNIT = 4096  # bytes; a block's span is a whole number of these
+
+
+class PackPlan(NamedTuple):
+    """How one pack is launched: ``width`` the access width in bytes;
+    ``grid`` blocks, block ``b`` owning packed bytes
+    ``[b * span_bytes, (b + 1) * span_bytes)``."""
+
+    width: int
+    grid: int
+    span_bytes: int
+
+
+def access_width(*quantities: int) -> int:
+    """The widest access (16, 8, 4, 2 or 1 bytes) that divides every one of
+    ``quantities`` (addresses and byte counts)."""
+    w = 16
+    while w > 1 and any(q % w for q in quantities):
+        w >>= 1
+    return w
+
+
+def pack_plan(nseg: int, seg_bytes: int, stride_bytes: int, src_addr: int, out_addr: int, *,
+              sms: int = H100_SMS) -> PackPlan:
+    """The pack's access width and grid: a pure function of the layout, the
+    two pointers' alignment and the card's SM count. The width is the
+    widest access dividing both pointers, the segment length and the
+    stride. The grid has at most ``BLOCKS_PER_SM`` blocks per SM, owning
+    equal spans of the packed output, each a whole number of
+    ``SPAN_UNIT`` bytes, none empty."""
+    if nseg <= 1:
+        stride_bytes = seg_bytes
+    width = access_width(src_addr, out_addr, seg_bytes, stride_bytes)
+    total = nseg * seg_bytes
+    grid = max(1, min(sms * BLOCKS_PER_SM, -(-total // SPAN_UNIT)))
+    span = -(-max(total, 1) // grid)
+    span = -(-span // SPAN_UNIT) * SPAN_UNIT
+    return PackPlan(width, max(1, -(-total // span)), span)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _window_check(numel: int, nseg: int, seg_len: int, stride: int, start: int, what: str) -> None:
@@ -69,12 +123,14 @@ def dt_pack(buf, *, nseg: int, seg_len: int, stride: int, start: int = 0):
     lib = _build.load()
     item = buf.element_size()
     out = torch.empty(nseg * seg_len, dtype=buf.dtype, device=buf.device)
+    src = buf.data_ptr() + start * item
+    plan = pack_plan(nseg, seg_len * item, stride * item, src, out.data_ptr(), sms=_sm_count(buf.device))
     rc = lib.repro_dt_pack(
-        buf.data_ptr() + start * item, out.data_ptr(), nseg, seg_len * item, stride * item,
+        src, out.data_ptr(), nseg, seg_len * item, stride * item, plan.width, plan.grid, plan.span_bytes,
         torch.cuda.current_stream(buf.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"dt_pack kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"dt_pack kernel launch failed: cudaError {rc} ({plan})")
     dt_pack.launches += 1
     return out
 

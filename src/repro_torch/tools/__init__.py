@@ -1,0 +1,1 @@
+"""Measurement tools for the port's kernels, run by hand on the card."""

@@ -191,6 +191,123 @@ def test_dt_pack_rejects_layouts_outside_the_buffer(call, match):
         call(torch.zeros(32))
 
 
+# ------------------------------------------------------- dt_pack's plan
+
+_BASE, _OUT = 1 << 32, 1 << 33  # 256-byte aligned stand-ins for the two pointers
+_CHUNK = 16 << 10  # bytes: several of the plan's span units
+# (nseg, seg_bytes, stride_bytes, src_addr): chip_smoke.py's byte-exact sweep,
+# the five timed shapes at small nseg, and edge layouts
+_PLAN_CASES = {
+    "sweep_64x8f32": (64, 32, 64, _BASE),
+    "sweep_128x16f32": (128, 64, 256, _BASE),
+    "sweep_256x4bf16": (256, 8, 16, _BASE),
+    "sweep_dense": (32, 128, 128, _BASE),
+    "sweep_odd_nseg": (61, 32, 64, _BASE),
+    "sweep_tail_block": (300, 64, 16384, _BASE),
+    "sweep_start3_f32": (61, 32, 64, _BASE + 12),
+    "sweep_start1_bf16": (256, 8, 16, _BASE + 2),
+    "served_span": (24, 524288, 4194304, _BASE + 1310720),
+    "served_span_small": (3, 524288, 4194304, _BASE + 1310720),
+    "page_span_small": (3, 32768, 4194304, _BASE + 1310720),
+    "token_view_small": (3, 2048, 4194304, _BASE + 1310720),
+    "vector_column_small": (4096, 16, 64, _BASE),
+    "misaligned_span_small": (3, 524288, 4194304, _BASE + 1310722),
+    "one_segment": (1, 300000, 0, _BASE),
+    "one_segment_of_steps": (1, 5 * _CHUNK, 5 * _CHUNK, _BASE),
+    "segment_not_whole_steps": (3, 2 * _CHUNK + 48, 3 * _CHUNK, _BASE),
+    "seg_16k_plus_2": (5, 16 * 1000 + 2, 20000, _BASE),
+    "src_off_by_2": (4, 4 * _CHUNK, 8 * _CHUNK, _BASE + 2),
+    "src_off_by_4": (4, 4 * _CHUNK, 8 * _CHUNK, _BASE + 4),
+    "src_off_by_8": (4, 4 * _CHUNK, 8 * _CHUNK, _BASE + 8),
+    "uint8_odd": (9, 4099, 5003, _BASE + 1),
+    "offsets_past_2GiB": (4, 65536, 1 << 29, _BASE + 16),
+    "indices_past_2G_uint8": (4, 16385, 1 << 29, _BASE),
+}
+
+
+def _pack_runs(plan, nseg, seg_bytes, stride_bytes):
+    """``(src_offset, dst_offset, nbytes)`` of every contiguous run the pack
+    kernel moves under ``plan``, block by block in its order
+    (csrc/dt_pack.cu, ``pack_kernel``), a block's span cut where a segment
+    ends."""
+    if nseg <= 1:
+        stride_bytes = seg_bytes
+    total = nseg * seg_bytes
+    for b in range(plan.grid):
+        pos, end = b * plan.span_bytes, min(total, (b + 1) * plan.span_bytes)
+        while pos < end:
+            seg, off = divmod(pos, seg_bytes)
+            n = min(seg_bytes - off, end - pos)
+            yield seg * stride_bytes + off, pos, n
+            pos += n
+
+
+@pytest.mark.parametrize("sms", [132, 7])
+@pytest.mark.parametrize("name", sorted(_PLAN_CASES))
+def test_pack_plan_tiles_the_layout(name, sms):
+    nseg, seg, stride, src = _PLAN_CASES[name]
+    plan = tdtp.pack_plan(nseg, seg, stride, src, _OUT, sms=sms)
+    assert plan == tdtp.pack_plan(nseg, seg, stride, src, _OUT, sms=sms)  # a pure function
+    eff_stride = stride if nseg > 1 else seg
+    quantities = (src, _OUT, seg, eff_stride)
+    w = plan.width
+    # the widest access all four allow: 16 bytes only when every 16-byte condition holds
+    assert all(q % w == 0 for q in quantities)
+    assert w == 16 or any(q % (2 * w) for q in quantities)
+    total = nseg * seg
+    assert 1 <= plan.grid <= sms * tdtp.BLOCKS_PER_SM
+    assert (plan.grid - 1) * plan.span_bytes < total <= plan.grid * plan.span_bytes  # no empty block
+    assert plan.span_bytes % tdtp.SPAN_UNIT == 0 and plan.span_bytes % w == 0
+
+    pos = 0
+    for src_off, dst_off, n in _pack_runs(plan, nseg, seg, stride):
+        assert dst_off == pos and 0 < n <= plan.span_bytes  # in order, each byte once
+        i, off = divmod(dst_off, seg)
+        assert off + n <= seg and src_off == i * eff_stride + off  # inside segment i
+        assert dst_off // plan.span_bytes == (dst_off + n - 1) // plan.span_bytes  # inside one block
+        assert (src + src_off) % w == 0 and (_OUT + dst_off) % w == 0 and n % w == 0
+        pos += n
+    assert pos == total
+
+
+@pytest.mark.parametrize("name,width,grid", [
+    ("served_span", 16, 1024),
+    ("page_span", 16, 192),
+    ("token_view", 16, 12),
+    ("vector_column", 16, 1024),
+    ("misaligned_span", 2, 1024),
+])
+def test_pack_plan_of_the_timed_shapes(name, width, grid):
+    # chip_smoke.py's five pack shapes at full size (bf16 KV leaf; fp32 column)
+    layouts = {
+        "served_span": (24, 262144 * 2, 2097152 * 2, 655360 * 2),
+        "page_span": (24, 16384 * 2, 2097152 * 2, 655360 * 2),
+        "token_view": (24, 1024 * 2, 2097152 * 2, 655360 * 2),
+        "vector_column": (1048576, 16, 64, 0),
+        "misaligned_span": (24, 262144 * 2, 2097152 * 2, 655361 * 2),
+    }
+    nseg, seg, stride, disp = layouts[name]
+    plan = tdtp.pack_plan(nseg, seg, stride, _BASE + disp, _OUT)
+    assert (plan.width, plan.grid) == (width, grid)
+    assert plan.grid * plan.span_bytes >= nseg * seg
+
+
+@pytest.mark.parametrize("name,nseg,seg,stride,dtype,start", [
+    ("vector_column", 512, 4, 16, np.float32, 0),  # an MPI vector column: 16-byte segments, 64 apart
+    ("misaligned_span", 3, 256, 2048, "bfloat16", 641),  # a KV span one element off: 2-byte alignment
+])
+def test_dt_pack_small_timed_shapes_match_reference(name, nseg, seg, stride, dtype, start):
+    (src,) = _normal(nseg + seg + start, (start + nseg * stride,))
+    jbuf = jnp.asarray(src).astype(_JAX[dtype])
+    tbuf = torch.from_numpy(src).to(_TORCH[dtype])
+    assert np.array_equal(_bytes(tbuf), _bytes(jbuf))
+    # the reference's window: the (nseg, stride) rows from `start`
+    j_out = jdtp.dt_pack(jbuf[start:start + nseg * stride].reshape(nseg, stride), seg, interpret=True)
+    t_out = tdtp.dt_pack(tbuf, nseg=nseg, seg_len=seg, stride=stride, start=start)
+    np.testing.assert_array_equal(_bytes(t_out), _bytes(j_out))
+    assert tdtp.dt_pack.launches == 0  # CPU: the plain version
+
+
 # ------------------------------------------------- pack_datatype / unpack
 
 
