@@ -10,11 +10,17 @@ the full-width ``qwen1.5-0.5b`` (random weights from a seed) through
 ``ServeEngine`` with the flash kernel on every prefill, runs an on-stream
 datatype enqueue (MPIX stream → ``pack_send`` → ``dispatch_enqueue`` →
 progress engine, then an ``OffloadWindow``) over a live KV leaf of the
-served engine, and serves requests with the full-width ``rwkv6-7b``
+served engine, serves 12 requests through the paged KV cache on the card
+(``PagedServeEngine`` behind ``AdmissionFrontEnd`` and under the elastic
+threadcomm loop with a killed rank, each held token for token against the
+contiguous ``ServeEngine``, every page move a K1 launch), and serves
+requests with the full-width ``rwkv6-7b``
 (32 layers, d_model 4096, bf16, random weights from a seed) with the WKV-6
 kernel on every prefill. Each phase prints one JSON line; any failure exits
-non-zero before the last line. The last two lines are the per-kernel summary, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+non-zero before the last line. The last lines are the per-kernel summary (each
+kernel's ``launches`` summed over the paths that run it, with each path's
+count, taken from 0 just before it, under ``launches_by_path``), the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when CUDA is unavailable or when the
 repository's ``src/`` is missing. Imports nothing of JAX.
 """
@@ -54,6 +60,17 @@ KV_SPAN = 256
 WKV_SWEEP = ((64, 32), (128, 64), (256, 64), (96, 32))
 WKV_SERVE = (1, 448, 64)
 RWKV_SERVE_S = (128, 256, 448)
+# the paged serving phase: 12 requests, prompts cycling over the served
+# lengths, 16 new tokens each, all offered at once; pages of 16 positions
+PAGED_REQUESTS = 12
+PAGE_SIZE = 16
+# dt_unpack_into's timed shapes: (nseg, seg_bytes, stride_bytes) of a
+# decode-step append (one position of 24 layers into a page block) and a
+# full-page chunk of a gather (16 positions of 24 layers into a B=1 cache)
+UNPACK_INTO_SHAPES = {
+    "decode_step": (KV_LEAF[0], KV_LEAF[3] * 2, PAGE_SIZE * KV_LEAF[3] * 2),
+    "page_chunk": (KV_LEAF[0], PAGE_SIZE * KV_LEAF[3] * 2, KV_LEAF[2] * KV_LEAF[3] * 2),
+}
 # device ms of the first designs at the main-path shapes (flash bf16 at
 # S = 384, K3 at the served shape, the pack at the enqueue span), before the
 # tensor-core, per-chunk and pack redesigns, as earlier versions of this
@@ -789,6 +806,272 @@ def phase_serve_rwkv(torch):
     return dict(launches=launches)
 
 
+def serve_paged_runs(torch, cfg, model, prompts, max_new: int, page_size: int, max_len: int = 512,
+                     max_batch: int = 4, sync_timeout: float = 2.0) -> dict:
+    """The same requests through (a) the contiguous ``ServeEngine``, (b)
+    ``PagedServeEngine`` behind ``AdmissionFrontEnd`` and (c)
+    ``PagedServeEngine`` under ``run_until_done_elastic(n_threads=3)`` with
+    rank 1 killed at virtual time 0 (the survivors see the death when
+    their ``sync_timeout`` runs out, so it bounds one step of rank 0's
+    work: its first admission, up to a dozen prefills and their spills, is
+    the longest, a few tenths of a second). Every run gets a
+    ``ProgressEngine``, ``max_batch``, ``max_len``; both paged runs
+    ``page_size``, the default pool and ``spill_parked=True``. Returns each
+    run's tokens, latencies (s, from the moment all requests were offered),
+    wall time and stats, its prefills and flash launches, and the K1
+    launches and page moves of (b) and (c)."""
+    from repro_torch.core.progress import ProgressEngine
+    from repro_torch.ft.faultinject import FaultEvent, FaultInjector, FaultPlan, VirtualClock
+    from repro_torch.kernels import dt_pack as dp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.admission import AdmissionFrontEnd, make_offer
+    from repro_torch.serving.engine import PagedServeEngine, ServeEngine
+
+    sync = torch.cuda.synchronize
+    paged_kw = dict(page_size=page_size, spill_parked=True)
+    out = {}
+
+    def stamped(reqs, t0):
+        done_at = {}
+        for r in reqs:
+            r.grequest.add_done_callback(lambda _g, rid=r.rid: done_at.setdefault(rid, time.perf_counter()))
+        return lambda: [done_at[r.rid] - t0 for r in reqs]
+
+    def paged_engine():
+        """A paged engine whose prefills are counted, with the flash count
+        set to 0: each prefill must launch flash once per layer."""
+        eng = PagedServeEngine(cfg, model, max_batch=max_batch, max_len=max_len, progress_engine=pe, **paged_kw)
+        inner, count = eng._prefill, [0]
+
+        def prefill(params, batch):
+            count[0] += 1
+            return inner(params, batch)
+
+        eng._prefill = prefill
+        fa.flash_attention.launches = 0
+        return eng, count
+
+    # (a) the oracle: contiguous engine, one driver
+    pe = ProgressEngine()
+    eng = ServeEngine(cfg, model, max_batch=max_batch, max_len=max_len, progress_engine=pe)
+    sync()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    lats = stamped(reqs, t0)
+    eng.run_until_done()
+    sync()
+    out["contiguous"] = dict(tokens=[list(r.out_tokens) for r in reqs], wall_s=time.perf_counter() - t0,
+                             latencies_s=lats())
+    pe.stop_all()
+    del eng
+
+    dp.dt_pack.launches = dp.dt_unpack_into.launches = 0  # count the paged runs only
+    moves, leaves = 0, None
+
+    # (b) paged, behind the admission front end (all offers at once)
+    pe = ProgressEngine()
+    eng, prefills = paged_engine()
+    sync()
+    t0 = time.perf_counter()
+    fe = AdmissionFrontEnd(eng, clock=time.perf_counter)
+    cs = fe.serve([make_offer(p, max_new_tokens=max_new) for p in prompts], sync_timeout=sync_timeout)
+    sync()
+    wall = time.perf_counter() - t0
+    cs = sorted(cs, key=lambda c: c.rid)
+    check(len(cs) == len(prompts) and not fe.rejected, f"front end completed {len(cs)} of {len(prompts)}")
+    pm = eng.kv.page_moves()
+    moves += pm["append_chunks"] + pm["gather_chunks"]
+    leaves = eng.kv.leaf_count
+    out["admission"] = dict(tokens=[list(c.req.out_tokens) for c in cs], wall_s=wall,
+                            latencies_s=[c.t_done - t0 for c in cs], steps=fe.steps, page_moves=pm,
+                            max_concurrent=eng.max_concurrent, kv=eng.stats()["kv"], prefills=prefills[0],
+                            flash_launches=fa.flash_attention.launches)
+    pe.stop_all()
+    del eng
+
+    # (c) paged, elastic threadcomm loop, rank 1 killed at virtual time 0
+    pe = ProgressEngine()
+    eng, prefills = paged_engine()
+    sync()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    lats = stamped(reqs, t0)
+    with FaultInjector(FaultPlan([FaultEvent(0.0, "kill_rank", 1)]), clock=VirtualClock()) as inject:
+        summary = eng.run_until_done_elastic(n_threads=3, fault_injector=inject, sync_timeout=sync_timeout)
+    sync()
+    wall = time.perf_counter() - t0
+    check(all(r.done for r in reqs), "every request of the elastic run finished")
+    pm = eng.kv.page_moves()
+    moves += pm["append_chunks"] + pm["gather_chunks"]
+    out["elastic"] = dict(tokens=[list(r.out_tokens) for r in reqs], wall_s=wall, latencies_s=lats(),
+                          summary=summary, page_moves=pm, max_concurrent=eng.max_concurrent,
+                          kv=eng.stats()["kv"], prefills=prefills[0], flash_launches=fa.flash_attention.launches)
+    pe.stop_all()
+    del eng
+    out["k1"] = dict(dt_pack=dp.dt_pack.launches, dt_unpack_into=dp.dt_unpack_into.launches,
+                     page_moves=moves, leaves=leaves)
+    return out
+
+
+def check_serve_paged(runs: dict, n: int, max_new: int, n_layers: int) -> None:
+    """The serve_paged phase's checks on :func:`serve_paged_runs`' result."""
+    want = runs["contiguous"]["tokens"]
+    check(len(want) == n and all(len(t) == max_new for t in want),
+          f"every oracle request has {max_new} tokens: {[len(t) for t in want]}")
+    for name in ("admission", "elastic"):
+        got = runs[name]["tokens"]
+        check(got == want, f"{name} run emits the contiguous engine's tokens, request for request")
+        kv = runs[name]["kv"]
+        check(kv["spilled_pages"] == kv["reloaded_pages"] > 0,
+              f"{name}: spilled {kv['spilled_pages']} == reloaded {kv['reloaded_pages']} > 0")
+        check(kv["pages_in_use"] == 0 and kv["cold_pages"] == 0, f"{name}: pool empty at the end: {kv}")
+        run = runs[name]
+        check(run["prefills"] >= n and run["flash_launches"] == n_layers * run["prefills"],
+              f"{name}: flash launches {run['flash_launches']} == {n_layers} layers x {run['prefills']} prefills")
+    summary = runs["elastic"]["summary"]
+    check(summary["dead_ranks"] == [1] and summary["epochs"] >= 2, f"elastic summary {summary}")
+    k1 = runs["k1"]
+    per_kernel = k1["leaves"] * k1["page_moves"]
+    check(k1["page_moves"] > 0 and k1["dt_pack"] == per_kernel and k1["dt_unpack_into"] == per_kernel,
+          f"K1 launches {k1} == leaves x page moves ({per_kernel}) each")
+
+
+def unpack_into_rows(torch, timer, gen) -> dict:
+    """``dt_unpack_into`` byte-exact against its plain version (every byte of
+    ``out`` outside the segments must keep its value) at the main path's
+    shapes and at edge layouts, and timed at UNPACK_INTO_SHAPES beside its
+    bytes bound, its plain version and a strided-view ``copy_``."""
+    from repro_torch.kernels import dt_pack as dp
+
+    def exact(nseg, seg, stride, start, out_len):
+        packed = torch.randint(0, 256, (nseg * seg,), generator=gen, device="cuda", dtype=torch.uint8)
+        out = torch.randint(0, 256, (out_len,), generator=gen, device="cuda", dtype=torch.uint8)
+        want = dp.dt_unpack_into_plain(packed, out.clone(), nseg, seg, stride, start)
+        got = dp.dt_unpack_into(packed, out, nseg=nseg, seg_len=seg, stride=stride, start=start)
+        torch.cuda.synchronize()
+        ok = bytes_equal(torch, got, want)
+        row = dict(nseg=nseg, seg_bytes=seg, stride_bytes=stride, start=start, out_bytes=out_len,
+                   plan=pack_plan_of(dp, out, packed, nseg, seg, stride, start), byte_exact=ok)
+        check(ok, f"dt_unpack_into byte-exact: {row}")
+        return row
+
+    cases = []
+    for name, (nseg, seg, stride) in UNPACK_INTO_SHAPES.items():
+        out_len = nseg * stride if name == "decode_step" else KV_LEAF[0] * KV_LEAF[2] * KV_LEAF[3] * 2
+        cases.append(dict(exact(nseg, seg, stride, 5 * KV_LEAF[3] * 2, out_len), shape=name))
+    for nseg, seg, stride, start, out_len in (
+        (9, 4099, 5003, 1, 9 * 5003 + 7),  # odd bytes, 1-byte accesses, a tail after the last segment
+        (24, 2048, 32768, 2, 24 * 32768 + 2),  # the decode-step layout 2 bytes off 16
+        (1, 150000, 150000, 4, 150004),  # one segment
+        (4, 16385, 1 << 29, 0, 3 * (1 << 29) + 16385),  # vector indices past 2^31: 64-bit index
+    ):
+        cases.append(exact(nseg, seg, stride, start, out_len))
+        torch.cuda.empty_cache()
+
+    timings = {}
+    for name, (nseg, seg, stride) in UNPACK_INTO_SHAPES.items():
+        out_len = nseg * stride if name == "decode_step" else KV_LEAF[0] * KV_LEAF[2] * KV_LEAF[3] * 2
+        packed = torch.randint(0, 256, (nseg * seg,), generator=gen, device="cuda", dtype=torch.uint8)
+        out = torch.zeros(out_len, dtype=torch.uint8, device="cuda")
+        view = out.as_strided((nseg, seg), (stride, 1), 0)
+        nbytes = 2 * nseg * seg
+        bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+        ms = timer(lambda: dp.dt_unpack_into(packed, out, nseg=nseg, seg_len=seg, stride=stride))
+        timings[name] = dict(
+            nseg=nseg, seg_bytes=seg, stride_bytes=stride, ms=ms, bytes=nbytes, bound_ms=bound_ms,
+            bound_by="bytes", share_of_bound=bound_ms / ms,
+            plain_ms=timer(lambda: dp.dt_unpack_into_plain(packed, out, nseg, seg, stride, 0)),
+            library_ms=timer(lambda: view.copy_(packed.view(nseg, seg))),
+        )
+        del packed, out, view
+    return dict(cases=cases, timings=timings)
+
+
+def paged_step_host_ms(torch, cfg, model, rounds: int = 8) -> dict:
+    """Host ms, between two syncs, of one batched decode step over 4 slots at
+    position 400 alone, of the same step followed by the 4 page appends a
+    paged step makes (each slot's new position, one K1 pack and one
+    dt_unpack_into per leaf), and of the 4 appends alone; measured in turns
+    (contiguous, paged, paged, contiguous) so that the host's drift falls on
+    both alike. Medians, with the K1 launches of one paged step."""
+    from repro_torch.kernels import dt_pack as dp
+    from repro_torch.models import api
+    from repro_torch.serving.paged_kv import PagedKVCache
+
+    B, pos = 4, 400
+    cache = api.init_cache(cfg, B, 512, "cuda")
+    kv = PagedKVCache(cache, 512, page_size=PAGE_SIZE, num_pages=B * 512 // PAGE_SIZE)
+    for i in range(B):
+        kv.alloc(i)
+        kv.append(i, cache, i, 0, pos + 1)  # positions [0, 401) stored; the step re-writes 400
+    tok = torch.zeros(B, dtype=torch.long, device="cuda")
+    at = torch.full((B,), pos, dtype=torch.long, device="cuda")
+
+    def appends():
+        for i in range(B):
+            kv.append(i, cache, i, pos, 1)
+
+    def contiguous_step():
+        api.decode_step(cfg, model, cache, tok, at)
+
+    def paged_step():
+        contiguous_step()
+        appends()
+
+    times = {"contiguous": [], "paged": [], "appends": []}
+    for _ in range(rounds):
+        for name, fn in (("contiguous", contiguous_step), ("paged", paged_step), ("appends", appends),
+                         ("appends", appends), ("paged", paged_step), ("contiguous", contiguous_step)):
+            times[name].append(host_ms(torch, fn, reps=1))
+    before = dp.dt_pack.launches + dp.dt_unpack_into.launches
+    paged_step()
+    launches = dp.dt_pack.launches + dp.dt_unpack_into.launches - before
+    torch.cuda.synchronize()
+    med = {name: statistics.median(v) for name, v in times.items()}
+    return dict(decode_step_host_ms=med["contiguous"], paged_decode_step_host_ms=med["paged"],
+                appends_host_ms=med["appends"], samples=2 * rounds, k1_launches_per_decode_step=launches)
+
+
+def phase_serve_paged(torch, timer, model) -> dict:
+    """Full-width qwen1.5-0.5b (the serve phase's weights) through the paged
+    KV cache on the card: the three runs of :func:`serve_paged_runs`, their
+    checks, dt_unpack_into against its plain version, and the paged decode
+    step's host time."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen1.5-0.5b").replace(attn_impl="flash")
+    rng = np.random.default_rng(1)
+    lens = [FLASH_SERVE_S[i % len(FLASH_SERVE_S)] for i in range(PAGED_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab, (n,)) for n in lens]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    unpack = unpack_into_rows(torch, timer, gen)  # compare launches stay outside the counted runs
+    runs = serve_paged_runs(torch, cfg, model, prompts, 16, PAGE_SIZE)
+    check_serve_paged(runs, PAGED_REQUESTS, 16, cfg.n_layers)
+    step = paged_step_host_ms(torch, cfg, model)
+    rows = {}
+    for name, run in runs.items():
+        if name == "k1":
+            continue
+        toks = sum(len(t) for t in run["tokens"])
+        lat = np.asarray(run["latencies_s"]) * 1e3
+        rows[name] = dict(tokens=toks, wall_s=run["wall_s"], tokens_per_s=toks / run["wall_s"],
+                          latency_p50_ms=float(np.percentile(lat, 50)),
+                          latency_p95_ms=float(np.percentile(lat, 95)))
+        for key in ("steps", "page_moves", "max_concurrent", "summary", "kv", "prefills", "flash_launches"):
+            if key in run:
+                rows[name][key] = run[key]
+    pool = runs["admission"]["kv"]
+    emit("serve_paged", arch=cfg.name, requests=PAGED_REQUESTS, prompt_lens=lens, max_new_tokens=16, max_batch=4,
+         max_len=512, page_size=PAGE_SIZE, pool_pages=pool["num_pages"], page_bytes=pool["page_bytes"],
+         token_bytes=pool["token_bytes"], pool_mb=pool["num_pages"] * pool["page_bytes"] / 1e6, runs=rows,
+         k1=runs["k1"], step=step, dt_unpack_into=unpack, device=torch.cuda.get_device_name(0))
+    flash = sum(runs[name]["flash_launches"] for name in ("admission", "elastic"))
+    return dict(launches=runs["k1"]["dt_unpack_into"], pack_launches=runs["k1"]["dt_pack"], flash_launches=flash,
+                unpack=unpack)
+
+
 def phase_timer_ab(torch) -> None:
     """The timer's variants, each in turns so that a change of timer can be
     told from noise, and the pack's timed shapes under the default timer.
@@ -886,23 +1169,35 @@ def main() -> int:
     kern = phase_kernels(torch, timer)
     eng, serve = phase_serve(torch)
     enq = phase_enqueue(torch, eng)
+    model = eng.params
     del eng
+    torch.cuda.empty_cache()
+    paged = phase_serve_paged(torch, timer, model)
+    del model
+    torch.cuda.empty_cache()
     rwkv = phase_serve_rwkv(torch)
 
     ft = kern["flash_times"][-1]  # the longest served prompt, S = 384
+    ut = paged["unpack"]["timings"]["decode_step"]  # the paged path's most frequent move
     entries = [
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:75", launches=serve["flash_launches"],
+             replaces="src/repro/kernels/flash_attention.py:75", launches=serve["flash_launches"] + paged["flash_launches"],
+             launches_by_path=dict(serve=serve["flash_launches"], serve_paged=paged["flash_launches"]),
              max_abs_err=kern["flash_err"], ms=ft["ms"], plain_ms=ft["plain_ms"], bound_ms=ft["bound_ms"],
              bound_by=ft["bound_by"], library_ms=ft["library_ms"]),
         dict(name="dt_pack", route="cuda", source="src/repro_torch/csrc/dt_pack.cu",
-             replaces="src/repro/kernels/dt_pack.py:50", launches=enq["dt_pack"], max_abs_err=0.0,
+             replaces="src/repro/kernels/dt_pack.py:50", launches=enq["dt_pack"] + paged["pack_launches"],
+             launches_by_path=dict(enqueue=enq["dt_pack"], serve_paged=paged["pack_launches"]), max_abs_err=0.0,
              ms=kern["pack"]["ms"], plain_ms=kern["pack"]["plain_ms"], bound_ms=kern["pack"]["bound_ms"],
              bound_by="bytes", library_ms=kern["pack"]["library_ms"]),
         dict(name="dt_unpack", route="cuda", source="src/repro_torch/csrc/dt_pack.cu",
              replaces="src/repro/kernels/dt_pack.py:78", launches=enq["dt_unpack"], max_abs_err=0.0,
              ms=kern["unpack"]["ms"], plain_ms=kern["unpack"]["plain_ms"], bound_ms=kern["unpack"]["bound_ms"],
              bound_by="bytes", library_ms=kern["unpack"]["library_ms"]),
+        dict(name="dt_unpack_into", route="cuda", source="src/repro_torch/csrc/dt_pack.cu",
+             replaces="src/repro/serving/paged_kv.py:289", launches=paged["launches"], max_abs_err=0.0,
+             ms=ut["ms"], plain_ms=ut["plain_ms"], bound_ms=ut["bound_ms"], bound_by="bytes",
+             library_ms=ut["library_ms"]),
         dict(name="wkv6", route="cuda", source="src/repro_torch/csrc/rwkv6_scan.cu",
              replaces="src/repro/kernels/rwkv6_scan.py:81", launches=rwkv["launches"],
              max_abs_err=kern["wkv"]["max_abs_err"], ms=kern["wkv"]["ms"], plain_ms=kern["wkv"]["plain_ms"],

@@ -4,11 +4,15 @@
 2. datatype iovec                    → :mod:`repro_torch.core.datatype`
 3. MPIX streams                      → :mod:`repro_torch.core.streams`
 4. enqueue (device-ordered) ops      → :mod:`repro_torch.core.enqueue`
+5. thread communicators, host mode   → :mod:`repro_torch.core.threadcomm`
 6. general progress                  → :mod:`repro_torch.core.progress`
 
-plus recorded record-once/replay-many schedules
-(:mod:`repro_torch.core.schedule`). Thread communicators (ext. 5), stream
-communicators and the collective layer are not ported yet (ROADMAP).
+plus the host collectives over thread-ranks
+(:mod:`repro_torch.core.threadcoll`) and recorded record-once/replay-many
+schedules (:mod:`repro_torch.core.schedule`). The mesh-axis level of ext. 5
+(``ThreadComm``, ``HybridThreadComm``), stream communicators and the
+device collective layer are not ported yet (ROADMAP P9): the two classes
+are exported and raise ``NotImplementedError``.
 """
 
 from repro_torch.core.datatype import (
@@ -81,3 +85,17 @@ from repro_torch.core.streams import (
     stream_free,
     token_join,
 )
+from repro_torch.core.threadcomm import (
+    ANY_SOURCE,
+    ANY_TAG,
+    HostThreadComm,
+    HybridThreadComm,
+    RecvFuture,
+    ThreadComm,
+    ThreadRank,
+    comm_test_threadcomm,
+    host_threadcomm_init,
+    tc_recv,
+    tc_send,
+)
+from repro_torch.core import threadcoll

@@ -36,6 +36,16 @@
 // faster at any layout timed (PERF.md §6).
 //
 // Unpack: one thread per output vector, the zero fill fused into the pass.
+//
+// Unpack into (`repro_dt_unpack_into`): the in-place scatter a paged KV
+// cache needs to write positions [a, a+n) of a page whose other positions
+// are live. It writes segment bytes only and leaves every other byte of the
+// output as it was (the host engine's `datatype.unpack` contract, not the
+// TPU kernel's fresh zeroed buffer). It is the pack with the roles swapped:
+// the same plan (`pack_plan` with the strided side and the dense side
+// exchanged), the grid over the packed bytes, the packed loads streamed and
+// the stores addressed by the same multiply-shift divide. Bounded the same
+// way: it reads and writes nseg*seg_bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,8 +76,9 @@ __device__ __forceinline__ uint64_t mul_hi(uint64_t a, uint64_t b) { return __um
 // thread t moves vectors base + t + i*THREADS, i < ILP: all ILP loads are
 // issued before the first store. The segment of vector p is
 // mul_hi(p, div_mul) >> div_shift (`fast_divider`); I is the index type
-// `pack_as` chose.
-template <typename V, typename I>
+// `pack_as` chose. SCATTER = false is the pack (strided `src`, dense `out`);
+// SCATTER = true the unpack into (dense `src`, strided `out`).
+template <typename V, typename I, bool SCATTER>
 __global__ void __launch_bounds__(THREADS, 4)
 pack_kernel(const V* __restrict__ src, V* __restrict__ out, I total, I span, I vps, I stride_v,
             typename std::make_unsigned<I>::type div_mul, int div_shift) {
@@ -75,20 +86,21 @@ pack_kernel(const V* __restrict__ src, V* __restrict__ out, I total, I span, I v
     constexpr int ILP = pack_ilp<V>();
     const I b0 = (I)blockIdx.x * span;
     const I b1 = least(total, b0 + span);
+    auto strided = [&](I p) -> I {
+        const I seg = vps == 1 ? p : (I)(mul_hi((U)p, div_mul) >> div_shift);
+        return seg * stride_v + (p - seg * vps);
+    };
     for (I base = b0 + (I)threadIdx.x; base < b1; base += THREADS * ILP) {
         V r[ILP];
 #pragma unroll
         for (int i = 0; i < ILP; ++i) {
             const I p = base + i * THREADS;
-            if (p < b1) {
-                const I seg = vps == 1 ? p : (I)(mul_hi((U)p, div_mul) >> div_shift);
-                r[i] = __ldcs(src + seg * stride_v + (p - seg * vps));
-            }
+            if (p < b1) r[i] = __ldcs(src + (SCATTER ? p : strided(p)));
         }
 #pragma unroll
         for (int i = 0; i < ILP; ++i) {
             const I p = base + i * THREADS;
-            if (p < b1) out[p] = r[i];
+            if (p < b1) out[SCATTER ? strided(p) : p] = r[i];
         }
     }
 }
@@ -140,30 +152,57 @@ void fast_divider(U d, U* mul, int* shift) {
     *shift = l - 1;
 }
 
-template <typename V, typename I>
+template <typename V, typename I, bool SCATTER>
 int launch_pack(const void* src, void* out, int64_t grid, int64_t total, int64_t span, int64_t vps,
                 int64_t stride_v, cudaStream_t st) {
     using U = typename std::make_unsigned<I>::type;
     U mul;
     int shift;
     fast_divider<U>((U)vps, &mul, &shift);
-    pack_kernel<V, I><<<(unsigned)grid, THREADS, 0, st>>>((const V*)src, (V*)out, (I)total, (I)span, (I)vps,
-                                                         (I)stride_v, mul, shift);
+    pack_kernel<V, I, SCATTER><<<(unsigned)grid, THREADS, 0, st>>>((const V*)src, (V*)out, (I)total, (I)span,
+                                                                  (I)vps, (I)stride_v, mul, shift);
     return (int)cudaGetLastError();
 }
 
 // 32-bit indices where every index the kernel forms stays below 2^31: a
-// source offset, or a step past the end of a block's span
-template <typename V>
+// strided offset, or a step past the end of a block's span
+template <typename V, bool SCATTER>
 int pack_as(const void* src, void* out, int64_t nseg, int64_t seg_bytes, int64_t stride_bytes,
             int64_t grid, int64_t span_bytes, cudaStream_t st) {
     const int64_t W = sizeof(V);
     const int64_t vps = seg_bytes / W, stride_v = stride_bytes / W, total = nseg * vps, span = span_bytes / W;
-    const int64_t src_reach = nseg * (stride_v > vps ? stride_v : vps);
-    const int64_t out_reach = total + span + (int64_t)THREADS * pack_ilp<V>();
-    if (src_reach < ((int64_t)1 << 31) && out_reach < ((int64_t)1 << 31))
-        return launch_pack<V, int32_t>(src, out, grid, total, span, vps, stride_v, st);
-    return launch_pack<V, int64_t>(src, out, grid, total, span, vps, stride_v, st);
+    const int64_t strided_reach = nseg * (stride_v > vps ? stride_v : vps);
+    const int64_t dense_reach = total + span + (int64_t)THREADS * pack_ilp<V>();
+    if (strided_reach < ((int64_t)1 << 31) && dense_reach < ((int64_t)1 << 31))
+        return launch_pack<V, int32_t, SCATTER>(src, out, grid, total, span, vps, stride_v, st);
+    return launch_pack<V, int64_t, SCATTER>(src, out, grid, total, span, vps, stride_v, st);
+}
+
+// The checks both entries make of a plan, and its launch. `strided` is the
+// side addressed by segments, `dense` the packed side.
+template <bool SCATTER>
+int plan_and_launch(const void* src, void* out, const void* strided, const void* dense, int64_t nseg,
+                    int64_t seg_bytes, int64_t stride_bytes, int width, int64_t grid, int64_t span_bytes,
+                    void* stream) {
+    if (nseg < 0 || seg_bytes < 0 || (nseg > 1 && stride_bytes < seg_bytes))
+        return (int)cudaErrorInvalidValue;
+    if (nseg <= 1) stride_bytes = seg_bytes;
+    const int64_t total = nseg * seg_bytes;
+    if (total == 0) return 0;
+    const int64_t q[4] = {(int64_t)(uintptr_t)strided, (int64_t)(uintptr_t)dense, seg_bytes, stride_bytes};
+    if (width < 1 || width > 16 || (width & (width - 1)) || vector_width(q, 4) < width)
+        return (int)cudaErrorInvalidValue;
+    if (grid < 1 || grid > INT32_MAX || span_bytes < 1 || span_bytes % width || (grid - 1) * span_bytes >= total ||
+        grid * span_bytes < total)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (width) {
+        case 16: return pack_as<uint4, SCATTER>(src, out, nseg, seg_bytes, stride_bytes, grid, span_bytes, st);
+        case 8: return pack_as<uint2, SCATTER>(src, out, nseg, seg_bytes, stride_bytes, grid, span_bytes, st);
+        case 4: return pack_as<uint32_t, SCATTER>(src, out, nseg, seg_bytes, stride_bytes, grid, span_bytes, st);
+        case 2: return pack_as<uint16_t, SCATTER>(src, out, nseg, seg_bytes, stride_bytes, grid, span_bytes, st);
+        default: return pack_as<uint8_t, SCATTER>(src, out, nseg, seg_bytes, stride_bytes, grid, span_bytes, st);
+    }
 }
 
 template <typename V>
@@ -195,25 +234,22 @@ int unpack_as(const void* packed, void* out, int64_t nseg, int64_t seg_bytes, in
 // refused, not repaired. Returns a cudaError_t (0 = launched).
 extern "C" int repro_dt_pack(const void* src, void* out, int64_t nseg, int64_t seg_bytes,
                              int64_t stride_bytes, int width, int64_t grid, int64_t span_bytes, void* stream) {
-    if (nseg < 0 || seg_bytes < 0 || (nseg > 1 && stride_bytes < seg_bytes))
-        return (int)cudaErrorInvalidValue;
-    if (nseg <= 1) stride_bytes = seg_bytes;
-    const int64_t total = nseg * seg_bytes;
-    if (total == 0) return 0;
-    const int64_t q[4] = {(int64_t)(uintptr_t)src, (int64_t)(uintptr_t)out, seg_bytes, stride_bytes};
-    if (width < 1 || width > 16 || (width & (width - 1)) || vector_width(q, 4) < width)
-        return (int)cudaErrorInvalidValue;
-    if (grid < 1 || grid > INT32_MAX || span_bytes < 1 || span_bytes % width || (grid - 1) * span_bytes >= total ||
-        grid * span_bytes < total)
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    switch (width) {
-        case 16: return pack_as<uint4>(src, out, nseg, seg_bytes, stride_bytes, grid, span_bytes, st);
-        case 8: return pack_as<uint2>(src, out, nseg, seg_bytes, stride_bytes, grid, span_bytes, st);
-        case 4: return pack_as<uint32_t>(src, out, nseg, seg_bytes, stride_bytes, grid, span_bytes, st);
-        case 2: return pack_as<uint16_t>(src, out, nseg, seg_bytes, stride_bytes, grid, span_bytes, st);
-        default: return pack_as<uint8_t>(src, out, nseg, seg_bytes, stride_bytes, grid, span_bytes, st);
-    }
+    return plan_and_launch<false>(src, out, src, out, nseg, seg_bytes, stride_bytes, width, grid, span_bytes,
+                                  stream);
+}
+
+// Scatter the dense `packed` buffer into `nseg` segments of `seg_bytes`,
+// `stride_bytes` apart, starting `disp_bytes` into `out`; every other byte
+// of `out` keeps its value. The plan is the pack's with the roles swapped
+// (`pack_plan` over `out + disp_bytes` and `packed`). The caller checks that
+// the last segment ends inside `out`. Returns a cudaError_t (0 = launched).
+extern "C" int repro_dt_unpack_into(const void* packed, void* out, int64_t nseg, int64_t seg_bytes,
+                                    int64_t stride_bytes, int64_t disp_bytes, int width, int64_t grid,
+                                    int64_t span_bytes, void* stream) {
+    if (disp_bytes < 0) return (int)cudaErrorInvalidValue;
+    char* dst = (char*)out + disp_bytes;
+    return plan_and_launch<true>(packed, dst, dst, packed, nseg, seg_bytes, stride_bytes, width, grid, span_bytes,
+                                 stream);
 }
 
 // Write all `out_bytes` of `out`: the segments of `packed` at

@@ -100,6 +100,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_dt_pack.restype = i32
     lib.repro_dt_unpack.argtypes = [vp, vp, i64, i64, i64, i64, i64, vp]
     lib.repro_dt_unpack.restype = i32
+    lib.repro_dt_unpack_into.argtypes = [vp, vp, i64, i64, i64, i64, i32, i64, i64, vp]
+    lib.repro_dt_unpack_into.restype = i32
     lib.repro_wkv6_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, p64, vp]
     lib.repro_wkv6_fwd.restype = i32
 

@@ -16,8 +16,15 @@ two pointers' alignment alone: the access width and the grid of equal spans
 of the packed output. The kernel's own index arithmetic (32- or 64-bit
 indices, the multiply-shift divide) is chosen by the C entry.
 
-:func:`dt_pack`/:func:`dt_unpack` launch the kernels for CUDA tensors and
-run :func:`dt_pack_plain`/:func:`dt_unpack_plain` for CPU tensors only.
+:func:`dt_unpack_into` is the in-place scatter a paged KV cache needs: the
+segments are written into an existing buffer whose other elements keep
+their values (the host engine's ``datatype.unpack`` contract). It has no TPU
+kernel of its own; it runs the pack kernel with the strided and the dense
+side exchanged, under the same :func:`pack_plan`.
+
+:func:`dt_pack`/:func:`dt_unpack`/:func:`dt_unpack_into` launch the kernels
+for CUDA tensors and run :func:`dt_pack_plain`/:func:`dt_unpack_plain`/
+:func:`dt_unpack_into_plain` for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["dt_pack", "dt_unpack", "dt_pack_plain", "dt_unpack_plain", "PackPlan", "pack_plan", "access_width"]
+__all__ = ["dt_pack", "dt_unpack", "dt_unpack_into", "dt_pack_plain", "dt_unpack_plain", "dt_unpack_into_plain",
+           "PackPlan", "pack_plan", "access_width"]
 
 H100_SMS = 132
 BLOCKS_PER_SM = 8  # 256-thread blocks: the 2048 threads an H100 SM holds
@@ -109,6 +117,13 @@ def dt_unpack_plain(packed, nseg: int, seg_len: int, stride: int, start: int, ou
     return out
 
 
+def dt_unpack_into_plain(packed, out, nseg: int, seg_len: int, stride: int, start: int = 0):
+    """``out[start + i*stride + j] = packed[i*seg_len + j]`` by an index
+    scatter into ``out``, in place; every other element keeps its value."""
+    out[_index(nseg, seg_len, stride, start, out.device)] = packed
+    return out
+
+
 def dt_pack(buf, *, nseg: int, seg_len: int, stride: int, start: int = 0):
     """Gather ``nseg`` segments of ``seg_len`` elements, ``stride`` apart,
     from ``start`` in the flat buffer ``buf`` → ``(nseg * seg_len,)``."""
@@ -161,5 +176,40 @@ def dt_unpack(packed, *, nseg: int, seg_len: int, stride: int, start: int = 0, o
     return out
 
 
+def dt_unpack_into(packed, out, *, nseg: int, seg_len: int, stride: int, start: int = 0):
+    """Scatter :func:`dt_pack`'s output back into the existing flat buffer
+    ``out``, in place: ``nseg`` segments of ``seg_len`` elements, ``stride``
+    apart, from element ``start``. Elements outside the segments keep their
+    values. Returns ``out``."""
+    _check_flat(packed, "dt_unpack_into")
+    _check_flat(out, "dt_unpack_into")
+    if packed.dtype != out.dtype or packed.device != out.device:
+        raise ValueError(
+            f"dt_unpack_into: packed is {packed.dtype} on {packed.device}, out is {out.dtype} on {out.device}"
+        )
+    if packed.numel() != nseg * seg_len:
+        raise ValueError(f"dt_unpack_into: packed holds {packed.numel()} elements, layout needs {nseg * seg_len}")
+    _window_check(out.numel(), nseg, seg_len, stride, start, "dt_unpack_into")
+    if out.device.type == "cpu":
+        return dt_unpack_into_plain(packed, out, nseg, seg_len, stride, start)
+    if out.device.type != "cuda":
+        raise ValueError(f"dt_unpack_into: unsupported device {out.device}")
+    from repro_torch.kernels import _build
+
+    lib = _build.load()
+    item = out.element_size()
+    dst = out.data_ptr() + start * item
+    plan = pack_plan(nseg, seg_len * item, stride * item, dst, packed.data_ptr(), sms=_sm_count(out.device))
+    rc = lib.repro_dt_unpack_into(
+        packed.data_ptr(), out.data_ptr(), nseg, seg_len * item, stride * item, start * item,
+        plan.width, plan.grid, plan.span_bytes, torch.cuda.current_stream(out.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"dt_unpack_into kernel launch failed: cudaError {rc} ({plan})")
+    dt_unpack_into.launches += 1
+    return out
+
+
 dt_pack.launches = 0
 dt_unpack.launches = 0
+dt_unpack_into.launches = 0

@@ -1,7 +1,8 @@
 """Public wrappers around the port's kernels, mirroring
 ``repro.kernels.ops``: the integration points the models and the enqueue
 path call (flash attention for GQA layers, the chunked WKV for RWKV-6,
-dt_pack for datatype-described send buffers). Each wrapper launches the
+dt_pack for datatype-described send buffers and, with its in-place
+unpack, the paged KV cache's page moves). Each wrapper launches the
 CUDA kernel for CUDA tensors and the kernel's plain PyTorch version for CPU
 tensors. The reference's ``interpret`` switch has no counterpart: the
 tensor's device decides.
@@ -14,7 +15,7 @@ from repro_torch.kernels import dt_pack as _dtp
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rwkv6_scan as _wkv
 
-__all__ = ["gqa_flash_attention", "wkv6", "pack_datatype", "unpack_datatype"]
+__all__ = ["gqa_flash_attention", "wkv6", "pack_datatype", "unpack_datatype", "unpack_datatype_into"]
 
 
 def gqa_flash_attention(q, k, v, causal: bool = True):
@@ -78,4 +79,17 @@ def unpack_datatype(packed_flat, dtype_descr: dt.Datatype, out_len: int, *, info
     return _dtp.dt_unpack(
         packed_flat, nseg=nseg, seg_len=seg_bytes // item, stride=stride,
         start=disp // item, out_len=out_len,
+    )
+
+
+def unpack_datatype_into(packed_flat, dtype_descr: dt.Datatype, out_flat, *, info=None):
+    """Inverse of pack_datatype into the existing flat buffer ``out_flat``,
+    in place: the descriptor's segments are written, every other element
+    keeps its value (``core.datatype.unpack``'s contract). Returns
+    ``out_flat``."""
+    item = packed_flat.element_size()
+    nseg, seg_bytes, stride_bytes, disp = _kernel_info(dtype_descr, info, item)
+    stride = stride_bytes // item if nseg > 1 else seg_bytes // item
+    return _dtp.dt_unpack_into(
+        packed_flat, out_flat, nseg=nseg, seg_len=seg_bytes // item, stride=stride, start=disp // item
     )

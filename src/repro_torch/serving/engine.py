@@ -18,14 +18,21 @@ eagerly where the reference jits it, the batch cache is updated in place
 (the splice and the decode's K/V writes), and the recorded decode step's
 completion is a CUDA event (``enqueue.dispatch_state``) polled with
 ``query()`` and waited in the replay's blocking assist — never a value
-that counts as done the moment it is issued. The paged engine, the
-threadcomm loop and the elastic loop come with later slices (ROADMAP).
+that counts as done the moment it is issued.
+
+:class:`PagedServeEngine` keeps the authoritative KV bytes in the
+device-resident page pool of :mod:`repro_torch.serving.paged_kv`, every
+page move a K1 launch. :meth:`ServeEngine.run_until_done_threaded` and
+:meth:`ServeEngine.run_until_done_elastic` shard the per-slot host
+bookkeeping over host threadcomm ranks (paper ext. 5), the elastic loop
+surviving a killed rank.
 """
 
 from __future__ import annotations
 
 import collections
 import itertools
+import threading
 from dataclasses import dataclass, field
 from typing import Deque, List, Optional
 
@@ -36,10 +43,14 @@ from repro_torch.core.enqueue import _poll_dispatched, _wait_dispatched, dispatc
 from repro_torch.core.progress import GeneralizedRequest, ProgressEngine
 from repro_torch.core.schedule import Schedule, ScheduleStale
 from repro_torch.core.streams import MPIXStream, STREAM_NULL
+from repro_torch.core.threadcomm import HostThreadComm
+from repro_torch.ft.faultinject import RankKilled
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving.paged_kv import PagedKVCache, PoolExhausted
+from repro_torch.serving.paged_kv import cache_leaves as _leaves
 
-__all__ = ["Request", "ServeEngine"]
+__all__ = ["Request", "ServeEngine", "PagedServeEngine"]
 
 
 @dataclass
@@ -51,20 +62,6 @@ class Request:
     out_tokens: List[int] = field(default_factory=list)
     done: bool = False
     grequest: Optional[GeneralizedRequest] = None  # set when a progress engine is attached
-
-
-def _leaves(cache):
-    """The tensors of a nested dict/list/tuple cache in a fixed order: dict
-    keys sorted, sequences in order — the order ``jax.tree`` walks. That
-    covers the transformer's groups → pattern → (K, V) and RWKV's
-    ``{"wkv", "x_cm", "x_tm"}`` state."""
-    if isinstance(cache, torch.Tensor):
-        return [cache]
-    if isinstance(cache, dict):
-        return [t for key in sorted(cache) for t in _leaves(cache[key])]
-    if isinstance(cache, (list, tuple)):
-        return [t for sub in cache for t in _leaves(sub)]
-    raise TypeError(f"cache leaf of type {type(cache).__name__} is not a tensor")
 
 
 def _cache_signature(cache):
@@ -299,6 +296,224 @@ class ServeEngine:
                 return
             self.step()
 
+    # -- threadcomm generation loop (paper ext. 5 consumer) -----------------
+    def run_until_done_threaded(
+        self, n_threads: int = 2, max_steps: int = 10_000, sync_timeout: float = 300.0
+    ) -> None:
+        """``run_until_done`` with the host-side bookkeeping sharded over
+        ``n_threads`` threadcomm ranks. Rank 0 drives admission and the
+        batched decode; each generation step is then one **bcast** of the
+        (active, next-token) payload — every worker updates its own slot
+        shard (slot i belongs to rank i % n) — and an error-flag
+        **allreduce** (a barrier that also carries abort state) before
+        the next decode reads the advanced pos/cur_tok state. Blocked
+        ranks park on their own VCI stripes between steps, so idle workers
+        cost no polling (engine ``stats()`` shows parks, not polls). On the
+        card, rank 0's ``_decode_active`` ends in a host copy of the next
+        tokens, so the decode is complete before any worker's slot work.
+
+        Failures cannot strand the loop: a rank-0 decode error is
+        broadcast as an abort, a worker error raises the step's allreduce
+        flag so every rank (rank 0 included) exits the loop, and every
+        collective hop carries ``sync_timeout`` as a backstop — so the
+        epoch always closes and the VCI channels always return to the
+        pool; the first error re-raises after teardown."""
+        if n_threads < 1:
+            raise ValueError("run_until_done_threaded needs n_threads >= 1")
+        engine = self.progress_engine
+        comm = HostThreadComm(n_threads, engine=engine, name="serve-tc")
+        comm.start()
+        errors: List[BaseException] = []
+
+        def worker(rank: int) -> None:
+            h = comm.attach(rank=rank)
+            try:
+                for _ in range(max_steps):
+                    if rank == 0:
+                        try:
+                            if self._idle():
+                                payload = None
+                            else:
+                                self._admit()
+                                payload = ("step", self._decode_active())
+                        except BaseException as e:  # must still reach the other ranks
+                            errors.append(e)
+                            payload = ("abort",)
+                        payload = h.bcast(payload, root=0, timeout=sync_timeout)
+                    else:
+                        payload = h.bcast(root=0, timeout=sync_timeout)
+                    if payload is None or payload[0] == "abort":
+                        return
+                    failed = 0
+                    try:
+                        active, next_tok = payload[1]
+                        for i in active:
+                            if i % n_threads == rank:
+                                self._advance_slot(i, int(next_tok[i]))
+                    except BaseException as e:
+                        errors.append(e)
+                        failed = 1
+                    # all shards advanced (or one failed) before the next
+                    # decode reads them; a raised flag exits every rank
+                    if int(h.allreduce(failed, op="max", timeout=sync_timeout)):
+                        return
+            except BaseException as e:  # collective timeout / unexpected failure
+                errors.append(e)
+            finally:
+                h.detach()
+
+        threads = [
+            threading.Thread(target=worker, args=(r,), daemon=True, name=f"serve-tc-{r}")
+            for r in range(1, n_threads)
+        ]
+        try:
+            for t in threads:
+                t.start()
+            worker(0)
+        finally:
+            for t in threads:
+                t.join(timeout=sync_timeout)
+            comm.finish(timeout=30.0, drain=True)
+        if errors:
+            raise errors[0]
+
+    # -- elastic threadcomm loop (fault-injected rank death survivable) ------
+    def run_until_done_elastic(
+        self,
+        n_threads: int = 2,
+        fault_injector=None,
+        max_steps: int = 10_000,
+        sync_timeout: float = 300.0,
+    ) -> dict:
+        """:meth:`run_until_done_threaded` that survives rank death.
+
+        A killed worker (``ft.faultinject`` arming a ``kill_rank`` event:
+        its mailbox ops raise :class:`~repro_torch.ft.faultinject.RankKilled`)
+        trips the same abort protocol as the threaded loop — the epoch
+        closes cleanly, every channel returns to the pool — but instead of
+        re-raising, the dead rank is dropped and the loop re-opens a
+        fresh epoch over the survivors, whose ``i % n`` shard map now
+        covers the dead rank's slots.
+
+        No token is lost and none is duplicated across the abort: all
+        decode state lives in the engine (``pos``/``cur_tok``/``cache``/
+        ``out_tokens``), not in the threads, and the interrupted step is
+        repaired transactionally — rank 0 snapshots ``pos`` before each
+        bcast, so after the epoch tears down it can tell exactly which
+        active slots the dying epoch advanced (``pos`` moved) and
+        advances only the ones it didn't. Returns a summary dict
+        (``epochs``, ``dead_ranks``).
+        """
+        if n_threads < 1:
+            raise ValueError("run_until_done_elastic needs n_threads >= 1")
+        live = list(range(n_threads))
+        dead: List[int] = []
+        epochs = 0
+        while True:
+            epochs += 1
+            killed = self._run_elastic_epoch(live, fault_injector, max_steps, sync_timeout)
+            if killed is None:
+                return {"epochs": epochs, "dead_ranks": dead}
+            dead.append(killed)
+            live = [r for r in live if r != killed]
+            if not live:
+                raise RankKilled(killed)
+
+    def _run_elastic_epoch(
+        self, live: List[int], fault_injector, max_steps: int, sync_timeout: float
+    ) -> Optional[int]:
+        """One threadcomm epoch over ``live`` (global) ranks. Returns the
+        global rank the injector killed (the epoch aborted), or None (all
+        requests drained). Any non-kill error re-raises."""
+        n = len(live)
+        hook = None
+        if fault_injector is not None:
+            # comm ranks renumber every epoch; the injector targets GLOBAL
+            # ranks, so translate before checking
+            def hook(site, rank=None, dst=None):
+                fault_injector.check(
+                    site,
+                    rank=None if rank is None else live[rank],
+                    dst=None if dst is None else live[dst],
+                )
+
+        comm = HostThreadComm(n, engine=self.progress_engine, fault_hook=hook, name="serve-tc-el")
+        comm.start()
+        errors: List[BaseException] = []
+        # transactional step repair state: (active, next_tok, pos_before)
+        inflight: List = [None]
+
+        def worker(rank: int) -> None:
+            h = comm.attach(rank=rank)
+            try:
+                for _ in range(max_steps):
+                    if rank == 0:
+                        try:
+                            if self._idle():
+                                payload = None
+                            else:
+                                self._admit()
+                                active, next_tok = self._decode_active()
+                                inflight[0] = (active, next_tok, self.pos.copy())
+                                payload = ("step", (active, next_tok))
+                        except BaseException as e:
+                            errors.append(e)
+                            payload = ("abort",)
+                        payload = h.bcast(payload, root=0, timeout=sync_timeout)
+                    else:
+                        payload = h.bcast(root=0, timeout=sync_timeout)
+                    if payload is None or payload[0] == "abort":
+                        return
+                    failed = 0
+                    try:
+                        active, next_tok = payload[1]
+                        for i in active:
+                            if i % n == rank:
+                                self._advance_slot(i, int(next_tok[i]))
+                    except BaseException as e:
+                        errors.append(e)
+                        failed = 1
+                    if int(h.allreduce(failed, op="max", timeout=sync_timeout)):
+                        return
+                    if rank == 0:
+                        inflight[0] = None  # step fully applied everywhere
+            except BaseException as e:
+                errors.append(e)
+            finally:
+                h.detach()
+
+        threads = [
+            threading.Thread(target=worker, args=(r,), daemon=True, name=f"serve-el-{r}")
+            for r in range(1, n)
+        ]
+        try:
+            for t in threads:
+                t.start()
+            worker(0)
+        finally:
+            for t in threads:
+                t.join(timeout=sync_timeout)
+            comm.finish(timeout=30.0, drain=True)
+
+        kills = [e for e in errors if isinstance(e, RankKilled)]
+        others = [e for e in errors if not isinstance(e, (RankKilled, TimeoutError))]
+        if others:
+            raise others[0]
+        if not kills:
+            if errors:  # timeouts without a kill: a real stall, surface it
+                raise errors[0]
+            return None
+        # repair the interrupted step: advance exactly the active slots the
+        # dying epoch did NOT get to (their pos never moved). Workers have
+        # joined — no one else touches pos now.
+        if inflight[0] is not None:
+            active, next_tok, pos_before = inflight[0]
+            for i in active:
+                if self.slot_req[i] is not None and self.pos[i] == pos_before[i]:
+                    self._advance_slot(i, int(next_tok[i]))
+        return kills[0].rank
+
+
 
 def _splice(full, one, slot: int) -> None:
     """Copy a B=1 cache row into the batch cache at ``slot``, in place.
@@ -307,3 +522,207 @@ def _splice(full, one, slot: int) -> None:
         full[:, slot : slot + 1].copy_(one)
         return
     raise ValueError(f"unexpected cache leaf shapes {tuple(full.shape)} vs {tuple(one.shape)}")
+
+
+class PagedServeEngine(ServeEngine):
+    """:class:`ServeEngine` over a paged KV store (``serving.paged_kv``).
+
+    The dense ``(max_batch, max_len)`` cache remains the decode working
+    set — the batchwide ``decode_step`` is unchanged, so resident
+    requests produce token-for-token the contiguous engine's stream —
+    but the *authoritative* KV bytes live in fixed-size pages with a
+    per-request page table:
+
+    * admission is no longer bounded by ``max_batch``: a queued request
+      is **prefilled ahead** into pages (actual prompt length, rounded
+      up to one page) and parks awaiting a slot; activation scatters its
+      pages into the freed slot row (a datatype-described gather, no
+      re-prefill) and decode resumes where the prefill token left off.
+    * every decode step appends the newly written position of each
+      active slot to its pages (the decode-step page view), so a done
+      request's release returns exactly its pages to the pool.
+    * pool pressure spills cold prefix pages of parked requests (the
+      youngest-parked first — it activates last) to the host cold store
+      through the spill :class:`~repro_torch.core.enqueue.OffloadWindow`,
+      and activation reloads them.
+
+    On the card the pool lives on the device and every append and gather
+    is K1 launches on the engine's stream (see ``serving.paged_kv``).
+
+    FIFO order is preserved end to end (parked requests are by
+    construction older than queued ones), which is what makes the
+    paged-vs-contiguous token parity exact under identical traffic.
+    Only position-indexed caches page (dense attention); the paged
+    store's constructor rejects ring-buffer windowed layouts.
+    """
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        max_batch: int = 8,
+        max_len: int = 512,
+        progress_engine: Optional[ProgressEngine] = None,
+        stream: MPIXStream = STREAM_NULL,
+        step_schedule=False,
+        page_size: int = 16,
+        pool_pages: Optional[int] = None,
+        spill_parked: bool = False,
+    ):
+        super().__init__(
+            cfg,
+            params,
+            max_batch=max_batch,
+            max_len=max_len,
+            progress_engine=progress_engine,
+            stream=stream,
+            step_schedule=step_schedule,
+        )
+        if pool_pages is None:
+            # default: the bytes the contiguous engine would reserve
+            pool_pages = max_batch * (-(-max_len // page_size))
+        self.kv = PagedKVCache(
+            self.cache,
+            max_len,
+            page_size=page_size,
+            num_pages=pool_pages,
+            engine=progress_engine,
+            spill_stream=stream,
+        )
+        self.parked: Deque[Request] = collections.deque()
+        self.spill_parked = spill_parked
+        # growth headroom withheld from prefill-ahead admission: every
+        # active slot may cross a page boundary at its next decode step
+        self._page_reserve = max_batch
+        self.max_concurrent = 0
+
+    # -- pool pressure -----------------------------------------------------
+    def _make_room(self, need: int) -> bool:
+        """Free ``need`` pool pages by spilling cold prefix pages of parked
+        requests, youngest first (the last to activate). Returns whether
+        the pool now has ``need`` free pages."""
+        if self.kv.free_pages >= need:
+            return True
+        self.kv.reclaim(wait=True)
+        for req in reversed(self.parked):
+            if self.kv.free_pages >= need:
+                break
+            short = need - self.kv.free_pages
+            if self.kv.spillable(req.rid) and self.kv.spill_prefix(req.rid, max_pages=short):
+                self.kv.reclaim(wait=True)
+        return self.kv.free_pages >= need
+
+    # -- admission ---------------------------------------------------------
+    def _activate(self, slot: int, req: Request) -> None:
+        """Scatter a parked request's pages into ``slot`` and resume
+        decode after its prefill token — no re-prefill."""
+        try:
+            cache1 = self.kv.gather(req.rid)
+        except PoolExhausted:
+            # reload may need pool rows for the spilled pages: make room
+            # at the expense of younger parked requests and retry once
+            self._make_room(sum(1 for p in self.kv.page_table(req.rid) if p is None))
+            cache1 = self.kv.gather(req.rid)
+        for full, one in zip(_leaves(self.cache), _leaves(cache1)):
+            _splice(full, one, slot)
+        self.slot_req[slot] = req
+        self.pos[slot] = self.kv.length(req.rid)
+        self.cur_tok[slot] = req.out_tokens[-1]
+
+    def _prefill_paged(self, req: Request) -> bool:
+        """Prefill + write the prompt span into fresh pages. Returns False
+        when the request finished at admission (EOS/limit on the prefill
+        token — the same check the contiguous engine applies) and
+        consumed no pages."""
+        done, cache1 = self._prefill_request(req)
+        if done:
+            return False
+        self.kv.alloc(req.rid)
+        # prefill splice: the whole prompt span, one descriptor pack per
+        # leaf per page chunk (B=1 source — slot 0 of the prefill cache)
+        self.kv.append(req.rid, cache1, 0, 0, int(req.prompt.shape[0]))
+        return True
+
+    def _admit(self) -> None:
+        self.kv.reclaim()  # harvest completed spill copies
+        # keep decode growth safe: every active slot sitting on a page
+        # boundary allocates at its next append
+        crossing = sum(
+            1
+            for i, r in enumerate(self.slot_req)
+            if r is not None and self.pos[i] % self.kv.page_size == 0
+        )
+        if crossing:
+            self._make_room(crossing)
+        for slot in self._free_slots():
+            if self.parked:
+                self._activate(slot, self.parked.popleft())
+                continue
+            admitted = False
+            while self.queue:
+                nxt = self.queue[0]
+                need = self.kv.pages_for(int(nxt.prompt.shape[0]))
+                if self.kv.free_pages < need and not self._make_room(need):
+                    break  # pool full even after spilling: stop admitting
+                req = self.queue.popleft()
+                if not self._prefill_paged(req):
+                    continue  # done at admission; slot stays free
+                cache1 = self.kv.gather(req.rid)
+                for full, one in zip(_leaves(self.cache), _leaves(cache1)):
+                    _splice(full, one, slot)
+                self.slot_req[slot] = req
+                self.pos[slot] = req.prompt.shape[0]
+                self.cur_tok[slot] = req.out_tokens[-1]
+                admitted = True
+                break
+            if not admitted and not self.parked:
+                break
+        # prefill-ahead: park queued requests in pages while the pool has
+        # room beyond the growth reserve — admission depth is now a page
+        # budget (actual lengths), not a slot count (max_len reservations)
+        while self.queue:
+            nxt = self.queue[0]
+            need = self.kv.pages_for(int(nxt.prompt.shape[0]))
+            if self.kv.free_pages - self._page_reserve < need:
+                break
+            req = self.queue.popleft()
+            if not self._prefill_paged(req):
+                continue
+            self.parked.append(req)
+            if self.spill_parked:
+                # park cold: move the full prefix pages to the cold store
+                # right away, keeping only the partial tail resident
+                self.kv.spill_prefix(req.rid)
+        concurrent = sum(1 for r in self.slot_req if r is not None) + len(self.parked)
+        if concurrent > self.max_concurrent:
+            self.max_concurrent = concurrent
+
+    def _idle(self) -> bool:
+        return not self.parked and super()._idle()
+
+    # -- decode bookkeeping -------------------------------------------------
+    def _advance_slot(self, i: int, tok: int) -> None:
+        """Mirror the decode step's newly written position into the
+        request's pages (the decode-step page view) before the base
+        bookkeeping advances ``pos`` — the span ``[pos, pos+1)`` of slot
+        ``i`` is exactly what the decode just wrote. Idempotent
+        under the elastic loop's transactional repair (re-appending an
+        already-stored span overwrites byte-identically)."""
+        req = self.slot_req[i]
+        try:
+            self.kv.append(req.rid, self.cache, i, int(self.pos[i]), 1)
+        except PoolExhausted:
+            self._make_room(1)
+            self.kv.append(req.rid, self.cache, i, int(self.pos[i]), 1)
+        super()._advance_slot(i, tok)
+        if req.done:
+            self.kv.release(req.rid)
+
+    def stats(self) -> dict:
+        return {
+            "max_concurrent": self.max_concurrent,
+            "parked": len(self.parked),
+            "active": sum(1 for r in self.slot_req if r is not None),
+            "queued": len(self.queue),
+            "kv": self.kv.stats(),
+        }

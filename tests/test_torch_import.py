@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports without JAX, never imports the
 JAX package, and asking for the card without one raises instead of
-falling back to the CPU."""
+falling back to the CPU. The port's benchmarks (``benchmarks/port/``) are
+held to the same rules."""
 
 import ast
 import pkgutil
@@ -13,6 +14,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
+PORT_BENCH = REPO / "benchmarks" / "port"
 
 
 def _port_modules():
@@ -23,15 +25,25 @@ def _port_modules():
     )
 
 
+def _port_bench_files():
+    return sorted(PORT_BENCH.glob("*.py"))
+
+
 def test_every_port_module_imports_without_jax():
     mods = ["repro_torch"] + _port_modules()
     assert "repro_torch.serving.engine" in mods and "repro_torch.kernels._build" in mods
+    assert "repro_torch.serving.paged_kv" in mods and "repro_torch.core.threadcomm" in mods
+    benches = [str(p) for p in _port_bench_files()]
+    assert any(b.endswith("serving_load.py") for b in benches)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError
-        "import importlib\n"
+        "import importlib, importlib.util\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, path in enumerate({benches!r}):\n"  # the port's benchmarks, imported as modules
+        "    spec = importlib.util.spec_from_file_location(f'port_bench_{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "assert not any(k == 'repro' or k.startswith('repro.') for k in sys.modules), "
         "sorted(k for k in sys.modules if k.startswith('repro.'))\n"
         "print('IMPORTED', len(sys.modules))\n"
@@ -57,7 +69,9 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py"))
+    + sorted(p.relative_to(REPO).as_posix() for p in PORT_BENCH.glob("*.py"))
+    + ["chip_smoke.py"],
 )
 def test_no_jax_or_reference_imports(path):
     bad = [
