@@ -98,6 +98,13 @@ PACK_SHAPES = {
 # recorded values, not measured in this run
 FIRST_DESIGN_PACK_MS = {"served_span": 0.011744, "page_span": 0.006000, "token_view": 0.005768,
                         "vector_column": 0.028856, "misaligned_span": 0.020392}
+# the dist phase: windowed ring sends of the served K span, the pipeline
+# activation of one rank, and the device spin before each timed collective
+# or send (~0.2 s at the H100's clocks: a few times the longest host time
+# seen to enqueue one, 61 ms)
+DIST_SENDS = 16
+DIST_ACT = (4, 512, 1024)
+DIST_SPIN_CYCLES = 400_000_000
 
 
 def emit(phase: str, **kw) -> None:
@@ -1072,6 +1079,234 @@ def phase_serve_paged(torch, timer, model) -> dict:
                 unpack=unpack)
 
 
+def device_ms(torch, fn, reps: int = 3) -> tuple:
+    """Median device ms of ``fn`` (work that ends on the current stream or
+    on a stream ``fn`` returns), timed from an event after a device spin to
+    an event after the work; the median host ms of the call; and the
+    spin's ms. The device span holds no host time while the host ms stays
+    below the spin's. Returns (device_ms, host_ms, spin_ms)."""
+    dev, host, spin = [], [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        es, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        es.record()
+        torch.cuda._sleep(DIST_SPIN_CYCLES)
+        e0.record()
+        t = time.perf_counter()
+        stream = fn()
+        host.append((time.perf_counter() - t) * 1e3)
+        e1.record(stream or torch.cuda.current_stream())
+        torch.cuda.synchronize()
+        dev.append(e0.elapsed_time(e1))
+        spin.append(es.elapsed_time(e0))
+    return statistics.median(dev), statistics.median(host), min(spin)
+
+
+def dist_allreduce(torch, n_params: int) -> dict:
+    """(a) The gradient all-reduce of the full-width model on a (2, 4)
+    ("pod", "data") mesh of thread-ranks: every rank's fp32 vector as long
+    as the parameter tree, integers in [-4, 4] (sums exact in any order),
+    through the flat, hierarchical and 4-stream schedules in a
+    ``ThreadComm.run``; each rank's result byte-equal to ``torch.sum`` over
+    the stacked inputs, each schedule's device ms (median of 3) beside the
+    bytes bound (8 inputs read once, 8 outputs written once)."""
+    from repro_torch.core import collectives as col
+    from repro_torch.core.hierarchical import flat_all_reduce, hierarchical_all_reduce
+    from repro_torch.core.mesh import P, make_mesh
+    from repro_torch.core.streams import stream_comm_create, stream_create, stream_free
+    from repro_torch.core.threadcomm import threadcomm_init
+
+    mesh = make_mesh((2, 4), ("pod", "data"))
+    tc = threadcomm_init(mesh, ("pod", "data"))
+    check(n_params % 4 == 0, f"{n_params} parameters split over the 4 data ranks and 4 streams")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(-4, 5, (mesh.size, n_params), generator=gen, device="cuda", dtype=torch.float32)
+    ref = x.sum(0)
+    streams = [stream_create(name=f"grad{i}") for i in range(4)]
+    comms = [stream_comm_create(mesh, ("pod", "data"), s) for s in streams]
+    schedules = {
+        "flat": lambda xs: flat_all_reduce(xs, tc)[0],
+        "hierarchical": lambda xs: hierarchical_all_reduce(xs, tc, axis=1)[0],
+        "multi_stream_4": lambda xs: col.multi_stream_all_reduce(xs, comms, axis=1)[0],
+    }
+    nbytes = 2 * x.numel() * 4
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    rows = {}
+    try:
+        for name, schedule in schedules.items():
+            equal = tc.run(lambda xs: torch.tensor([torch.equal(schedule(xs)[0], ref)]), x,
+                           in_specs=P(("pod", "data")), out_specs=P(("pod", "data")))
+            check(bool(equal.all()), f"{name} all-reduce: every rank byte-equal to torch.sum ({equal.tolist()})")
+            def run_once():  # ends on the current stream: shard_map joins every rank to it
+                tc.run(lambda xs: schedule(xs)[:, :1], x, in_specs=P(("pod", "data")), out_specs=P())
+
+            ms, wall_ms, spin_ms = device_ms(torch, run_once)
+            rows[name] = dict(ranks_byte_equal=int(equal.sum()), ms=ms, host_ms=wall_ms, spin_ms=spin_ms,
+                              ms_over_bound=ms / bound_ms)
+            torch.cuda.empty_cache()
+    finally:
+        for s in streams:
+            stream_free(s)
+    return dict(mesh=mesh.shape, payload_elems=n_params, payload_gb_per_rank=n_params * 4 / 1e9, bytes=nbytes,
+                bound_ms=bound_ms, bound_by="bytes", schedules=rows)
+
+
+def dist_ring_sends(torch) -> dict:
+    """(b) 16 windowed ``isend_enqueue`` calls of the served K span over the
+    "data" ring of 4: each rank's row a live-shape K leaf, the datatype the
+    enqueue phase's subarray, an OffloadWindow of depth 2 on a cudaStream_t
+    offload stream comm. Every received row byte-equal to the host engine's
+    pack of its source row; the window's counts; one K1 launch per send (the
+    4 rows form one uniform layout); the send's host and device ms."""
+    from repro_torch.core import datatype as dtt
+    from repro_torch.core.enqueue import OffloadWindow, _rowed_type, isend_enqueue
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.core.progress import ProgressEngine
+    from repro_torch.core.streams import stream_comm_create, stream_create, stream_free
+    from repro_torch.kernels import dt_pack as dp
+
+    L, Bs, T, W = KV_LEAF
+    mesh = make_mesh((2, 4), ("pod", "data"))
+    n = mesh.shape["data"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(n, L, Bs, T, W, generator=gen, device="cuda").to(torch.bfloat16)
+    host = x.cpu()
+    span = lambda i: dtt.subarray(KV_LEAF, (L, 1, KV_SPAN, W), (0, i % Bs, 128 * (i % 3), 0), dtt.BF16)
+    pe = ProgressEngine()
+    s = stream_create(info={"type": "cudaStream_t"}, name="ring-offload")
+    try:
+        comm = stream_comm_create(mesh, ("data",), s)
+        uniform = _rowed_type(x, span(0), 1, n) is not None
+        win = OffloadWindow(comm, depth=2, engine=pe, name="ring-sends")
+        sent, issue_ms = [], []
+        dp.dt_pack.launches = 0  # count the main path only
+        for i in range(DIST_SENDS):
+            t = time.perf_counter()
+            y, _ = isend_enqueue(x, comm, 1 + i % (n - 1), datatype=span(i), window=win)
+            issue_ms.append((time.perf_counter() - t) * 1e3)
+            sent.append((i, y))
+        slots = win.drain(timeout=120)
+        launches = dp.dt_pack.launches
+        wst = win.stats(engine=False)
+        check(len(slots) == DIST_SENDS and wst["admitted"] == wst["reaped"] == DIST_SENDS
+              and wst["max_depth_seen"] <= 2, f"ring-send window stats {wst}")
+        want_launches = DIST_SENDS if uniform else DIST_SENDS * n
+        check(uniform and launches == want_launches,
+              f"K1 launches on the ring sends {launches} == {want_launches} (rows one uniform layout: {uniform})")
+        for i, y in sent:
+            off, dt = 1 + i % (n - 1), span(i)
+            got = y.cpu()
+            for r in range(n):
+                want = torch.from_numpy(dtt.pack(host[r], dt)).view(torch.bfloat16)
+                check(bytes_equal(torch, got[(r + off) % n], want), f"send {i}: row {r} lands in row {(r + off) % n}")
+        del sent, y, got
+        def send_once():  # ends on the offload stream's CUDA stream
+            isend_enqueue(x, comm, 1, datatype=span(0), window=win)
+            return s.torch_stream(x.device)
+
+        ms, wall_ms, spin_ms = device_ms(torch, send_once, reps=5)
+        win.drain(timeout=60)
+        packed = n * dtt.type_size(span(0))
+    finally:
+        pe.stop_all()
+        stream_free(s)
+    nbytes = 2 * packed  # the span read once, the received rows written once
+    return dict(ring=n, row_shape=[L, Bs, T, W], row_mb=L * Bs * T * W * 2 / 2 ** 20, sends=DIST_SENDS,
+                packed_mb_per_send=packed / 2 ** 20, window=wst, k1_launches=launches, rows_one_layout=uniform,
+                issue_host_ms_median=statistics.median(issue_ms), send_ms=ms, send_host_ms=wall_ms, spin_ms=spin_ms,
+                bytes=nbytes,
+                bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
+def dist_shift(torch) -> dict:
+    """(c) ``shift_enqueue`` over the data axis inside shard_map: a pipeline
+    activation (4, 512, 1024) bf16 per rank; the edge ranks receive zeros,
+    every other rank its left neighbour's payload."""
+    from repro_torch.core.enqueue import shift_enqueue
+    from repro_torch.core.mesh import P, make_mesh, shard_map
+    from repro_torch.core.streams import stream_comm_create, stream_create, stream_free
+
+    mesh = make_mesh((2, 4), ("pod", "data"))
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    act = torch.randn(mesh.size * DIST_ACT[0], *DIST_ACT[1:], generator=gen, device="cuda").to(torch.bfloat16)
+    s = stream_create(info={"type": "cudaStream_t"}, name="pipe-offload")
+    try:
+        ec = stream_comm_create(mesh, ("data",), s)
+        y = shard_map(lambda a: shift_enqueue(a, ec, shift=1)[0], mesh, P(("pod", "data")), P(("pod", "data")))(act)
+        torch.cuda.synchronize()
+    finally:
+        stream_free(s)
+    y, a = y.view(mesh.size, *DIST_ACT), act.view(mesh.size, *DIST_ACT)
+    for r in range(mesh.size):
+        want = torch.zeros_like(a[r]) if r % 4 == 0 else a[r - 1]
+        check(bytes_equal(torch, y[r], want), f"shift_enqueue: rank {r} holds {'zeros' if r % 4 == 0 else 'rank %d' % (r - 1)}")
+    return dict(activation=list(DIST_ACT), dtype="bfloat16", ranks=mesh.size, edge_ranks_zero=[0, 4])
+
+
+def dist_hybrid(torch) -> dict:
+    """(d) ``HybridThreadComm.allreduce_large``: 2 host threads x the 8 mesh
+    positions, (8, 2**20) fp32 integers in [-4, 4] per thread, held against
+    the numpy sum."""
+    import numpy as np
+
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.core.progress import ProgressEngine
+    from repro_torch.core.streams import StreamPool
+    from repro_torch.core.threadcomm import HostThreadComm, threadcomm_init
+
+    mesh = make_mesh((2, 4), ("pod", "data"))
+    rng = np.random.default_rng(15)
+    vals = [rng.integers(-4, 5, (mesh.size, 1 << 20)).astype(np.float32) for _ in range(2)]
+    want = (vals[0] + vals[1]).sum(0)
+    host = HostThreadComm(2, engine=ProgressEngine(), pool=StreamPool(), name="dist-hybrid")
+    hybrid = threadcomm_init(mesh, ("pod", "data")).with_host_threads(host)
+    out, errors = {}, []
+
+    def worker(t):
+        h = host.attach(rank=t)
+        try:
+            out[t] = hybrid.allreduce_large(h, vals[t], timeout=60.0)
+        except BaseException as e:  # surfaced on the main thread below
+            errors.append(e)
+        finally:
+            h.detach()
+
+    t0 = time.perf_counter()
+    host.start()
+    try:
+        threads = [threading.Thread(target=worker, args=(t,), name=f"hybrid-{t}") for t in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        check(not any(th.is_alive() for th in threads), "hybrid threads finished")
+    finally:
+        host.finish(timeout=10.0)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    for t in range(2):
+        check(out[t].shape == want.shape and np.array_equal(out[t], want), f"hybrid allreduce_large, thread {t}")
+    return dict(threads=2, mesh=mesh.shape, per_thread=[mesh.size, 1 << 20], wall_s=wall)
+
+
+def phase_dist(torch, n_params: int) -> dict:
+    """The distributed layer on the card, its mesh positions thread-ranks
+    on one GPU: (a) the full-width gradient all-reduce, (b) windowed ring
+    sends of the served K span through K1, (c) a pipeline shift, (d) the
+    hybrid host x mesh allreduce."""
+    allreduce = dist_allreduce(torch, n_params)
+    torch.cuda.empty_cache()
+    ring = dist_ring_sends(torch)
+    torch.cuda.empty_cache()
+    shift = dist_shift(torch)
+    hybrid = dist_hybrid(torch)
+    torch.cuda.empty_cache()
+    emit("dist", allreduce=allreduce, ring_sends=ring, shift=shift, hybrid=hybrid,
+         device=torch.cuda.get_device_name(0))
+    return dict(launches=ring["k1_launches"])
+
+
 def phase_timer_ab(torch) -> None:
     """The timer's variants, each in turns so that a change of timer can be
     told from noise, and the pack's timed shapes under the default timer.
@@ -1173,8 +1408,10 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
     paged = phase_serve_paged(torch, timer, model)
+    n_params = sum(p.numel() for p in model.parameters())
     del model
     torch.cuda.empty_cache()
+    dist = phase_dist(torch, n_params)
     rwkv = phase_serve_rwkv(torch)
 
     ft = kern["flash_times"][-1]  # the longest served prompt, S = 384
@@ -1186,8 +1423,10 @@ def main() -> int:
              max_abs_err=kern["flash_err"], ms=ft["ms"], plain_ms=ft["plain_ms"], bound_ms=ft["bound_ms"],
              bound_by=ft["bound_by"], library_ms=ft["library_ms"]),
         dict(name="dt_pack", route="cuda", source="src/repro_torch/csrc/dt_pack.cu",
-             replaces="src/repro/kernels/dt_pack.py:50", launches=enq["dt_pack"] + paged["pack_launches"],
-             launches_by_path=dict(enqueue=enq["dt_pack"], serve_paged=paged["pack_launches"]), max_abs_err=0.0,
+             replaces="src/repro/kernels/dt_pack.py:50",
+             launches=enq["dt_pack"] + paged["pack_launches"] + dist["launches"],
+             launches_by_path=dict(enqueue=enq["dt_pack"], serve_paged=paged["pack_launches"], dist=dist["launches"]),
+             max_abs_err=0.0,
              ms=kern["pack"]["ms"], plain_ms=kern["pack"]["plain_ms"], bound_ms=kern["pack"]["bound_ms"],
              bound_by="bytes", library_ms=kern["pack"]["library_ms"]),
         dict(name="dt_unpack", route="cuda", source="src/repro_torch/csrc/dt_pack.cu",

@@ -2,17 +2,17 @@
 
 1. generalized requests + poll/wait  → :mod:`repro_torch.core.progress`
 2. datatype iovec                    → :mod:`repro_torch.core.datatype`
-3. MPIX streams                      → :mod:`repro_torch.core.streams`
+3. MPIX streams / stream comms       → :mod:`repro_torch.core.streams`
 4. enqueue (device-ordered) ops      → :mod:`repro_torch.core.enqueue`
-5. thread communicators, host mode   → :mod:`repro_torch.core.threadcomm`
+5. thread communicators              → :mod:`repro_torch.core.threadcomm`
 6. general progress                  → :mod:`repro_torch.core.progress`
 
-plus the host collectives over thread-ranks
-(:mod:`repro_torch.core.threadcoll`) and recorded record-once/replay-many
-schedules (:mod:`repro_torch.core.schedule`). The mesh-axis level of ext. 5
-(``ThreadComm``, ``HybridThreadComm``), stream communicators and the
-device collective layer are not ported yet (ROADMAP P9): the two classes
-are exported and raise ``NotImplementedError``.
+plus the device mesh whose positions are thread-ranks
+(:mod:`repro_torch.core.mesh`), the stream-tagged collective layer
+(:mod:`repro_torch.core.collectives`), hierarchical multi-pod schedules
+(:mod:`repro_torch.core.hierarchical`), the host collectives over
+thread-ranks (:mod:`repro_torch.core.threadcoll`) and recorded
+record-once/replay-many schedules (:mod:`repro_torch.core.schedule`).
 """
 
 from repro_torch.core.datatype import (
@@ -50,9 +50,14 @@ from repro_torch.core.enqueue import (
     OffloadWindow,
     WindowSlot,
     dispatch_enqueue,
+    isend_enqueue,
+    isend_enqueue_scheduled,
     pack_send,
+    send_enqueue,
+    shift_enqueue,
     wait_enqueue,
 )
+from repro_torch.core.mesh import Mesh, P, make_mesh
 from repro_torch.core.progress import (
     AutotunePolicy,
     Autotuner,
@@ -76,11 +81,15 @@ from repro_torch.core.schedule import (
 from repro_torch.core.streams import (
     MPIXStream,
     STREAM_NULL,
+    StreamComm,
     StreamPool,
+    comm_get_stream,
     default_pool,
     info_set_hex,
     new_token,
     serialize_on,
+    stream_comm_create,
+    stream_comm_create_multiplex,
     stream_create,
     stream_free,
     token_join,
@@ -94,8 +103,13 @@ from repro_torch.core.threadcomm import (
     ThreadComm,
     ThreadRank,
     comm_test_threadcomm,
+    flatten_comm,
     host_threadcomm_init,
+    shard_map,
+    split_comm,
     tc_recv,
     tc_send,
+    threadcomm_free,
+    threadcomm_init,
 )
 from repro_torch.core import threadcoll

@@ -21,9 +21,17 @@ a :class:`torch.cuda.Event` recorded after the work:
   wait queues (never busy-spinning — completion wakes the parked issuer).
   Completion is tracked in **completion order**, not issue order.
 
-The ring sends over a mesh (``send_enqueue``/``isend_enqueue`` with a
-communicator, ``shift_enqueue``) belong to the distributed layer and are
-not part of this package yet.
+The sends over a mesh (:func:`send_enqueue`, :func:`isend_enqueue`,
+:func:`shift_enqueue`, ...) come in two forms, as in the reference:
+
+* per-rank code inside a :func:`~repro_torch.core.mesh.shard_map` region
+  (a ``ppermute`` on the comm's offload stream, ordered by tokens);
+* **windowed** sends (``window=``), which are host-side: the caller passes
+  the stacked global buffer (leading dim = ring size), the payload is
+  packed on the comm's stream — one ``dt_pack`` launch over all rows when
+  ``pack_info`` proves the n-row layout uniform — each row moves to its
+  destination row by a device copy on that stream, and completion is the
+  :func:`dispatch_enqueue` event, admitted into an :class:`OffloadWindow`.
 """
 
 from __future__ import annotations
@@ -34,17 +42,25 @@ import time
 from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core import datatype as dtt
+from repro_torch.core.mesh import current_region
 from repro_torch.core.progress import GeneralizedRequest, ProgressEngine, default_engine
-from repro_torch.core.streams import MPIXStream, STREAM_NULL
+from repro_torch.core.streams import MPIXStream, STREAM_NULL, StreamComm, new_token
 
 __all__ = [
+    "send_enqueue",
+    "recv_enqueue",
+    "sendrecv_enqueue",
+    "isend_enqueue",
+    "isend_enqueue_scheduled",
     "wait_enqueue",
     "EnqueuedRequest",
+    "shift_enqueue",
     "dispatch_enqueue",
     "dispatch_state",
     "pack_send",
@@ -58,6 +74,14 @@ Token = object
 # Park slice while the window itself must drive progress (no covering
 # progress thread): matches _wait_dispatched's readiness-poll granularity.
 _SELF_PROGRESS_PARK_S = 0.0005
+
+
+def _require_offload(comm: StreamComm) -> None:
+    if not comm.stream.is_offload and not comm.stream.is_null:
+        raise ValueError(
+            "enqueue ops need an offload stream (create with "
+            "info={'type': 'cudaStream_t'}) or STREAM_NULL for implicit mode"
+        )
 
 
 # ----------------------------------------------------------------------
@@ -107,6 +131,198 @@ def pack_send(x, datatype: dtt.Datatype, count: int = 1, *, stream: MPIXStream =
     if packed.size % host.element_size() == 0:
         out = out.view(host.dtype)
     return out.to(flat.device)
+
+
+@contextmanager
+def _issuing_on(stream: MPIXStream, x):
+    """Run the body with ``stream``'s CUDA stream current, ordered after
+    the caller's current stream, with ``x`` marked used on it (the caller
+    may free ``x`` before the stream reads it). No-op on the CPU and for a
+    stream that has no CUDA stream."""
+    side = stream.torch_stream(x.device)
+    if side is None:
+        yield
+        return
+    side.wait_stream(torch.cuda.current_stream(x.device))
+    x.record_stream(side)
+    with torch.cuda.stream(side):
+        yield
+
+
+# ----------------------------------------------------------------------
+# Stream-enqueued transfers (per-rank ppermute with token ordering)
+# ----------------------------------------------------------------------
+
+
+def sendrecv_enqueue(
+    x,
+    comm: StreamComm,
+    perm: Sequence[Tuple[int, int]],
+    token: Optional[Token] = None,
+):
+    """SPMD matched send+recv enqueued on the comm's offload stream, per
+    rank inside a shard_map region.
+
+    Every rank contributes its outgoing shard and receives per ``perm``.
+    Returns ``(received, token')`` — the token (a CUDA event, None on the
+    CPU) orders subsequent enqueued ops (CUDA-stream semantics)."""
+    _require_offload(comm)
+    token = token if token is not None else new_token(x.device, comm.stream)
+    return collectives.ppermute(x, comm, perm, token)
+
+
+def send_enqueue(
+    x,
+    comm: StreamComm,
+    dest_offset: int,
+    token: Optional[Token] = None,
+    *,
+    datatype: Optional[dtt.Datatype] = None,
+    count: int = 1,
+    window: Optional["OffloadWindow"] = None,
+):
+    """``MPIX_Send_enqueue`` to ``rank + dest_offset`` on a ring (SPMD: the
+    matching recv is implied on the destination).
+
+    ``datatype=`` describes a non-contiguous send buffer: ``x`` is the
+    flat element buffer and the payload is packed on stream (the
+    ``dt_pack`` kernel for proven-uniform layouts, host engine otherwise —
+    see :func:`pack_send`) instead of the caller materializing a staging
+    copy.
+
+    ``window=`` routes the send through an :class:`OffloadWindow`: the
+    call *backpressures* (parks on the engine's stripe CV) while the
+    window holds ``depth`` incomplete transfers, then dispatches and
+    registers the new one. Windowed sends are **host-side** (the window
+    is host state): ``x`` must be the *global* buffer with leading dim =
+    ring size (per-rank payloads stacked), the call is made outside any
+    shard_map region, and tokens do not apply — passing one raises, and
+    the returned token is None (ordering comes from the comm's stream +
+    the window). Without a window the call is the per-rank
+    fire-and-forget form used inside shard_map."""
+    if window is None:
+        if datatype is not None:
+            x = pack_send(x, datatype, count, stream=comm.stream)
+        return sendrecv_enqueue(x, comm, _ring_perm(comm, dest_offset), token)
+    if token is not None:
+        raise ValueError(
+            "windowed sends issue host-side; an input token cannot be "
+            "threaded through — order host-issued sends via the comm's "
+            "stream (feed y into the next send) or drop the window"
+        )
+    y, _ = _windowed_isend(x, comm, dest_offset, datatype, count, window)
+    return y, None
+
+
+def _windowed_isend(x, comm, dest_offset, datatype, count, window):
+    """Host-side windowed ring send shared by send_enqueue/isend_enqueue:
+    pack and move the stacked rows on the comm's stream, then admit the
+    completion into the window."""
+    if current_region() is not None:
+        raise ValueError(
+            "windowed enqueue sends are host-side (window backpressure "
+            "cannot run per rank); call outside shard_map with the global "
+            "buffer, or drop the window inside a region"
+        )
+    _require_offload(comm)
+    if window.stream.sid != comm.stream.sid:
+        raise ValueError(
+            f"window is bound to stream {window.stream.name!r} but the comm "
+            f"sends on {comm.stream.name!r}: the window parks on and "
+            "progresses its own stream's channel, so a mismatch would "
+            "deadlock backpressure — build the window on the comm's stream"
+        )
+    n = comm.mesh.shape[comm.axes[0]]
+    x = torch.as_tensor(x)
+    if x.dim() == 0 or x.shape[0] != n:
+        raise ValueError(
+            f"windowed send: leading dim {tuple(x.shape)[:1]} != ring size {n} "
+            "(stack each rank's payload)"
+        )
+    with _issuing_on(comm.stream, x):
+        if datatype is not None:
+            x = _pack_stacked(x, datatype, count, n)
+        with window.issue() as submit:
+            y = _mapped_ring_send(comm.mesh, comm.axes, dest_offset)(x)
+            req = dispatch_enqueue(y, stream=comm.stream, engine=window.engine, name="isend_enqueue")
+            submit(req, value=y)
+    return y, req
+
+
+def _rowed_type(x, datatype: dtt.Datatype, count: int, n: int):
+    """The n stacked rows as ONE datatype — the type resized to the row
+    stride, n copies — with its ``pack_info``, when the layout fits inside
+    a row and ``pack_info`` proves the n-row layout uniform in a form the
+    ``dt_pack`` kernel takes; else None. At the served KV span (24
+    segments of 512 KiB, 4 MiB apart, in 96 MiB rows) the segments
+    continue at the same stride from row to row, so all n rows are one
+    uniform layout."""
+    from repro_torch.kernels import ops
+
+    row_bytes = 0 if x.dim() < 2 else x.element_size() * x[0].numel()
+    if not (n > 1 and count == 1 and datatype.lb >= 0 and datatype.ub <= row_bytes):
+        return None
+    rowed = dtt.contiguous(n, dtt.resized(datatype, datatype.lb, row_bytes))
+    info = dtt.pack_info(rowed)
+    if info is None:
+        return None
+    try:
+        ops._kernel_info(rowed, info, x.element_size())
+    except ValueError:
+        return None
+    return rowed, info
+
+
+def _pack_stacked(x, datatype: dtt.Datatype, count: int, n: int):
+    """Pack each of the ``n`` stacked per-rank payloads on the current
+    stream. Where the rows form one uniform layout (:func:`_rowed_type`)
+    ONE ``dt_pack`` launch packs them all; otherwise each row is packed by
+    :func:`pack_send` (one kernel launch per row for a uniform row layout,
+    the host engine for an irregular one). The bytes equal the reference's
+    host-engine pack of every row — a CUDA buffer never takes the host
+    round trip for a uniform layout."""
+    return _make_stacked_packer(x, datatype, count, n)(x)
+
+
+def _mapped_ring_send(mesh, axes: Tuple[str, ...], dest_offset: int):
+    """The ring send of host-issued (windowed) enqueues over ``axes[0]``:
+    ``send(xs)`` moves row i of the stacked buffer to row
+    ``(i + dest_offset) % n``, one device copy per row, on the current
+    stream."""
+    n = mesh.shape[axes[0]]
+    perm = [(i, (i + dest_offset) % n) for i in range(n)]
+
+    def send(xs):
+        y = torch.empty_like(xs)
+        for src, dst in perm:
+            y[dst].copy_(xs[src])
+        return y
+
+    return send
+
+
+def _ring_perm(comm: StreamComm, dest_offset: int) -> List[Tuple[int, int]]:
+    n = comm.mesh.shape[comm.axes[0]]
+    return [(i, (i + dest_offset) % n) for i in range(n)]
+
+
+def recv_enqueue(x_buffer, comm: StreamComm, src_offset: int, token: Optional[Token] = None):
+    """``MPIX_Recv_enqueue`` from ``rank - src_offset``; ``x_buffer`` is the
+    value this rank forwards (SPMD symmetry)."""
+    return send_enqueue(x_buffer, comm, src_offset, token)
+
+
+def shift_enqueue(x, comm: StreamComm, shift: int = 1, token: Optional[Token] = None):
+    """Pipeline-stage shift: stage s → stage s+shift (non-wrapping edges
+    receive zeros). The workhorse of pipeline parallelism."""
+    _require_offload(comm)
+    n = comm.mesh.shape[comm.axes[0]]
+    if shift >= 0:
+        perm = [(i, i + shift) for i in range(n - shift)]
+    else:
+        perm = [(i, i + shift) for i in range(-shift, n)]
+    token = token if token is not None else new_token(x.device, comm.stream)
+    return collectives.ppermute(x, comm, perm, token)
 
 
 # ----------------------------------------------------------------------
@@ -234,6 +450,126 @@ def dispatch_enqueue(
     return EnqueuedRequest(req, token if token is not None else state["event"], eng)
 
 
+def isend_enqueue(
+    x,
+    comm: StreamComm,
+    dest_offset: int,
+    token: Optional[Token] = None,
+    engine: Optional[ProgressEngine] = None,
+    *,
+    datatype: Optional[dtt.Datatype] = None,
+    count: int = 1,
+    window: Optional["OffloadWindow"] = None,
+) -> Tuple[torch.Tensor, EnqueuedRequest]:
+    """Non-blocking enqueue: returns (result, request). The request
+    completes when the dispatched device work is done (poll_fn queries the
+    CUDA event, like cudaEventQuery in the paper's grequest example).
+    ``datatype=``/``window=`` behave as in :func:`send_enqueue` — with a
+    window, the call is host-side (global stacked buffer, no input token,
+    see :func:`send_enqueue`), backpressures while ``depth`` transfers
+    are in flight, and the request is tracked in the window."""
+    if window is not None:
+        if token is not None:
+            raise ValueError(
+                "windowed sends issue host-side; an input token cannot be "
+                "threaded through — order host-issued sends via the comm's "
+                "stream or drop the window"
+            )
+        if engine is not None and engine is not window.engine:
+            raise ValueError(
+                "isend_enqueue: the window carries its own engine; a "
+                "different engine= alongside it would be silently ignored"
+            )
+        return _windowed_isend(x, comm, dest_offset, datatype, count, window)
+    if datatype is not None:
+        x = pack_send(x, datatype, count, stream=comm.stream)
+    y, tok = sendrecv_enqueue(x, comm, _ring_perm(comm, dest_offset), token)
+    req = dispatch_enqueue(y, stream=comm.stream, engine=engine or default_engine(), token=tok, name="isend_enqueue")
+    return y, req
+
+
+def _make_stacked_packer(x, datatype: dtt.Datatype, count: int, n: int):
+    """The packer of :func:`_pack_stacked`, resolved for buffers shaped like
+    ``x``: the branch (one launch over the rowed layout vs a pack per row),
+    the rowed descriptor and its ``pack_info`` proof are resolved once —
+    at record time for :func:`isend_enqueue_scheduled`'s replays. The
+    returned closure packs on the current stream."""
+    from repro_torch.kernels import ops
+
+    rowed = _rowed_type(x, datatype, count, n)
+    if rowed is not None:
+        rowed, info = rowed
+        return lambda xv: ops.pack_datatype(xv.reshape(-1), rowed, info=info).view(n, -1)
+    return lambda xv: torch.stack([pack_send(xv[i], datatype, count) for i in range(n)])
+
+
+def isend_enqueue_scheduled(
+    x,
+    comm: StreamComm,
+    dest_offset: int,
+    *,
+    schedule,
+    window: "OffloadWindow",
+    bind: Optional[str] = None,
+    out: Optional[str] = None,
+    datatype: Optional[dtt.Datatype] = None,
+    count: int = 1,
+) -> Tuple[torch.Tensor, EnqueuedRequest]:
+    """Record a windowed ring send into ``schedule``.
+
+    The record pass IS an eager windowed :func:`isend_enqueue`: full
+    validation (host-side check, window/stream match, ring-size check),
+    the datatype pack branch, and the ring send resolve exactly once,
+    here, and the dispatched result is returned as usual. The recorded op
+    re-issues with none of that — one shape/dtype compare (mismatch raises
+    ``ScheduleStale``), the pre-resolved packer, the ring send on the
+    comm's stream, a window reserve, and a fused *part* completing at the
+    send's CUDA event registered with the window in place of an
+    engine-queued request.
+
+    ``bind=`` names the replay binding supplying the buffer (omit to
+    replay the recorded constant); ``out=`` stores each replay's
+    dispatched tensor under ``ctx.outputs[out]``. Returns the record
+    pass's ``(y, request)`` — the request is window-owned.
+    """
+    from repro_torch.core.schedule import ScheduleError
+
+    if not schedule.recording:
+        raise ScheduleError("isend_enqueue_scheduled: schedule is not recording")
+    x = torch.as_tensor(x)
+    y, req = _windowed_isend(x, comm, dest_offset, datatype, count, window)
+    ring = _mapped_ring_send(comm.mesh, comm.axes, dest_offset)
+    n = comm.mesh.shape[comm.axes[0]]
+    pack_fn = None if datatype is None else _make_stacked_packer(x, datatype, count, n)
+    shape0, dtype0, stream = tuple(x.shape), x.dtype, comm.stream
+
+    def issue(ctx):
+        xv = torch.as_tensor(ctx.bound(bind)) if bind is not None else x
+        if tuple(xv.shape) != shape0 or xv.dtype != dtype0:
+            ctx.schedule._stale(
+                f"isend buffer changed: recorded {shape0}/{dtype0}, "
+                f"now {tuple(xv.shape)}/{xv.dtype}"
+            )
+        with _issuing_on(stream, xv):
+            if pack_fn is not None:
+                xv = pack_fn(xv)
+            window.reserve(timeout=None)
+            try:
+                yv = ring(xv)
+                part = ctx.fused.part(
+                    poll_fn=_poll_dispatched, extra_state=dispatch_state(yv, stream), name="sched-isend"
+                )
+                window.register(part, value=yv)
+            except BaseException:
+                window.unreserve()
+                raise
+        if out is not None:
+            ctx.outputs[out] = yv
+
+    schedule.add_op("isend_enqueue", issue, parts=1, label=f"isend+{dest_offset}")
+    return y, req
+
+
 def wait_enqueue(req: EnqueuedRequest, engine: Optional[ProgressEngine] = None) -> None:
     """``MPIX_Wait_enqueue``."""
     (engine or req.engine or default_engine()).wait(req.grequest)
@@ -288,7 +624,7 @@ class OffloadWindow:
 
     def __init__(
         self,
-        stream: MPIXStream = STREAM_NULL,
+        stream: Union[MPIXStream, StreamComm] = STREAM_NULL,
         depth: int = 2,
         engine: Optional[ProgressEngine] = None,
         adaptive: bool = False,
@@ -297,6 +633,8 @@ class OffloadWindow:
         adapt_every: int = 8,
         name: str = "window",
     ):
+        if isinstance(stream, StreamComm):
+            stream = stream.stream
         if depth < 1:
             raise ValueError(f"OffloadWindow depth must be >= 1, got {depth}")
         self.stream = stream

@@ -1,0 +1,410 @@
+"""The device mesh, partition specs and SPMD regions, with ranks as threads.
+
+The JAX package takes these from JAX: ``jax.make_mesh``, ``Mesh.shape``,
+``PartitionSpec``, ``lax.axis_index`` and ``shard_map``, where one
+program runs per device of the mesh. The port keeps its own copy, built
+on the paper's thread communicators (ext. 5): every mesh position is a
+**thread-rank** inside one process, the ``MPIX_Threadcomm_start`` /
+``finish`` bracket of :func:`shard_map` runs the per-rank code once per
+position, each in its own thread, and the collectives of
+:mod:`repro_torch.core.collectives` meet at an in-process rendezvous.
+
+Each position has its own device slot (``Mesh.devices``) and, on a CUDA
+device, its own CUDA stream (:meth:`Mesh.rank_stream`): the rank's code
+runs with that stream current, so the ranks' device work is independent,
+as one device queue per device is in the reference. Several positions
+may share one card; the mesh keeps a device per position so that they
+need not.
+
+* :class:`Mesh` / :func:`make_mesh` — named axes, row-major positions;
+* :class:`P` — the partition specs the reference's callers use: dim 0
+  sharded over one axis or over a tuple of axes, or ``P()`` replicated;
+* :func:`axis_index` / :func:`axis_size` — the calling rank's coordinate
+  and an axis' size, valid inside a region only;
+* :func:`shard_map` — run ``f`` per position: split the inputs by
+  ``in_specs``, gather the outputs by ``out_specs``. A rank that raises
+  fails the region: its peers blocked in a rendezvous wake with an error
+  at once, every rendezvous wait is bounded (``RENDEZVOUS_TIMEOUT_S``),
+  and the first failure is re-raised to the caller.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
+
+__all__ = [
+    "Mesh",
+    "make_mesh",
+    "P",
+    "axis_index",
+    "axis_size",
+    "current_region",
+    "shard_map",
+    "PeerFailed",
+    "RENDEZVOUS_TIMEOUT_S",
+]
+
+#: Bound on every rendezvous wait of a region (seconds).
+RENDEZVOUS_TIMEOUT_S = 10.0
+
+
+class Mesh:
+    """Named axes over a grid of positions, row-major (the last axis
+    fastest), one device per position. ``shape`` maps axis name → size in
+    axis order, as ``jax.sharding.Mesh.shape`` does."""
+
+    def __init__(self, axis_names: Sequence[str], shape: Sequence[int], devices: Sequence):
+        axis_names, shape = tuple(axis_names), tuple(int(s) for s in shape)
+        if len(axis_names) != len(shape) or len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"mesh axes {axis_names} do not match shape {shape}")
+        if any(s < 1 for s in shape):
+            raise ValueError(f"mesh shape {shape} has an empty axis")
+        devices = tuple(_indexed(torch.device(d)) for d in devices)
+        if len(devices) != math.prod(shape):
+            raise ValueError(f"{len(devices)} devices for {math.prod(shape)} mesh positions")
+        self.axis_names = axis_names
+        self.shape: Dict[str, int] = dict(zip(axis_names, shape))
+        self.devices = devices
+        self._streams: Dict[int, torch.cuda.Stream] = {}
+        self._lock = threading.Lock()
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def coords(self, slot: int) -> Dict[str, int]:
+        """Axis name → coordinate of position ``slot`` (row-major)."""
+        out = {}
+        for name in reversed(self.axis_names):
+            slot, out[name] = divmod(slot, self.shape[name])
+        return {name: out[name] for name in self.axis_names}
+
+    def rank_stream(self, slot: int) -> Optional[torch.cuda.Stream]:
+        """Position ``slot``'s own CUDA stream, created on first use; None on
+        the CPU."""
+        dev = self.devices[slot]
+        if dev.type != "cuda":
+            return None
+        with self._lock:
+            s = self._streams.get(slot)
+            if s is None:
+                s = self._streams[slot] = torch.cuda.Stream(device=dev)
+            return s
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, devices={sorted({str(d) for d in self.devices})})"
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``cuda`` → ``cuda:<current device>``, so devices compare equal to
+    the ``device`` of the tensors on them."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def make_mesh(shape: Sequence[int], names: Sequence[str], device="cuda") -> Mesh:
+    """``jax.make_mesh``: a mesh of ``shape`` named ``names``, every position
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+    return Mesh(names, shape, [dev] * math.prod(shape))
+
+
+class P(tuple):
+    """A partition spec: ``P()`` replicated, ``P("data")`` dim 0 sharded
+    over one axis, ``P(("pod", "data"))`` dim 0 sharded over a tuple of
+    axes (major → minor). Other forms raise."""
+
+    def __new__(cls, *parts):
+        if len(parts) > 1:
+            raise ValueError(f"P{parts}: only dim 0 may be sharded in this mesh layer")
+        if parts:
+            axes = (parts[0],) if isinstance(parts[0], str) else tuple(parts[0])
+            if not axes or not all(isinstance(a, str) for a in axes):
+                raise ValueError(f"P{parts}: dim 0 takes an axis name or a tuple of names")
+        return super().__new__(cls, parts)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The axes dim 0 is sharded over (empty when replicated)."""
+        if not self:
+            return ()
+        return (self[0],) if isinstance(self[0], str) else tuple(self[0])
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)}"
+
+
+# ----------------------------------------------------------------------
+# Regions: the per-rank context and the rendezvous
+# ----------------------------------------------------------------------
+
+
+class PeerFailed(RuntimeError):
+    """Raised in a rank whose region failed elsewhere (another rank raised
+    or a rendezvous timed out)."""
+
+
+class _Rendezvous:
+    """Where the ranks of one region meet. ``exchange`` posts one rank's
+    value under a key and blocks, bounded, until every rank of the key's
+    group has posted; all get the values in group-rank order. The entry is
+    dropped once every rank has taken it, so the posted values live exactly
+    as long as some rank may still read them."""
+
+    def __init__(self, timeout: float):
+        self.timeout = timeout
+        self._cond = threading.Condition()
+        self._entries: Dict[tuple, list] = {}
+        self.failure: Optional[BaseException] = None
+
+    def fail(self, exc: BaseException) -> None:
+        """Fail the region: every waiting and later exchange raises."""
+        with self._cond:
+            if self.failure is None:
+                self.failure = exc
+            self._cond.notify_all()
+
+    def _check(self) -> None:
+        if self.failure is not None:
+            raise PeerFailed(f"region failed: {self.failure!r}")
+
+    def exchange(self, key: tuple, index: int, size: int, value) -> list:
+        deadline = time.monotonic() + self.timeout
+        with self._cond:
+            self._check()
+            entry = self._entries.setdefault(key, [[None] * size, [False] * size, 0, 0])
+            values, posted = entry[0], entry[1]
+            if posted[index]:
+                raise RuntimeError(f"rank {index} posted twice under {key}")
+            values[index], posted[index] = value, True
+            entry[2] += 1
+            if entry[2] == size:
+                self._cond.notify_all()
+            while entry[2] < size:
+                self._check()
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    err = TimeoutError(
+                        f"rendezvous {key}: {entry[2]} of {size} ranks arrived within {self.timeout} s"
+                    )
+                    if self.failure is None:
+                        self.failure = err
+                    self._cond.notify_all()
+                    raise err
+                self._cond.wait(remaining)
+            entry[3] += 1
+            if entry[3] == size:
+                del self._entries[key]
+            return list(values)
+
+
+class _Region:
+    """One rank's view of an active region: its mesh position, the region's
+    rendezvous and a sequence number per collective group."""
+
+    def __init__(self, mesh: Mesh, slot: int, rendezvous: _Rendezvous):
+        self.mesh = mesh
+        self.slot = slot
+        self.coords = mesh.coords(slot)
+        self.device = mesh.devices[slot]
+        self.rendezvous = rendezvous
+        self._seq: Dict[Tuple[str, ...], int] = {}
+
+    def group(self, axes: Sequence[str]) -> Tuple[tuple, int, int]:
+        """The group of ranks that share this rank's coordinates on every
+        axis outside ``axes``: its key, this rank's index in it (flattened
+        over ``axes``, major → minor) and its size."""
+        axes = tuple(axes)
+        for a in axes:
+            if a not in self.mesh.shape:
+                raise ValueError(f"axis {a!r} not in mesh {self.mesh.shape}")
+        index, size = 0, 1
+        for a in axes:
+            index = index * self.mesh.shape[a] + self.coords[a]
+            size *= self.mesh.shape[a]
+        others = tuple((a, c) for a, c in self.coords.items() if a not in axes)
+        return (axes, others), index, size
+
+    def exchange(self, axes: Sequence[str], value) -> Tuple[list, int]:
+        """Post ``value`` to this rank's group over ``axes`` and return every
+        member's value (group order) and this rank's index. The n-th
+        exchange of a rank over ``axes`` meets the n-th of its peers."""
+        key, index, size = self.group(axes)
+        seq = self._seq.get(key[0], 0)
+        self._seq[key[0]] = seq + 1
+        return self.rendezvous.exchange(key + (seq,), index, size, value), index
+
+
+_local = threading.local()
+
+
+def current_region() -> Optional[_Region]:
+    """The calling thread's region, or None outside :func:`shard_map`."""
+    return getattr(_local, "region", None)
+
+
+def _region(what: str) -> _Region:
+    region = current_region()
+    if region is None:
+        raise RuntimeError(f"{what}: only valid inside a shard_map region")
+    return region
+
+
+def axis_index(name: str) -> int:
+    """``lax.axis_index``: the calling rank's coordinate on axis ``name``."""
+    region = _region("axis_index")
+    if name not in region.coords:
+        raise ValueError(f"axis {name!r} not in mesh {region.mesh.shape}")
+    return region.coords[name]
+
+
+def axis_size(name: str) -> int:
+    """The size of mesh axis ``name`` (inside a region)."""
+    region = _region("axis_size")
+    if name not in region.mesh.shape:
+        raise ValueError(f"axis {name!r} not in mesh {region.mesh.shape}")
+    return region.mesh.shape[name]
+
+
+# ----------------------------------------------------------------------
+# shard_map
+# ----------------------------------------------------------------------
+
+
+def _block(mesh: Mesh, spec: P, slot: int) -> Tuple[int, int]:
+    """(block index, block count) of position ``slot`` under ``spec``."""
+    coords, index, count = mesh.coords(slot), 0, 1
+    for a in spec.axes:
+        if a not in mesh.shape:
+            raise ValueError(f"{spec}: axis {a!r} not in mesh {mesh.shape}")
+        index, count = index * mesh.shape[a] + coords[a], count * mesh.shape[a]
+    return index, count
+
+
+def _split(x, spec, mesh: Mesh, slot: int):
+    """Position ``slot``'s part of input ``x`` under ``spec``, on its device."""
+    if not isinstance(spec, P):
+        raise TypeError(f"in_specs entry {spec!r} is not a P")
+    if not isinstance(x, torch.Tensor):
+        if spec.axes:
+            raise TypeError(f"{spec} shards dim 0 of a {type(x).__name__}; only tensors can be split")
+        return x
+    index, count = _block(mesh, spec, slot)
+    if count > 1:
+        if x.dim() == 0 or x.shape[0] % count:
+            raise ValueError(f"{spec}: dim 0 of shape {tuple(x.shape)} does not split into {count} blocks")
+        step = x.shape[0] // count
+        x = x.narrow(0, index * step, step)
+    return x.to(mesh.devices[slot])
+
+
+def _gather(spec, outs: list, mesh: Mesh):
+    """The global output under ``spec`` (a P or a tuple of them, matching
+    the per-rank outputs' structure) from every position's output."""
+    if isinstance(spec, P):
+        first = {}
+        for slot in range(mesh.size):
+            first.setdefault(_block(mesh, spec, slot)[0], slot)
+        if not spec.axes:
+            return outs[0]
+        parts = [outs[first[b]] for b in range(len(first))]
+        if isinstance(parts[0], (tuple, list)):
+            return type(parts[0])(_gather(spec, [p[i] for p in outs], mesh) for i in range(len(parts[0])))
+        if not all(isinstance(p, torch.Tensor) and p.dim() > 0 for p in parts):
+            raise TypeError(f"{spec} gathers dim 0: every rank must return a tensor of rank >= 1")
+        return torch.cat([p.to(mesh.devices[0]) for p in parts], dim=0)
+    if isinstance(spec, (tuple, list)):
+        if not all(isinstance(o, (tuple, list)) and len(o) == len(spec) for o in outs):
+            raise ValueError(f"out_specs has {len(spec)} entries; every rank must return as many outputs")
+        return tuple(_gather(s, [o[i] for o in outs], mesh) for i, s in enumerate(spec))
+    raise TypeError(f"out_specs entry {spec!r} is not a P or a tuple of them")
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for item in tree for t in _tensors(item)]
+    return []
+
+
+def shard_map(f, mesh: Mesh, in_specs, out_specs):
+    """``jax.shard_map``: returns ``mapped(*args)``, which runs ``f`` once per
+    mesh position, each in its own thread with that position's region
+    context (and, on the card, its own CUDA stream current), on the
+    position's part of every argument, and gathers the outputs.
+
+    ``in_specs`` is one :class:`P` for all arguments or a tuple with one per
+    argument; ``out_specs`` one P or a tuple matching ``f``'s outputs. A
+    sharded output is the concatenation of the ranks' outputs along dim 0,
+    a replicated one position 0's. The ranks' device work starts after the
+    caller's current stream and the caller's current stream waits for all
+    of it, so the result is ordered like any op on that stream.
+
+    If a rank raises, the region fails: peers in a rendezvous wake with
+    :class:`PeerFailed` and the first failure is re-raised here. Every
+    rendezvous wait is bounded by ``RENDEZVOUS_TIMEOUT_S`` seconds."""
+
+    def mapped(*args):
+        if current_region() is not None:
+            raise RuntimeError("shard_map: regions do not nest")
+        specs = (in_specs,) * len(args) if isinstance(in_specs, P) else tuple(in_specs)
+        if len(specs) != len(args):
+            raise ValueError(f"{len(specs)} in_specs for {len(args)} arguments")
+        cuda = [d for d in mesh.devices if d.type == "cuda"]
+        callers = {d: torch.cuda.current_stream(d) for d in set(cuda)}
+        started = {}
+        for d, s in callers.items():
+            started[d] = torch.cuda.Event()
+            started[d].record(s)
+        rendezvous = _Rendezvous(RENDEZVOUS_TIMEOUT_S)
+        outs: list = [None] * mesh.size
+        done: list = [None] * mesh.size
+        errors: list = []
+
+        def run(slot: int) -> None:
+            stream = mesh.rank_stream(slot)
+            _local.region = _Region(mesh, slot, rendezvous)
+            try:
+                if stream is None:
+                    outs[slot] = f(*[_split(a, s, mesh, slot) for a, s in zip(args, specs)])
+                    return
+                stream.wait_event(started[mesh.devices[slot]])
+                with torch.cuda.stream(stream):
+                    outs[slot] = f(*[_split(a, s, mesh, slot) for a, s in zip(args, specs)])
+            except BaseException as e:  # noqa: BLE001 — re-raised by the caller below
+                errors.append(e)
+                rendezvous.fail(e)
+            finally:
+                _local.region = None
+                if stream is not None:  # the rank's work so far, failed or not
+                    done[slot] = torch.cuda.Event()
+                    done[slot].record(stream)
+
+        threads = [threading.Thread(target=run, args=(slot,), name=f"mesh-rank-{slot}", daemon=True)
+                   for slot in range(mesh.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for slot, ev in enumerate(done):
+            if ev is not None:  # the inputs stay untouched until every rank's reads have run
+                callers[mesh.devices[slot]].wait_event(ev)
+        if errors:
+            root = [e for e in errors if not isinstance(e, PeerFailed)]
+            raise (root or errors)[0]
+        for out in outs:
+            for t in _tensors(out):
+                if t.device in callers:  # allocated on a rank's stream, read on the caller's
+                    t.record_stream(callers[t.device])
+        return _gather(out_specs, outs, mesh)
+
+    return mapped

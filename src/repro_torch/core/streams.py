@@ -17,19 +17,28 @@ collects their events, and serializing on a token makes the current stream
 wait for it. On the CPU, where every op has completed when it returns,
 tokens are ``None`` and all three are the identity.
 
-Stream communicators (``StreamComm``, ``stream_comm_create*``) belong to
-the distributed layer and are not part of this package yet.
+Inside a :func:`~repro_torch.core.mesh.shard_map` region, where mesh
+positions are thread-ranks, every non-NULL stream has its own CUDA stream
+per (MPIX stream, mesh position): ops of one rank on one MPIX stream stay
+serial, different ranks and different streams are independent — one
+device queue per stream per device, as in the reference.
+
+``StreamComm`` pairs a mesh + axis subset with attached streams,
+mirroring ``MPIX_Stream_comm_create[_multiplex]``; the collectives of
+:mod:`repro_torch.core.collectives` run over it.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import mesh as _mesh
 from repro_torch.device import resolve_device
 
 __all__ = [
@@ -40,6 +49,11 @@ __all__ = [
     "default_pool",
     "stream_create",
     "stream_free",
+    "StreamComm",
+    "stream_comm_create",
+    "stream_comm_create_multiplex",
+    "comm_get_stream",
+    "axis_size",
     "new_token",
     "token_join",
     "serialize_on",
@@ -60,6 +74,11 @@ _OFFLOAD_TYPES = ("cudaStream_t", "hipStream_t", "tpu_stream")
 _torch_stream_lock = threading.Lock()
 
 
+def axis_size(name: str) -> int:
+    """Size of a mapped mesh axis inside a shard_map region."""
+    return _mesh.axis_size(name)
+
+
 @dataclass(frozen=True)
 class MPIXStream:
     """A local serial execution context (thread, host task, device queue)."""
@@ -69,8 +88,9 @@ class MPIXStream:
     kind: str = "compute"  # "compute" | "offload" | "null"
     channel: int = -1  # VCI index; -1 = implicit/shared
     info: Tuple[Tuple[str, str], ...] = ()
-    # the lazily created CUDA stream of a cudaStream_t offload stream
-    _cuda: Dict[int, torch.cuda.Stream] = field(
+    # the lazily created CUDA streams: per device index, and per (device
+    # index, mesh position) inside a shard_map region
+    _cuda: Dict[object, torch.cuda.Stream] = field(
         default_factory=dict, compare=False, repr=False, hash=False
     )
 
@@ -87,19 +107,27 @@ class MPIXStream:
         return self.is_offload and dict(self.info).get("type") == "cudaStream_t"
 
     def torch_stream(self, device) -> Optional[torch.cuda.Stream]:
-        """The CUDA stream this MPIX stream stands for on ``device``: its
-        own lazily created :class:`torch.cuda.Stream` for a ``cudaStream_t``
-        offload stream on a CUDA device, ``None`` otherwise (compute and
-        NULL streams order work on the caller's current stream; the CPU
-        has no streams)."""
+        """The CUDA stream this MPIX stream stands for on ``device``, created
+        on first use. Inside a shard_map region every non-NULL stream has
+        one per (device, mesh position). Outside a region only a
+        ``cudaStream_t`` offload stream has one (per device); compute and
+        NULL streams return ``None`` and order work on the caller's current
+        stream. The CPU has no streams."""
         dev = torch.device(device)
-        if dev.type != "cuda" or not self.is_cuda_stream:
+        if dev.type != "cuda":
             return None
         idx = dev.index if dev.index is not None else torch.cuda.current_device()
+        region = _mesh.current_region()
+        if region is not None and not self.is_null:
+            key = (idx, region.slot)
+        elif self.is_cuda_stream:
+            key = idx
+        else:
+            return None
         with _torch_stream_lock:
-            s = self._cuda.get(idx)
+            s = self._cuda.get(key)
             if s is None:
-                s = self._cuda[idx] = torch.cuda.Stream(device=idx)
+                s = self._cuda[key] = torch.cuda.Stream(device=idx)
             return s
 
 
@@ -186,6 +214,86 @@ def info_set_hex(info: dict, key: str, value: bytes) -> dict:
     handle) into string-only info as hex."""
     info[key] = bytes(value).hex()
     return info
+
+
+# ----------------------------------------------------------------------
+# Stream communicators
+# ----------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class StreamComm:
+    """A communicator over a mesh-axis subset with local streams attached.
+
+    ``axes`` is ordered major→minor; collectives over this comm flatten the
+    axes (threadcomm-style). ``streams`` holds the attached local streams —
+    one for single-stream comms, several for multiplex comms.
+    """
+
+    axes: Tuple[str, ...]
+    streams: Tuple[MPIXStream, ...] = (STREAM_NULL,)
+    mesh: object = None  # a core.mesh.Mesh; optional (axis names suffice inside shard_map)
+
+    def __post_init__(self):
+        if not self.axes:
+            raise ValueError("StreamComm needs at least one mesh axis")
+        if not self.streams:
+            raise ValueError("StreamComm needs at least one (possibly NULL) stream")
+
+    # -- stream accessors ------------------------------------------------
+    @property
+    def stream(self) -> MPIXStream:
+        return self.streams[0]
+
+    @property
+    def is_multiplex(self) -> bool:
+        return len(self.streams) > 1
+
+    @property
+    def channel(self) -> int:
+        return self.stream.channel
+
+    # -- communicator geometry -------------------------------------------
+    def size(self) -> int:
+        if self.mesh is None:
+            raise ValueError("size() needs a bound mesh")
+        return math.prod(self.mesh.shape[a] for a in self.axes)
+
+    def axis_sizes(self) -> Tuple[int, ...]:
+        return tuple(self.mesh.shape[a] for a in self.axes)
+
+    def rank(self) -> int:
+        """Flattened rank of the calling thread-rank inside a shard_map
+        region."""
+        r = _mesh.axis_index(self.axes[0])
+        for a in self.axes[1:]:
+            r = r * axis_size(a) + _mesh.axis_index(a)
+        return r
+
+    def with_axes(self, axes: Sequence[str]) -> "StreamComm":
+        return StreamComm(tuple(axes), self.streams, self.mesh)
+
+
+def stream_comm_create(mesh, axes: Sequence[str], stream: MPIXStream = STREAM_NULL) -> StreamComm:
+    """``MPIX_Stream_comm_create``: collective over ``mesh[axes]`` with one
+    local stream. A NULL stream reverts to conventional-communicator
+    behaviour (implicit channel, the caller's current CUDA stream)."""
+    if isinstance(axes, str):
+        axes = (axes,)
+    return StreamComm(tuple(axes), (stream,), mesh)
+
+
+def stream_comm_create_multiplex(mesh, axes: Sequence[str], streams: Sequence[MPIXStream]) -> StreamComm:
+    """``MPIX_Stream_comm_create_multiplex``: several local streams; p2p ops
+    then take source/dest stream indices (see collectives.stream_send_recv)."""
+    if isinstance(axes, str):
+        axes = (axes,)
+    return StreamComm(tuple(axes), tuple(streams), mesh)
+
+
+def comm_get_stream(comm: StreamComm, idx: int = 0) -> MPIXStream:
+    """``MPIX_Comm_get_stream``."""
+    return comm.streams[idx]
 
 
 # ----------------------------------------------------------------------

@@ -27,11 +27,18 @@ Blocked ranks **park** on their channel's stripe CV via
 matching message costs zero host polling, and the sender's
 ``notify_channel`` wakes exactly the stripe that owns the destination.
 
-The mesh-axis level (:class:`ThreadComm`, devices as "threads"), its
-composition with host threads (:class:`HybridThreadComm`), ``shard_map``
-regions and stream communicators belong to the distributed layer, which
-the port does not have yet (ROADMAP P9): they raise
-:class:`NotImplementedError`.
+**Mesh-axis level — mesh positions as "threads".** A :class:`ThreadComm`
+*flattens* an ordered axis tuple (``pod`` × intra-pod ranks) into one
+communicator activated inside a :func:`shard_map` region, where every mesh
+position is a thread-rank with its own CUDA stream
+(:mod:`repro_torch.core.mesh`). The same algebra (flatten / split / sub)
+powers the *hierarchical* collectives in
+:mod:`repro_torch.core.hierarchical`.
+
+**Hybrid.** :meth:`ThreadComm.with_host_threads` composes the two into a
+:class:`HybridThreadComm` presenting one flat rank space of
+``mesh_size × nthreads`` — rank = mesh-flat-rank · nthreads + thread
+rank, exactly the paper's "ranks 0..M-1 live in process 0" numbering.
 """
 
 from __future__ import annotations
@@ -41,31 +48,41 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
 
 from repro_torch.core import threadcoll
+from repro_torch.core.mesh import P, axis_index, shard_map
 from repro_torch.core.progress import GeneralizedRequest, ProgressEngine, default_engine
-from repro_torch.core.streams import MPIXStream, StreamPool, default_pool
+from repro_torch.core.streams import (
+    STREAM_NULL,
+    MPIXStream,
+    StreamComm,
+    StreamPool,
+    axis_size,
+    default_pool,
+)
 
 __all__ = [
+    "shard_map",
+    "ThreadComm",
+    "threadcomm_init",
+    "threadcomm_free",
+    "comm_test_threadcomm",
+    "flatten_comm",
+    "split_comm",
     "ANY_SOURCE",
     "ANY_TAG",
     "ThreadRank",
     "RecvFuture",
     "HostThreadComm",
+    "HybridThreadComm",
     "host_threadcomm_init",
     "tc_send",
     "tc_recv",
-    "comm_test_threadcomm",
-    "ThreadComm",
-    "HybridThreadComm",
-    "shard_map",
 ]
-
-_P9 = (
-    "{what}: mesh-axis thread communicators, shard_map regions and stream "
-    "communicators belong to the distributed layer, not ported yet (ROADMAP P9)"
-)
 
 #: Wildcard source rank for :meth:`ThreadRank.recv` (MPI_ANY_SOURCE).
 ANY_SOURCE = -1
@@ -331,11 +348,13 @@ class ThreadRank:
         return self.comm._record_recv(schedule, self, src, tag, out, timeout, into)
 
     # -- identity -------------------------------------------------------
-    def as_stream_comm(self, mesh=None, axes: Sequence[str] = ()):
+    def as_stream_comm(self, mesh=None, axes: Sequence[str] = ()) -> StreamComm:
         """This thread's execution context as a stream communicator
-        (``MPIX_Stream_comm_create`` with the rank's own stream). Stream
-        communicators belong to the distributed layer (ROADMAP P9)."""
-        raise NotImplementedError(_P9.format(what="ThreadRank.as_stream_comm"))
+        (``MPIX_Stream_comm_create`` with the rank's own stream): device
+        collectives issued through it are attributed to — and serialized
+        on — this thread's channel."""
+        axes = tuple(axes) if axes else (("__host__",) if mesh is None else tuple(mesh.shape))
+        return StreamComm(axes, (self.stream,), mesh)
 
     @property
     def channel(self) -> int:
@@ -990,38 +1009,231 @@ def tc_recv(handle: ThreadRank, src: int = ANY_SOURCE, tag=0, timeout: Optional[
 
 
 # ----------------------------------------------------------------------
-# Hybrid: mesh axes × host threads, one flat rank space
+# Mesh-axis level: mesh positions as thread-ranks
 # ----------------------------------------------------------------------
 
 
+@dataclass(frozen=True)
+class ThreadComm:
+    """A communicator spanning a flattened tuple of mesh axes.
+
+    ``axes`` is ordered major→minor: rank = axis0_idx · (Π inner sizes) +
+    … + axisK_idx, matching the paper's output where ranks 0..M-1 live in
+    process 0, M..2M-1 in process 1, etc.
+    """
+
+    mesh: object
+    axes: Tuple[str, ...]
+    stream: MPIXStream = STREAM_NULL
+
+    # -- geometry --------------------------------------------------------
+    def size(self) -> int:
+        return int(np.prod([self.mesh.shape[a] for a in self.axes]))
+
+    def axis_sizes(self) -> Tuple[int, ...]:
+        return tuple(self.mesh.shape[a] for a in self.axes)
+
+    def rank(self) -> int:
+        """The calling thread-rank's flattened rank; valid inside an active
+        region only."""
+        r = axis_index(self.axes[0])
+        for a in self.axes[1:]:
+            r = r * axis_size(a) + axis_index(a)
+        return r
+
+    @property
+    def is_threadcomm(self) -> bool:
+        return len(self.axes) > 1
+
+    # -- activation: the parallel region ----------------------------------
+    def run(self, fn: Callable, *args, in_specs, out_specs):
+        """``MPIX_Threadcomm_start``/``finish`` bracket: execute ``fn`` as
+        per-rank SPMD code over the flattened communicator, one thread-rank
+        per mesh position. ``fn`` may call any
+        :mod:`repro_torch.core.collectives` op on comms derived from self."""
+        return shard_map(fn, mesh=self.mesh, in_specs=in_specs, out_specs=out_specs)(*args)
+
+    # -- algebra ---------------------------------------------------------
+    def as_stream_comm(self, stream: MPIXStream = STREAM_NULL) -> StreamComm:
+        return StreamComm(self.axes, (stream,), self.mesh)
+
+    def sub(self, axes: Sequence[str]) -> "ThreadComm":
+        """Sub-communicator over a subset of the axes (must stay ordered)."""
+        axes = tuple(axes)
+        if any(a not in self.axes for a in axes):
+            raise ValueError(f"axes {axes} not in comm axes {self.axes}")
+        return ThreadComm(self.mesh, axes, self.stream)
+
+    def outer(self) -> "ThreadComm":
+        """The 'process-level' communicator (major axis)."""
+        return self.sub(self.axes[:1])
+
+    def inner(self) -> "ThreadComm":
+        """The 'thread-level' communicator (all minor axes)."""
+        return self.sub(self.axes[1:])
+
+    def with_host_threads(self, host: Union[int, HostThreadComm]) -> "HybridThreadComm":
+        """Compose with a real host-thread level: returns the hybrid
+        (pod × device × host-thread) communicator with one flat rank
+        space. Pass an existing :class:`HostThreadComm` or a thread
+        count (a fresh, not-yet-started comm is created)."""
+        if isinstance(host, int):
+            host = HostThreadComm(host, name=f"tc-{'x'.join(self.axes)}-host")
+        return HybridThreadComm(self, host)
+
+
+def threadcomm_init(mesh, axes: Sequence[str], stream: MPIXStream = STREAM_NULL) -> ThreadComm:
+    """``MPIX_Threadcomm_init``: declare the flattened communicator.
+
+    ``axes=("pod","data")`` → N_pod × N_data ranks; inactive until
+    :meth:`ThreadComm.run` enters a parallel region (shard_map)."""
+    if isinstance(axes, str):
+        axes = (axes,)
+    axes = tuple(axes)
+    for a in axes:
+        if a not in mesh.shape:
+            raise ValueError(f"axis {a!r} not in mesh {dict(mesh.shape)}")
+    return ThreadComm(mesh, axes, stream)
+
+
+def threadcomm_free(comm: ThreadComm) -> None:
+    """``MPIX_Threadcomm_free`` — no device state to release; host handle
+    only (kept for API parity + symmetry checks in tests)."""
+    return None
 
 
 def comm_test_threadcomm(comm) -> bool:
     """``MPIX_Comm_test_threadcomm``: does this communicator span more than
-    one hierarchy level? A host communicator does when it has more than one
-    thread-rank."""
-    return isinstance(comm, HostThreadComm) and comm.is_threadcomm
+    one hierarchy level (mesh-axis flattening, real host threads, or the
+    hybrid of both)?"""
+    if isinstance(comm, (HostThreadComm, HybridThreadComm)):
+        return comm.is_threadcomm
+    return isinstance(comm, ThreadComm) and comm.is_threadcomm
+
+
+def flatten_comm(mesh, *axes: str) -> ThreadComm:
+    return threadcomm_init(mesh, axes)
+
+
+def split_comm(comm: ThreadComm, keep: Sequence[str]) -> ThreadComm:
+    return comm.sub(keep)
 
 
 # ----------------------------------------------------------------------
-# Mesh-axis level: waits for the distributed layer (ROADMAP P9)
+# Hybrid: mesh axes × host threads, one flat rank space
 # ----------------------------------------------------------------------
 
 
-class ThreadComm:
-    """A communicator spanning a flattened tuple of mesh axes (ROADMAP P9)."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_P9.format(what="ThreadComm"))
-
-
+@dataclass(frozen=True)
 class HybridThreadComm:
-    """Mesh axes composed with host threads in one rank space (ROADMAP P9)."""
+    """(pod × device) mesh levels composed with the host-thread level:
+    one communicator of ``mesh_comm.size() × host.nthreads`` ranks,
+    numbered mesh-major (all thread-ranks of mesh position 0 first) —
+    the paper's N·M layout with M = host threads."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_P9.format(what="HybridThreadComm"))
+    mesh_comm: ThreadComm
+    host: HostThreadComm
 
+    def size(self) -> int:
+        return self.mesh_comm.size() * self.host.nthreads
 
-def shard_map(*args, **kwargs):
-    """A per-rank SPMD region over a device mesh (ROADMAP P9)."""
-    raise NotImplementedError(_P9.format(what="shard_map"))
+    def axis_sizes(self) -> Tuple[int, ...]:
+        return self.mesh_comm.axis_sizes() + (self.host.nthreads,)
+
+    @property
+    def is_threadcomm(self) -> bool:
+        return True
+
+    def static_rank(self, coords: Sequence[int], thread_rank: int) -> int:
+        """Flat rank from mesh-axis coordinates (major→minor, matching
+        ``mesh_comm.axes``) and a host-thread rank — pure arithmetic, for
+        layout planning and tests."""
+        sizes = self.mesh_comm.axis_sizes()
+        if len(coords) != len(sizes):
+            raise ValueError(f"need {len(sizes)} coords for axes {self.mesh_comm.axes}")
+        flat = 0
+        for c, s in zip(coords, sizes):
+            if not (0 <= c < s):
+                raise ValueError(f"coordinate {c} out of range [0, {s})")
+            flat = flat * s + c
+        if not (0 <= thread_rank < self.host.nthreads):
+            raise ValueError(f"thread rank {thread_rank} out of range")
+        return flat * self.host.nthreads + thread_rank
+
+    def rank(self, handle: ThreadRank) -> int:
+        """Flat rank: valid inside an active mesh region, called by an
+        attached thread — mesh flat rank · nthreads + thread rank."""
+        return self.mesh_comm.rank() * self.host.nthreads + handle.rank
+
+    def inner(self) -> HostThreadComm:
+        """The thread-level communicator (the paper's per-process M)."""
+        return self.host
+
+    def outer(self) -> ThreadComm:
+        """The mesh-level communicator."""
+        return self.mesh_comm
+
+    # -- hybrid collectives (host threadcoll × device mesh level) --------
+    def allreduce_large(self, handle: ThreadRank, value, op: str = "sum",
+                        timeout: Optional[float] = None) -> np.ndarray:
+        """Bandwidth-optimal allreduce over every (mesh position, host
+        thread) rank — the paper's motivating example with ext. 3 + 5
+        composed. ``value`` is this thread's stacked per-mesh-position
+        contribution, shape ``(mesh_size, *rest)`` (row m = what hybrid
+        rank (m, thread) holds); returns the full sum shaped ``rest``,
+        identical on every rank.
+
+        Rabenseifner applied at both hierarchy levels: a host-level ring
+        reduce-scatter over the *column* dimension (threadcoll ``axis=``
+        chunking keeps mesh rows whole — each thread ends owning a 1/M
+        column chunk summed over threads), then the mesh-level allreduce
+        of just that chunk on the mesh's device, issued through this
+        thread's stream (the :mod:`repro_torch.core.hierarchical` RS→AR→AG
+        split when the mesh has more than one axis), then a host-level
+        allgather. The mesh level moves only ``bytes/M`` per thread and
+        each of its collectives is serialized on the issuing thread's own
+        stream."""
+        if op != "sum":
+            raise ValueError(
+                "hybrid allreduce_large reduces the mesh level with psum; "
+                f"op={op!r} is host-level-only (use host collectives directly)"
+            )
+        arr = np.asarray(value)
+        msize = self.mesh_comm.size()
+        if arr.ndim < 1 or arr.shape[0] != msize:
+            raise ValueError(
+                f"hybrid allreduce_large input must stack the mesh dim first: "
+                f"expected shape ({msize}, ...), got {arr.shape}"
+            )
+        rest = arr.shape[1:]
+        flat2d = arr.reshape(msize, -1)
+        chunk = threadcoll.reduce_scatter(
+            handle, flat2d, op=op, timeout=timeout, axis=1
+        )  # (msize, cols/M) — still per-mesh-position
+        if msize > 1 and chunk.shape[1]:
+            chunk = self._mesh_allreduce(handle, chunk)
+        else:
+            chunk = chunk.sum(axis=0)
+        flat = threadcoll.allgather(handle, chunk.reshape(-1), timeout=timeout)
+        return flat.reshape(rest)
+
+    def _mesh_allreduce(self, handle: ThreadRank, chunk: np.ndarray) -> np.ndarray:
+        """Sum a ``(mesh_size, c)`` host array over the mesh axes on the
+        mesh's device: a shard_map region whose ranks run the hierarchical
+        all-reduce (RS inner / AR outer / AG inner when the mesh has more
+        than one axis) through a mesh comm bound to the calling thread's
+        stream, so the device collectives serialize on that thread's
+        channel. Returns the ``(c,)`` total."""
+        # deferred: hierarchical imports this module at load time
+        from repro_torch.core.hierarchical import hierarchical_all_reduce
+
+        mc = ThreadComm(self.mesh_comm.mesh, self.mesh_comm.axes, handle.stream)
+
+        def body(x):
+            y, _ = hierarchical_all_reduce(x, mc, axis=1)
+            return y
+
+        spec = P(mc.axes if len(mc.axes) > 1 else mc.axes[0])
+        x = torch.from_numpy(np.ascontiguousarray(chunk)).to(mc.mesh.devices[0])
+        y = shard_map(body, mesh=mc.mesh, in_specs=spec, out_specs=P())(x)
+        return y[0].cpu().numpy()

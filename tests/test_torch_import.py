@@ -84,6 +84,7 @@ def test_no_jax_or_reference_imports(path):
 
 def _entry_points():
     from repro_torch.configs import get_config
+    from repro_torch.core.mesh import make_mesh
     from repro_torch.core.streams import new_token
     from repro_torch.device import resolve_device
     from repro_torch.models import api
@@ -94,11 +95,12 @@ def _entry_points():
         "init_params": lambda: api.init_params(cfg, torch.Generator().manual_seed(0)),
         "init_cache": lambda: api.init_cache(cfg, 2, 16),
         "new_token": lambda: new_token("cuda"),
+        "make_mesh": lambda: make_mesh((2, 4), ("pod", "data")),
         "serve_cli": lambda: __import__("repro_torch.launch.serve", fromlist=["main"]).main(["--requests", "1"]),
     }
 
 
-@pytest.mark.parametrize("name", ["resolve_device", "init_params", "init_cache", "new_token", "serve_cli"])
+@pytest.mark.parametrize("name", ["resolve_device", "init_params", "init_cache", "new_token", "make_mesh", "serve_cli"])
 def test_cuda_requested_without_cuda_raises(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the no-card refusal cannot be observed here")

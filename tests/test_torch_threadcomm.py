@@ -653,14 +653,15 @@ def test_stream_identity_and_mesh_level_wait_for_p9():
     comm.start()
     h = comm.attach(rank=1)
     assert h.stream.kind == "compute" and h.channel == h.stream.channel
-    with pytest.raises(NotImplementedError, match="P9"):
-        h.as_stream_comm()
+    sc = h.as_stream_comm()
+    assert sc.stream is h.stream and sc.axes == ("__host__",)  # the mesh level is ported (P9)
     h.detach()
     comm.attach(rank=0).detach()
     comm.finish(timeout=5.0)
-    for make in (t_threadcomm.ThreadComm, t_threadcomm.HybridThreadComm, t_threadcomm.shard_map):
-        with pytest.raises(NotImplementedError, match="ROADMAP P9"):
-            make()
+    assert callable(t_threadcomm.shard_map)
+    tc = t_threadcomm.ThreadComm(SimpleNamespace(shape={"data": 2}), ("data",))
+    assert tc.size() == 2 and not t_threadcomm.comm_test_threadcomm(tc)
+    assert t_threadcomm.HybridThreadComm(tc, comm).size() == 4
 
 
 def test_blocked_recv_parks_spin_disabled_and_spin_hits_when_enabled():
