@@ -13,8 +13,12 @@ progress engine, then an ``OffloadWindow``) over a live KV leaf of the
 served engine, serves 12 requests through the paged KV cache on the card
 (``PagedServeEngine`` behind ``AdmissionFrontEnd`` and under the elastic
 threadcomm loop with a killed rank, each held token for token against the
-contiguous ``ServeEngine``, every page move a K1 launch), and serves
-requests with the full-width ``rwkv6-7b``
+contiguous ``ServeEngine``, every page move a K1 launch), runs the
+distributed layer on a mesh of thread-ranks, trains the full-width
+``qwen1.5-0.5b`` (``Trainer``: asynchronous checkpoints restored byte-equal,
+a resume, the windowed gradient path against the fused one, the elastic
+kill-rank walk at 4 layers, and the trained model served with flash), and
+serves requests with the full-width ``rwkv6-7b``
 (32 layers, d_model 4096, bf16, random weights from a seed) with the WKV-6
 kernel on every prefill. Each phase prints one JSON line; any failure exits
 non-zero before the last line. The last lines are the per-kernel summary (each
@@ -30,9 +34,11 @@ from __future__ import annotations
 import copy
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -105,6 +111,14 @@ FIRST_DESIGN_PACK_MS = {"served_span": 0.011744, "page_span": 0.006000, "token_v
 DIST_SENDS = 16
 DIST_ACT = (4, 512, 1024)
 DIST_SPIN_CYCLES = 400_000_000
+# the train phase: full-width qwen1.5-0.5b for 8 steps with a checkpoint at
+# step 4 (and the final one); the windowed-vs-fused steps; the elastic walk's
+# steps and its depth cut (the widths stay the published ones)
+TRAIN_STEPS = 8
+TRAIN_CKPT_EVERY = 4
+TRAIN_WINDOWED_STEPS = 2
+TRAIN_ELASTIC_STEPS = 12
+TRAIN_ELASTIC_LAYERS = 4
 
 
 def emit(phase: str, **kw) -> None:
@@ -1307,6 +1321,277 @@ def phase_dist(torch, n_params: int) -> dict:
     return dict(launches=ring["k1_launches"])
 
 
+# ----------------------------------------------------------------------
+# the train phase
+# ----------------------------------------------------------------------
+
+
+def state_bytes_equal(torch, xs, ys) -> bool:
+    """Two lists of tensors hold the same bytes, pairwise."""
+    return len(xs) == len(ys) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.detach().reshape(-1).view(torch.uint8), y.detach().reshape(-1).view(torch.uint8))
+        for x, y in zip(xs, ys))
+
+
+def need_disk(path: Path, nbytes: int, what: str) -> None:
+    """Raise unless the disk under ``path`` has room for ``nbytes``."""
+    free = shutil.disk_usage(path).free
+    check(free >= nbytes, f"{what}: {free / 1e9:.2f} GB free under {path}, {nbytes / 1e9:.2f} GB needed")
+
+
+def train_step_flops(cfg, batch: int, seq: int, n_params: int) -> float:
+    """Least operations of one training step: 6·N·tokens for the weight
+    matmuls (forward and the two backward products) plus attention: QK^T and
+    PV are 2·B·S²·(nq·hd) each in the forward, causal keeps half, and the
+    backward is twice the forward, so 6·B·S²·nq·hd per layer."""
+    attn = 6 * batch * seq * seq * cfg.n_heads * cfg.resolved_head_dim * cfg.n_layers
+    return 6.0 * n_params * batch * seq + attn
+
+
+def profiled_kernel_ms(torch, fn):
+    """Device ms of the kernels and copies ``fn`` runs, summed over
+    torch.profiler's CUDA events (None when the profiler records none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    return total_us / 1e3 if total_us > 0 else None
+
+
+def train_full_width(torch, base: Path) -> dict:
+    """(a) Trainer at full-width qwen1.5-0.5b for TRAIN_STEPS steps, with a
+    checkpoint saved mid-run, restored and held byte-equal to the state at
+    its step boundary, and a fresh Trainer resuming from the last one; then
+    (d) the trained model served through make_prefill_step."""
+    import numpy as np
+
+    from repro_torch.checkpoint import iovec_store as store
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import Trainer, make_prefill_step
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = get_config("qwen1.5-0.5b")
+    check(cfg.n_layers == 24 and cfg.grad_accum == 2 and cfg.remat == "full" and cfg.param_dtype == "bfloat16",
+          "the published qwen1.5-0.5b training config: 24 layers, grad_accum 2, remat full, bf16 params")
+    opt, data = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS), DataConfig(batch=8, seq=128)
+    mid = TRAIN_CKPT_EVERY
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, opt, data, ckpt_dir=str(base / "a"), ckpt_every=mid, ckpt_keep=1, grad_overlap="jit", seed=0)
+    n_params = sum(p.numel() for p in tr.params.parameters())
+    ckpt_bytes = sum(t.numel() * t.element_size() for t in store.tree_tensors(tr.state_tree()))
+    need_disk(base, int(2.5 * ckpt_bytes), "train phase checkpoints")
+    boundary, mid_check = {}, {}
+    save_async = tr.ckpt.save_async
+
+    def save_spy(step, tree, extra=None):
+        if step == mid:  # the state at the step boundary, copied on the card before the save
+            boundary["state"] = [t.detach().clone() for t in store.tree_tensors(tree)]
+        elif "state" in boundary and not mid_check:  # before keep=1 retires the mid-run save
+            check(tr.ckpt.wait_for_pending(), f"the step-{mid} save is written")
+            loaded, step_read = tr.ckpt.restore_step(mid, tree)
+            mid_check["step"] = step_read
+            mid_check["equal"] = state_bytes_equal(torch, store.tree_tensors(loaded), boundary.pop("state"))
+            del loaded
+        return save_async(step, tree, extra)
+
+    tr.ckpt.save_async = save_spy
+    t0 = time.perf_counter()
+    hist = tr.run(TRAIN_STEPS, log_every=1)
+    wall = time.perf_counter() - t0
+    check(len(hist) == TRAIN_STEPS and all(math.isfinite(l) for l in hist), f"finite losses: {hist}")
+    check(hist[-1] < hist[0], f"the last loss is below the first: {hist[0]} -> {hist[-1]}")
+    check(mid_check.get("step") == mid and mid_check.get("equal") is True,
+          f"the step-{mid} checkpoint, saved asynchronously mid-run, restores byte-equal to its boundary: {mid_check}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(tr.last_progress_stats is not None and tr.last_progress_stats["completions"] > 0,
+          "the progress engine completed the run's requests")
+    snaps = tr.ckpt.snapshot_times()
+    check([s["step"] for s in snaps] == [mid, TRAIN_STEPS - 1], f"saves at steps {[s['step'] for s in snaps]}")
+    for s in snaps:
+        s["gb_per_s"] = s["bytes"] / (s["ms"] * 1e6)
+
+    tr2 = Trainer(cfg, opt, data, ckpt_dir=str(base / "a"), ckpt_every=mid, ckpt_keep=1, seed=1)
+    tr2.maybe_restore()
+    check(tr2.start_step == TRAIN_STEPS, f"the fresh trainer resumes at step {TRAIN_STEPS}: {tr2.start_step}")
+    check(state_bytes_equal(torch, store.tree_tensors(tr2.state_tree()), store.tree_tensors(tr.state_tree())),
+          "the restored state is byte-equal to the first trainer's final state")
+    tr2.close()
+    del tr2
+    torch.cuda.empty_cache()
+
+    # (d) serve the trained model: one 384-token prompt, flash on every layer
+    prompt = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab, (1, FLASH_SERVE_S[-1])).astype(np.int32)}
+    fa.flash_attention.launches = 0  # count the train path's prefill only
+    l_flash, _ = make_prefill_step(cfg.replace(attn_impl="flash"))(tr.params, prompt)
+    torch.cuda.synchronize()
+    flash_launches = fa.flash_attention.launches
+    l_ein, _ = make_prefill_step(cfg.replace(attn_impl="einsum"))(tr.params, prompt)
+    rel = max_err(l_flash, l_ein) / l_ein.abs().max().item()
+    check(flash_launches == cfg.n_layers, f"flash launches {flash_launches} == {cfg.n_layers} layers")
+    check(bool(torch.isfinite(l_flash).all()) and l_flash.shape == (1, cfg.vocab), "finite (1, vocab) logits")
+    check(rel <= 5e-2, f"trained-model prefill, flash vs einsum: rel {rel} <= 5e-2 (the serve phase's bf16 bound)")
+
+    # where a step goes: the grad step and the AdamW update alone on the host
+    # clock, and one whole step's kernel time (this mutates the state, so it
+    # comes after every check on it)
+    from repro_torch.launch.train import make_grad_step
+    from repro_torch.optim.adamw import adamw_update
+
+    b = {k: torch.as_tensor(v).to(tr.device) for k, v in tr.pipeline.build_batch(TRAIN_STEPS).items()}
+    grad_step = make_grad_step(cfg)
+    grad_ms = host_ms(torch, lambda: grad_step(tr.params, b), reps=3)
+    grads, _ = grad_step(tr.params, b)
+    update_ms = host_ms(torch, lambda: adamw_update(opt, grads, tr.opt_state, tr._named), reps=3)
+    del grads
+    step_again_ms = host_ms(torch, lambda: tr.step(b), reps=3)
+    kernel_ms = profiled_kernel_ms(torch, lambda: tr.step(b))
+
+    step_s = statistics.median(tr.step_seconds[1:])
+    tokens = data.batch * data.seq
+    flops = train_step_flops(cfg, data.batch, data.seq, n_params)
+    st = tr.last_progress_stats
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params, steps=TRAIN_STEPS, batch=data.batch,
+               seq=data.seq, grad_accum=cfg.grad_accum, remat=cfg.remat, losses=hist, wall_s=wall,
+               step_host_ms=step_s * 1e3, step_host_ms_all=[s * 1e3 for s in tr.step_seconds],
+               step_flops=flops, step_bound_ms=flops / H100_BF16_FLOPS * 1e3, tokens_per_s=tokens / step_s,
+               peak_mem_gb=peak_gb, ckpt_bytes=ckpt_bytes, saves=snaps, mid_ckpt_restored_equal=True,
+               resumed_at=TRAIN_STEPS, progress=dict((k, st[k]) for k in ("completions", "polls", "parks", "wakes")),
+               prefill_flash_launches=flash_launches, prefill_rel_err_bf16=rel,
+               breakdown=dict(grad_step_host_ms=grad_ms, adamw_update_host_ms=update_ms,
+                              step_host_ms=step_again_ms, step_kernel_ms=kernel_ms,
+                              device_busy_share=None if kernel_ms is None else kernel_ms / step_again_ms))
+    tr.close()
+    return out
+
+
+def train_windowed(torch) -> dict:
+    """(b) grad_overlap="windowed" against the fused step for
+    TRAIN_WINDOWED_STEPS steps from the same initial state: every state
+    tensor byte-equal after each step."""
+    from repro_torch.checkpoint import iovec_store as store
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = get_config("qwen1.5-0.5b")
+    opt, data = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS), DataConfig(batch=8, seq=128)
+    fused = Trainer(cfg, opt, data, grad_overlap="jit", seed=0)
+    windowed = Trainer(cfg, opt, data, grad_overlap="windowed", seed=0)
+    try:
+        check(state_bytes_equal(torch, store.tree_tensors(fused.state_tree()), store.tree_tensors(windowed.state_tree())),
+              "the two trainers start from the same state")
+        equal, host_ms = [], {"jit": [], "windowed": []}
+        for step in range(TRAIN_WINDOWED_STEPS):
+            batch = fused.pipeline.build_batch(step)
+            for name, tr in (("jit", fused), ("windowed", windowed)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.step(batch)
+                torch.cuda.synchronize()
+                host_ms[name].append((time.perf_counter() - t0) * 1e3)
+            equal.append(state_bytes_equal(torch, store.tree_tensors(fused.state_tree()),
+                                           store.tree_tensors(windowed.state_tree())))
+        check(all(equal), f"windowed params, master, m and v byte-equal to the fused step after each step: {equal}")
+        st = windowed._grad_window.stats(engine=False)
+        check(st["admitted"] == st["reaped"] == TRAIN_WINDOWED_STEPS * windowed._grad_plan.n_buckets,
+              f"every bucket's reduce-scatter went through the window: {st}")
+        return dict(steps=TRAIN_WINDOWED_STEPS, byte_equal_after_each_step=equal, buckets=windowed._grad_plan.n_buckets,
+                    window=dict((k, st[k]) for k in ("admitted", "reaped", "depth")), step_host_ms=host_ms)
+    finally:
+        fused.close()
+        windowed.close()
+
+
+def train_elastic(torch, base: Path) -> dict:
+    """(c) The kill-rank walk of tests/test_fault_injection.py:501-570 at the
+    published widths cut to TRAIN_ELASTIC_LAYERS layers: rank 1 dies at t=1 on
+    a virtual clock, the heartbeat detects it, the mesh shrinks, the latest
+    checkpoint's largest leaf is resharded through a window and training
+    resumes. The recovery's shards are held against a clean reshard of the
+    same checkpoint, and against its .bin, at the recovery (keep=2 retires
+    that checkpoint before the run ends)."""
+    from repro_torch.checkpoint import iovec_store as store
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.ft.faultinject import FaultEvent, FaultInjector, FaultPlan, VirtualClock
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim.adamw import AdamWConfig
+
+    class CheckedTrainer(Trainer):
+        def recover(self, failed_ranks, reshard_depth: int = 4):
+            plan = super().recover(failed_ranks, reshard_depth)
+            rec = self.recoveries[-1]
+            d = self.ckpt._dir_for(rec["ckpt_step"])
+            clean, _ = self._reshard_checkpoint(d, rec["plan"])
+            rec["clean_equal"] = clean["shards"] == rec["shards"]["shards"]
+            with open(store.manifest_path(d)) as f:
+                leaf = json.load(f)["leaves"][rec["shards"]["leaf"]]
+            raw = (Path(d) / leaf["file"]).read_bytes()
+            shards = rec["shards"]["shards"]
+            rec["bin_equal"] = b"".join(shards[c] for c in sorted(shards)) == raw
+            rec["leaf_bytes"] = len(raw)
+            return plan
+
+    steps = TRAIN_ELASTIC_STEPS
+    cfg = get_config("qwen1.5-0.5b").replace(n_layers=TRAIN_ELASTIC_LAYERS)
+    clock = VirtualClock()
+    with FaultInjector(FaultPlan([FaultEvent(1.0, "kill_rank", 1)]), clock=clock) as inject:
+        tr = CheckedTrainer(cfg, AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=steps),
+                            DataConfig(batch=4, seq=64, seed=7), ckpt_dir=str(base / "c"), ckpt_every=2, ckpt_keep=2,
+                            autotune=False, mesh_shape=(2, 2, 2), mesh_axes=("pod", "data", "model"),
+                            ranks=(0, 1, 2, 3), hb_timeout=2.0, hb_clock=clock, hb_tick=0.5, fault_injector=inject)
+        try:
+            ckpt_bytes = sum(t.numel() * t.element_size() for t in store.tree_tensors(tr.state_tree()))
+            need_disk(base, 3 * ckpt_bytes, "elastic checkpoints (two kept, one being written)")
+            inject.attach_heartbeat(tr.heartbeat)
+            hist = tr.run(steps, log_every=100)
+        finally:
+            tr.close()
+    check(len(tr.recoveries) == 1, f"exactly one recovery: {len(tr.recoveries)}")
+    rec = tr.recoveries[0]
+    check(rec["failed"] == [1], f"failed == [1]: {rec['failed']}")
+    check(rec["plan"].shape == (1, 2, 2), f"plan (1, 2, 2): {rec['plan'].shape}")
+    st = rec["reshard_stats"]
+    check(st is not None and st["admitted"] == st["reaped"], f"reshard window admitted == reaped: {st}")
+    check(rec["clean_equal"], "the recovery's shards equal a clean reshard of the same checkpoint")
+    check(rec["bin_equal"], "the shards concatenate to the leaf's .bin bytes")
+    check(len(hist) == steps and all(math.isfinite(l) for l in hist), f"{steps} finite losses: {hist}")
+    return dict(cut=f"{TRAIN_ELASTIC_LAYERS} of 24 layers, published widths", steps=steps, losses=hist,
+                failed=rec["failed"], plan=list(rec["plan"].shape), ckpt_step=rec["ckpt_step"],
+                leaf=rec["shards"]["leaf"], leaf_bytes=rec["leaf_bytes"], grid=list(rec["shards"]["grid"]),
+                window=dict((k, st[k]) for k in ("admitted", "reaped")), ckpt_bytes=ckpt_bytes)
+
+
+def phase_train(torch) -> dict:
+    """The training path on the card: (a) full-width training with
+    asynchronous checkpoints and a resume, (d) the trained model served with
+    flash, (b) the windowed gradient path against the fused one, (c) the
+    elastic kill-rank recovery. Checkpoints go to a directory under the
+    checkout's build/, removed at the end."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    base = Path(tempfile.mkdtemp(prefix="train-ckpt-", dir=ROOT / "build"))
+    try:
+        full = train_full_width(torch, base)
+        torch.cuda.empty_cache()
+        windowed = train_windowed(torch)
+        torch.cuda.empty_cache()
+        elastic = train_elastic(torch, base)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    emit("train", full=full, windowed=windowed, elastic=elastic, device=torch.cuda.get_device_name(0))
+    return dict(flash_launches=full["prefill_flash_launches"])
+
+
 def phase_timer_ab(torch) -> None:
     """The timer's variants, each in turns so that a change of timer can be
     told from noise, and the pack's timed shapes under the default timer.
@@ -1412,14 +1697,17 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     dist = phase_dist(torch, n_params)
+    train = phase_train(torch)
     rwkv = phase_serve_rwkv(torch)
 
     ft = kern["flash_times"][-1]  # the longest served prompt, S = 384
     ut = paged["unpack"]["timings"]["decode_step"]  # the paged path's most frequent move
     entries = [
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:75", launches=serve["flash_launches"] + paged["flash_launches"],
-             launches_by_path=dict(serve=serve["flash_launches"], serve_paged=paged["flash_launches"]),
+             replaces="src/repro/kernels/flash_attention.py:75",
+             launches=serve["flash_launches"] + paged["flash_launches"] + train["flash_launches"],
+             launches_by_path=dict(serve=serve["flash_launches"], serve_paged=paged["flash_launches"],
+                                   train=train["flash_launches"]),
              max_abs_err=kern["flash_err"], ms=ft["ms"], plain_ms=ft["plain_ms"], bound_ms=ft["bound_ms"],
              bound_by=ft["bound_by"], library_ms=ft["library_ms"]),
         dict(name="dt_pack", route="cuda", source="src/repro_torch/csrc/dt_pack.cu",

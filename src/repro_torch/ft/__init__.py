@@ -1,9 +1,8 @@
-"""Fault tolerance: seeded fault injection (:mod:`repro_torch.ft.faultinject`).
-
-The heartbeat detector, the straggler policy and elastic re-mesh planning
-come with a later slice (ROADMAP); the serving loops take any object with
-the heartbeat monitor's methods in the meantime.
-"""
+"""Fault tolerance: heartbeat failure detection, straggler policy, elastic
+re-mesh, and seeded fault injection (:mod:`repro_torch.ft.faultinject`)."""
+from repro_torch.ft.heartbeat import HeartbeatMonitor
+from repro_torch.ft.straggler import StragglerMonitor, Advice
+from repro_torch.ft.elastic import MeshPlan, plan_remesh, reshard_plan
 from repro_torch.ft.faultinject import (
     FaultEvent,
     FaultInjector,

@@ -30,6 +30,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 
@@ -50,6 +51,7 @@ __all__ = [
     "embed",
     "logits_out",
     "next_token_xent",
+    "remat_wrap",
 ]
 
 NEG_INF = -1e30
@@ -263,3 +265,23 @@ def next_token_xent(logits, tokens, mask=None):
         m = mask[:, 1:].float()
         return -(ll * m).sum() / torch.clamp(m.sum(), min=1.0)
     return -ll.mean()
+
+
+# ----------------------------------------------------------------------
+# rematerialisation
+# ----------------------------------------------------------------------
+
+
+def remat_wrap(cfg: ModelConfig, fn):
+    """``fn`` under the config's remat policy (the reference's
+    ``jax.checkpoint`` wrapping of each layer): ``"none"`` is ``fn``;
+    ``"full"`` saves only the layer's inputs and recomputes its forward in
+    the backward pass (``torch.utils.checkpoint``, non-reentrant). The
+    reference's ``"dots"`` and ``"save_acts"`` policies are not ported."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    raise NotImplementedError(
+        f"remat policy {cfg.remat!r} is not ported to repro_torch yet (ROADMAP P12: the configs that use it)"
+    )

@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights between the JAX package and the port.
 
 :func:`params_from_numpy` takes the JAX params pytree with every leaf
 already converted to numpy (``np.asarray``): nested dicts/lists/tuples,
@@ -10,20 +10,32 @@ same values; a key set that differs from the port's raises.
 ``np.asarray`` of a JAX bfloat16 array is an ``ml_dtypes.bfloat16``
 array, which ``torch.from_numpy`` refuses, so such leaves travel as their
 16-bit pattern (``int16``) and are re-viewed as ``torch.bfloat16``.
-Nothing here imports JAX.
+
+The reverse direction goes through the same name map: :func:`leaf_map`
+gives, for each leaf name of the reference's tree (``groups/0/0/attn/wq``),
+the port's parameter names that hold it — one per layer for a leaf the
+reference stacks. :func:`state_tree` builds the reference's nested tree
+over the port's tensors, a stacked leaf as a
+:class:`~repro_torch.checkpoint.iovec_store.StackedLeaf` of the per-layer
+tensors (no stacked copy: the checkpoint store writes each row as a shard),
+and :func:`params_to_numpy` returns that tree as numpy arrays, the stacked
+leaves stacked. Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Mapping, Optional, Tuple
+
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.iovec_store import StackedLeaf, map_leaves
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rwkv6 import RWKVLM
 from repro_torch.models.transformer import TransformerLM, layer_groups
 
-__all__ = ["params_from_numpy", "tensor_from_numpy"]
+__all__ = ["params_from_numpy", "tensor_from_numpy", "leaf_map", "state_tree", "params_to_numpy"]
 
 
 def tensor_from_numpy(a) -> torch.Tensor:
@@ -91,3 +103,90 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
                 for k, p in mod.items():
                     _assign(p, np.asarray(src[part][k])[r], f"groups[{gi}][{pi}].{part}.{k}[{r}]")
     return model
+
+
+# ----------------------------------------------------------------------
+# the port's parameters as the reference's tree
+# ----------------------------------------------------------------------
+
+
+def leaf_map(cfg: ModelConfig, model) -> Dict[str, Tuple[bool, Tuple[str, ...]]]:
+    """Reference leaf name → (stacked, the port's parameter names): one
+    name for an unstacked leaf, one per layer (row) for a stacked one."""
+    out: Dict[str, Tuple[bool, Tuple[str, ...]]] = {}
+    for k in model.embed.keys():
+        out[f"embed/{k}"] = (False, (f"embed.{k}",))
+    for k in model.final_norm.keys():
+        out[f"final_norm/{k}"] = (False, (f"final_norm.{k}",))
+    if isinstance(model, RWKVLM):
+        first = model.layers[0]
+        n = len(model.layers)
+        for part in ("ln1", "ln2", "ln_x"):
+            for k in getattr(first, part).keys():
+                out[f"layers/{part}/{k}"] = (True, tuple(f"layers.{l}.{part}.{k}" for l in range(n)))
+        for k in first.p.keys():
+            out[f"layers/{k}"] = (True, tuple(f"layers.{l}.p.{k}" for l in range(n)))
+        return out
+    for gi, ((pattern, reps), layers) in enumerate(zip(layer_groups(cfg), model.groups)):
+        for pi in range(len(pattern)):
+            first = layers[pi]
+            for part in ("ln1", "ln2", "attn", "ffn"):
+                for k in getattr(first, part).keys():
+                    out[f"groups/{gi}/{pi}/{part}/{k}"] = (
+                        True, tuple(f"groups.{gi}.{r * len(pattern) + pi}.{part}.{k}" for r in range(reps)))
+    return out
+
+
+def _nest(flat: Dict[str, object]):
+    """Nested dicts from '/'-joined names; a dict keyed 0..n-1 becomes a list."""
+    root: dict = {}
+    for name, leaf in flat.items():
+        node = root
+        *head, last = name.split("/")
+        for part in head:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node) and sorted(int(k) for k in node) == list(range(len(node))):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(root)
+
+
+def state_tree(cfg: ModelConfig, model, values: Optional[Mapping[str, torch.Tensor]] = None):
+    """The reference's params tree over ``values`` (parameter name → tensor;
+    default the model's own parameters), a stacked leaf as a
+    :class:`StackedLeaf` of the per-layer tensors."""
+    if values is None:
+        values = dict(model.named_parameters())
+    flat = {}
+    for name, (stacked, names) in leaf_map(cfg, model).items():
+        flat[name] = StackedLeaf([values[n] for n in names]) if stacked else values[names[0]]
+    return _nest(flat)
+
+
+@torch.no_grad()
+def params_to_numpy(cfg: ModelConfig, model):
+    """The model's weights as the reference's params tree of numpy arrays,
+    the inverse of :func:`params_from_numpy`. numpy has no bfloat16 of its
+    own: a bf16 leaf comes out as its 16-bit words (``int16``)."""
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+    def stack(node):
+        if isinstance(node, dict):
+            return {k: stack(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [stack(v) for v in node]
+        if isinstance(node, StackedLeaf):
+            return np.stack(node.rows)
+        return node
+
+    return stack(map_leaves(host, state_tree(cfg, model)))

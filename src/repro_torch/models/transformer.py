@@ -30,6 +30,7 @@ from repro_torch.models.common import (
     gqa_attention_full,
     logits_out,
     next_token_xent,
+    remat_wrap,
     swiglu,
 )
 from repro_torch.models.config import ModelConfig
@@ -81,7 +82,8 @@ def layer_groups(cfg: ModelConfig) -> List[Tuple[Tuple[LayerSpec, ...], int]]:
 
 
 def _param(shape, cfg: ModelConfig, device) -> nn.Parameter:
-    # serving-only port: parameters never take gradients
+    # created without gradients: serving never takes them, and the trainer
+    # turns them on for the model it trains
     return nn.Parameter(torch.empty(shape, dtype=cfg.pdtype, device=device), requires_grad=False)
 
 
@@ -199,7 +201,9 @@ def _trunk(cfg: ModelConfig, model: TransformerLM, batch, collect_cache: bool):
     for layers in model.groups:
         g_seeds = []
         for layer in layers:
-            x, seed = layer.forward_full(cfg, x, positions)
+            # remat only matters where autograd records the forward
+            fwd = remat_wrap(cfg, layer.forward_full) if torch.is_grad_enabled() else layer.forward_full
+            x, seed = fwd(cfg, x, positions)
             if collect_cache:
                 g_seeds.append(seed)
         seeds.append(g_seeds)

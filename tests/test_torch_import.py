@@ -33,11 +33,15 @@ def test_every_port_module_imports_without_jax():
     mods = ["repro_torch"] + _port_modules()
     assert "repro_torch.serving.engine" in mods and "repro_torch.kernels._build" in mods
     assert "repro_torch.serving.paged_kv" in mods and "repro_torch.core.threadcomm" in mods
+    for sub in ("checkpoint.iovec_store", "checkpoint.manager", "data.pipeline", "optim.adamw", "optim.compression",
+                "optim.grad_overlap", "ft.heartbeat", "ft.straggler", "ft.elastic", "launch.train"):
+        assert f"repro_torch.{sub}" in mods, sub
     benches = [str(p) for p in _port_bench_files()]
     assert any(b.endswith("serving_load.py") for b in benches)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError
+        "sys.modules['ml_dtypes'] = None\n"  # numpy's bfloat16 comes with JAX, not with the port
         "import importlib, importlib.util\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
@@ -77,7 +81,7 @@ def test_no_jax_or_reference_imports(path):
     bad = [
         m for m in _imports(REPO / path)
         if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro.")
-        or m.startswith("jaxlib") or m.startswith("flax")
+        or m.startswith("jaxlib") or m.startswith("flax") or m.startswith("ml_dtypes")
     ]
     assert not bad, f"{path} imports {bad}"
 
@@ -97,10 +101,12 @@ def _entry_points():
         "new_token": lambda: new_token("cuda"),
         "make_mesh": lambda: make_mesh((2, 4), ("pod", "data")),
         "serve_cli": lambda: __import__("repro_torch.launch.serve", fromlist=["main"]).main(["--requests", "1"]),
+        "train_cli": lambda: __import__("repro_torch.launch.train", fromlist=["main"]).main(["--steps", "1"]),
     }
 
 
-@pytest.mark.parametrize("name", ["resolve_device", "init_params", "init_cache", "new_token", "make_mesh", "serve_cli"])
+@pytest.mark.parametrize("name", ["resolve_device", "init_params", "init_cache", "new_token", "make_mesh", "serve_cli",
+                                  "train_cli"])
 def test_cuda_requested_without_cuda_raises(name):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the no-card refusal cannot be observed here")
