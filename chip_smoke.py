@@ -17,7 +17,11 @@ contiguous ``ServeEngine``, every page move a K1 launch), runs the
 distributed layer on a mesh of thread-ranks, trains the full-width
 ``qwen1.5-0.5b`` (``Trainer``: asynchronous checkpoints restored byte-equal,
 a resume, the windowed gradient path against the fused one, the elastic
-kill-rank walk at 4 layers, and the trained model served with flash), and
+kill-rank walk at 4 layers, and the trained model served with flash), runs
+the second training path at full width (the windowed 1F1B pipeline forward
+with flash on every layer, recorded and replayed; the pipelined loss and
+its gradients; the sharded ZeRO-1 step on a ``(2, 2, 2)`` mesh of
+thread-ranks with its checkpoint and a sharded restore), and
 serves requests with the full-width ``rwkv6-7b``
 (32 layers, d_model 4096, bf16, random weights from a seed) with the WKV-6
 kernel on every prefill. Each phase prints one JSON line; any failure exits
@@ -119,6 +123,16 @@ TRAIN_CKPT_EVERY = 4
 TRAIN_WINDOWED_STEPS = 2
 TRAIN_ELASTIC_STEPS = 12
 TRAIN_ELASTIC_LAYERS = 4
+# the pipeline phase: (a) the windowed 1F1B forward, 4 stages of 6 layers,
+# 8 microbatches of 1 x 384 tokens, window depth 2; (b) pipeline_loss_fn on
+# a (4, 2) ("pipe", "dp") mesh, 4 x 128 tokens in 4 microbatches, fp32;
+# (c) the sharded step on (2, 2, 2) ("pod", "data", "model"), 8 x 128 tokens
+PIPE_STAGES = 4
+PIPE_MICRO = (8, 1, 384)
+PIPE_DEPTH = 2
+PIPE_LOSS_BATCH = (4, 128)
+SHARDED_BATCH = (8, 128)
+SHARDED_LR = 1e-3
 
 
 def emit(phase: str, **kw) -> None:
@@ -202,7 +216,8 @@ def host_ms(torch, fn, reps=5) -> float:
 
 
 def bytes_equal(torch, a, b) -> bool:
-    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+    return a.shape == b.shape and torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                                              b.contiguous().reshape(-1).view(torch.uint8))
 
 
 # ----------------------------------------------------------------------
@@ -1592,6 +1607,271 @@ def phase_train(torch) -> dict:
     return dict(flash_launches=full["prefill_flash_launches"])
 
 
+# ----------------------------------------------------------------------
+# the pipeline phase
+# ----------------------------------------------------------------------
+
+
+def pipeline_host(torch) -> dict:
+    """(a) gpipe_forward_host at full width: flash on every layer of every
+    tick (bubble ticks run their stage too), the boundary sends through an
+    OffloadWindow of depth PIPE_DEPTH on a cudaStream_t MPIX stream; held
+    against the sequential einsum forward on the same weights, then
+    recorded and replayed."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import P, make_mesh, shard_map
+    from repro_torch.core.progress import ProgressEngine
+    from repro_torch.core.schedule import Schedule
+    from repro_torch.core.streams import stream_comm_create, stream_create, stream_free
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.common import embed
+    from repro_torch.parallel.pipeline import gpipe_forward_host, split_stages
+
+    cfg = get_config("qwen1.5-0.5b").replace(attn_impl="flash")
+    model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_micro, mb, S = PIPE_MICRO
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (n_micro * mb, S))).cuda()
+    positions = torch.arange(S, device="cuda").expand(mb, S)
+    layers = model.groups[0]
+    stages = split_stages(layers, PIPE_STAGES)
+    per_stage = len(layers) // PIPE_STAGES
+    ticks = n_micro + PIPE_STAGES - 1
+
+    def stage_fn(stage, x):
+        for layer in stage:
+            x, _ = layer.forward_full(cfg, x, positions)
+        return x
+
+    off = stream_create(info={"type": "cudaStream_t"}, name="pipe-1f1b")
+    try:
+        comm = stream_comm_create(make_mesh((PIPE_STAGES,), ("pipe",)), ("pipe",), off)
+        eng = ProgressEngine()
+        with torch.no_grad():
+            x = embed(cfg, model.embed, tokens).reshape(n_micro, mb, S, cfg.d_model)
+            gpipe_forward_host(stage_fn, stages, x, comm, depth=PIPE_DEPTH, engine=eng)  # warm-up
+            torch.cuda.synchronize()
+            fa.flash_attention.launches = 0  # the main path's run only
+            t0 = time.perf_counter()
+            outs, win = gpipe_forward_host(stage_fn, stages, x, comm, depth=PIPE_DEPTH, engine=eng)
+            torch.cuda.synchronize()
+            eager_ms = (time.perf_counter() - t0) * 1e3
+            launches = fa.flash_attention.launches
+            st = win.stats(engine=False)
+            ein = cfg.replace(attn_impl="einsum")
+            seq = []
+            for m in range(n_micro):
+                y = x[m]
+                for layer in layers:
+                    y, _ = layer.forward_full(ein, y, positions)
+                seq.append(y)
+            seq = torch.stack(seq)
+            rel = max_err(outs, seq) / seq.float().abs().max().item()
+            sched = Schedule(engine=eng, name="pipe-1f1b")
+            recorded, rec_win = gpipe_forward_host(stage_fn, stages, x, comm, depth=PIPE_DEPTH, engine=eng,
+                                                   schedule=sched)
+            before = fa.flash_attention.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            replayed, win2 = gpipe_forward_host(stage_fn, stages, x, comm, schedule=sched)
+            torch.cuda.synchronize()
+            replay_ms = (time.perf_counter() - t0) * 1e3
+            replay_launches = fa.flash_attention.launches - before
+            # where a tick's host time goes: a region of PIPE_STAGES threads
+            # doing nothing, and one stage's layers alone on this thread
+            empty_region_ms = host_ms(torch, lambda: shard_map(lambda: None, comm.mesh, (), P())())
+            one_stage_ms = host_ms(torch, lambda: stage_fn(stages[0], x[0]))
+    finally:
+        stream_free(off)
+    want = ticks * PIPE_STAGES * per_stage
+    check(outs.shape == (n_micro, mb, S, cfg.d_model) and bool(torch.isfinite(outs).all()), "finite pipeline outputs")
+    check(launches == want, f"flash launches {launches} == {ticks} ticks x {PIPE_STAGES} stages x {per_stage} layers")
+    check(st["admitted"] == st["reaped"] == ticks and st["max_depth_seen"] <= PIPE_DEPTH and st["in_flight"] == 0,
+          f"window admitted == reaped == {ticks}, depth <= {PIPE_DEPTH}: {st}")
+    check(rel <= 5e-2, f"pipeline (flash) vs the sequential einsum forward: rel {rel} <= 5e-2 (the serve phase's bound)")
+    check(win2 is rec_win and replay_launches == want, f"the replay launched flash {replay_launches} times")
+    check(bytes_equal(torch, recorded, outs) and bytes_equal(torch, replayed, outs),
+          "the recorded and the replayed runs are byte-equal to the eager run")
+    return dict(stages=PIPE_STAGES, layers_per_stage=per_stage, micro=list(PIPE_MICRO), ticks=ticks,
+                depth=PIPE_DEPTH, flash_launches=launches, window=dict((k, st[k]) for k in
+                                                                   ("admitted", "reaped", "max_depth_seen")),
+                rel_err_vs_sequential_einsum=rel, eager_host_ms=eager_ms, replay_host_ms=replay_ms,
+                replay_byte_equal=True, tick_host_ms=eager_ms / ticks, empty_region_host_ms=empty_region_ms,
+                one_stage_alone_host_ms=one_stage_ms)
+
+
+def pipeline_loss(torch) -> dict:
+    """(b) pipeline_loss_fn on a (4, 2) ("pipe", "dp") mesh at full width,
+    einsum, fp32: the loss and every gradient against the single-rank
+    lm_loss on the same batch."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.models.common import apply_norm, embed, logits_out, next_token_xent
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.parallel.pipeline import pipeline_loss_fn, split_stages
+
+    cfg = get_config("qwen1.5-0.5b").replace(attn_impl="einsum", param_dtype="float32", compute_dtype="float32")
+    model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda").requires_grad_(True)
+    B, S = PIPE_LOSS_BATCH
+    n_micro = PIPE_STAGES
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (B, S))).cuda()
+    positions = torch.arange(S, device="cuda").expand(B // n_micro, S)
+
+    def stage_fn(stage, x):
+        for layer in stage:
+            x, _ = layer.forward_full(cfg, x, positions)
+        return x
+
+    def head_loss(head, x, toks):
+        return next_token_xent(logits_out(cfg, head["embed"], apply_norm(cfg, head["norm"], x)), toks)
+
+    mesh = make_mesh((PIPE_STAGES, 2), ("pipe", "dp"))
+    loss_fn = pipeline_loss_fn(cfg, mesh, "pipe", n_micro, lambda p, t: embed(cfg, p, t), stage_fn, head_loss)
+    params = {"embed": model.embed, "stages": split_stages(model.groups[0], PIPE_STAGES),
+              "head": {"embed": model.embed, "norm": model.final_norm}}
+    ps = list(model.parameters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp = loss_fn(params, {"tokens": tokens})
+    gp = torch.autograd.grad(lp, ps)
+    torch.cuda.synchronize()
+    pipe_ms = (time.perf_counter() - t0) * 1e3
+    ls, _ = lm_loss(cfg, model, {"tokens": tokens})
+    gs = torch.autograd.grad(ls, ps)
+    loss_rel = abs(lp.item() - ls.item()) / abs(ls.item())
+    grad_rel = max(max_err(a, b) / max(b.abs().max().item(), 1e-30) for a, b in zip(gp, gs))
+    check(math.isfinite(lp.item()) and loss_rel <= 1e-4, f"pipelined loss vs lm_loss: rel {loss_rel} <= 1e-4")
+    check(grad_rel <= 1e-4, f"every gradient, pipelined vs lm_loss: max |diff| / max |grad| {grad_rel} <= 1e-4")
+    return dict(mesh=mesh.shape, batch=[B, S], n_micro=n_micro, loss=lp.item(), loss_rel_err=loss_rel,
+                grad_rel_err=grad_rel, leaves=len(ps), pipe_fwd_bwd_host_ms=pipe_ms)
+
+
+def sharded_step(torch, base: Path) -> dict:
+    """(c) the sharded step (params under param_specs, moments under
+    opt_state_specs, ZeRO-1) against the single-rank make_train_step; a
+    checkpoint of the sharded state against the unsharded one's files; a
+    restore with shardings= read block by block."""
+    import numpy as np
+
+    from repro_torch.checkpoint import iovec_store as store
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import ShardedTensor, device_put, make_mesh
+    from repro_torch.launch.train import make_grad_step, make_train_step, named, train_shardings
+    from repro_torch.models import api
+    from repro_torch.models.convert import shardings_tree, state_tree
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.parallel.sharding import dp_axes
+
+    cfg = get_config("qwen1.5-0.5b")
+    check(cfg.grad_accum == 2 and cfg.param_dtype == "bfloat16", "the published training config: grad_accum 2, bf16")
+    opt_cfg = AdamWConfig(lr=SHARDED_LR, warmup_steps=0, total_steps=10)
+    model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    B, S = SHARDED_BATCH
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (B, S))).cuda()}
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+    meta = TransformerLM(cfg, torch.device("meta"))
+    pspecs, ospecs, _, _ = train_shardings(cfg, opt_cfg, mesh, meta, batch)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt0 = adamw_init(opt_cfg, start)
+    params, opt = device_put(start, named(mesh, pspecs)), device_put(opt0, named(mesh, ospecs))
+
+    def tree(p, o):
+        t = {k: state_tree(cfg, meta, o[k]) for k in ("m", "v", "master")}
+        t["count"] = o["count"]
+        return {"params": state_tree(cfg, meta, p), "opt": t}
+
+    unsharded_bytes = sum(t.numel() * t.element_size() for t in store.tree_tensors(tree(start, opt0)))
+    need_disk(base, 2 * unsharded_bytes + (1 << 30), "sharded and unsharded checkpoints")
+    resident = [sum(st.resident_bytes(slot) for t in (params, opt["m"], opt["v"], opt["master"]) for st in t.values())
+                for slot in range(mesh.size)]
+    CheckpointManager(str(base / "sharded")).save_sync(0, tree(params, opt))
+    store.save_pytree(str(base / "unsharded"), tree(start, opt0), step=0)
+    files = sorted(p.name for p in (base / "unsharded").iterdir())
+    ckpt_equal = sorted(p.name for p in (base / "sharded" / "step_00000000").iterdir()) == files and all(
+        (base / "sharded" / "step_00000000" / f).read_bytes() == (base / "unsharded" / f).read_bytes() for f in files)
+    check(ckpt_equal, "the checkpoint of the sharded state is byte-equal to the unsharded state's")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, _, m = make_train_step(cfg, opt_cfg, dp=dp_axes(mesh))(params, opt, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grad_ms = host_ms(torch, lambda: make_grad_step(cfg, dp=dp_axes(mesh))(params, batch), reps=1)
+    single = model.requires_grad_(True)
+    _, _, m1 = make_train_step(cfg, opt_cfg)(single, adamw_init(opt_cfg, dict(single.named_parameters())), batch)
+    loss_rel = abs(m["loss"].item() - m1["loss"].item()) / abs(m1["loss"].item())
+    check(math.isfinite(m["loss"].item()) and loss_rel <= 1e-4, f"sharded vs single-rank loss: rel {loss_rel} <= 1e-4")
+    off = total = 0
+    worst = 0.0
+    for n, p in single.named_parameters():
+        got, want = params[n].gather().float(), p.detach().float()
+        top = torch.clamp(torch.maximum(got.abs(), want.abs()), min=2.0 ** -126)
+        step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        diff = (got - want).abs()
+        beyond = diff > step
+        worst = max(worst, (diff - step).max().item())
+        off += int(beyond.sum().item())
+        total += want.numel()
+        check(bool((diff[beyond] <= 2 * SHARDED_LR + step[beyond]).all()), f"{n}: an element moved by more than 2 lr")
+    check(off <= 0.01 * total, f"params beyond one bf16 step of the single-rank step's: {off} of {total} (<= 1%)")
+
+    shardings = {"params": shardings_tree(cfg, meta, {n: st.sharding for n, st in params.items()}),
+                 "opt": {**{k: shardings_tree(cfg, meta, {n: st.sharding for n, st in opt[k].items()})
+                            for k in ("m", "v", "master")}, "count": opt["count"].sharding}}
+    t0 = time.perf_counter()
+    loaded, step_read = CheckpointManager(str(base / "sharded")).restore_latest(tree(params, opt), shardings=shardings)
+    restore_s = time.perf_counter() - t0
+    got, want = store.leaf_names(loaded), store.leaf_names(tree(start, opt0))
+    blocks = 0
+    for name, leaf in got.items():
+        rows = leaf.rows if isinstance(leaf, store.StackedLeaf) else [leaf]
+        full = want[name].rows if isinstance(want[name], store.StackedLeaf) else [want[name]]
+        for r, g in zip(rows, full):
+            check(isinstance(r, ShardedTensor), f"{name} restored sharded")
+            for slot, b in enumerate(r.blocks):
+                check(bytes_equal(torch, b, g[r.index(slot)]), f"{name}: position {slot}'s restored block")
+                blocks += 1
+    check(step_read == 0, "restored step 0")
+    return dict(mesh=mesh.shape, batch=[B, S], grad_accum=cfg.grad_accum, loss=m["loss"].item(),
+                loss_single=m1["loss"].item(), loss_rel_err=loss_rel, params_beyond_one_bf16_step=off,
+                params_total=total, step_host_ms=step_ms, grad_step_alone_host_ms=grad_ms,
+                step_peak_mem_gb=step_peak_gb,
+                ckpt_byte_equal=ckpt_equal, ckpt_bytes=unsharded_bytes, restore_s=restore_s, restored_blocks=blocks,
+                resident_bytes_per_rank=resident, unsharded_state_bytes=unsharded_bytes)
+
+
+def phase_pipeline(torch, smi: str) -> dict:
+    """The second training path on the card: (a) the windowed 1F1B
+    pipeline forward, (b) the pipelined loss and its gradients, (c) the
+    sharded step and sharded checkpoints. Checkpoints go to a directory
+    under the checkout's build/, removed at the end."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    base = Path(tempfile.mkdtemp(prefix="pipeline-ckpt-", dir=ROOT / "build"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        host = pipeline_host(torch)
+        torch.cuda.empty_cache()
+        loss = pipeline_loss(torch)
+        torch.cuda.empty_cache()
+        sharded = sharded_step(torch, base)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    emit("pipeline", host=host, loss=loss, sharded=sharded, phase_host_s=time.perf_counter() - t0,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    return dict(flash_launches=host["flash_launches"])
+
+
 def phase_timer_ab(torch) -> None:
     """The timer's variants, each in turns so that a change of timer can be
     told from noise, and the pack's timed shapes under the default timer.
@@ -1698,6 +1978,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist = phase_dist(torch, n_params)
     train = phase_train(torch)
+    pipe = phase_pipeline(torch, smi)
     rwkv = phase_serve_rwkv(torch)
 
     ft = kern["flash_times"][-1]  # the longest served prompt, S = 384
@@ -1705,9 +1986,10 @@ def main() -> int:
     entries = [
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:75",
-             launches=serve["flash_launches"] + paged["flash_launches"] + train["flash_launches"],
+             launches=serve["flash_launches"] + paged["flash_launches"] + train["flash_launches"]
+             + pipe["flash_launches"],
              launches_by_path=dict(serve=serve["flash_launches"], serve_paged=paged["flash_launches"],
-                                   train=train["flash_launches"]),
+                                   train=train["flash_launches"], pipeline=pipe["flash_launches"]),
              max_abs_err=kern["flash_err"], ms=ft["ms"], plain_ms=ft["plain_ms"], bound_ms=ft["bound_ms"],
              bound_by=ft["bound_by"], library_ms=ft["library_ms"]),
         dict(name="dt_pack", route="cuda", source="src/repro_torch/csrc/dt_pack.cu",

@@ -21,6 +21,13 @@ reference stacks a layer group on a leading axis — and each row is written
 as the shard ``(slice(l, l + 1), ...)`` of the global leaf, with no stacked
 copy. numpy has no bfloat16 of its own, so a bf16 leaf goes to disk as its
 raw 2-byte words; the manifest still says ``"bfloat16"``.
+
+A sharded leaf — any leaf with ``.shards()``, such as a
+:class:`~repro_torch.core.mesh.ShardedTensor` or a :class:`StackedLeaf` of
+them — is written block by block, each block once, at its global offsets:
+the files do not depend on the layout the state was saved from.
+:func:`load_pytree` with ``shardings=`` reads each block of the requested
+layout through its ``shard_subarray`` and nothing else of the file.
 """
 
 from __future__ import annotations
@@ -71,9 +78,12 @@ class StackedLeaf:
         return self.rows[0].dtype
 
     def shards(self) -> List[Tuple[Tuple[slice, ...], object]]:
-        """(global index, data) per row."""
-        inner = tuple(slice(0, s) for s in self.rows[0].shape)
-        return [((slice(l, l + 1),) + inner, r) for l, r in enumerate(self.rows)]
+        """(global index, data) per row, or per block of a sharded row."""
+        out = []
+        for l, r in enumerate(self.rows):
+            row = (slice(l, l + 1),)
+            out += [(row + idx, b) for idx, b in _shards(r)]
+        return out
 
 
 def dtype_name(dtype) -> str:
@@ -90,7 +100,7 @@ def _storage(name: str) -> np.dtype:
 
 
 def _is_leaf(x) -> bool:
-    return isinstance(x, (torch.Tensor, np.ndarray, StackedLeaf))
+    return isinstance(x, (torch.Tensor, np.ndarray)) or hasattr(x, "shards")
 
 
 def leaf_names(tree) -> Dict[str, object]:
@@ -122,7 +132,9 @@ def map_leaves(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(map_leaves(fn, v) for v in tree)
     if isinstance(tree, StackedLeaf):
-        return StackedLeaf([fn(r) for r in tree.rows])
+        return StackedLeaf([map_leaves(fn, r) for r in tree.rows])
+    if hasattr(tree, "shards"):  # a sharded leaf: each distinct block once
+        return tree.map(fn)
     return fn(tree)
 
 
@@ -174,7 +186,7 @@ def _raw(data) -> memoryview:
 
 
 def _shards(leaf) -> List[Tuple[Tuple[slice, ...], object]]:
-    if isinstance(leaf, StackedLeaf):
+    if hasattr(leaf, "shards"):
         return leaf.shards()
     return [(tuple(slice(0, s) for s in leaf.shape), leaf)]
 
@@ -225,18 +237,81 @@ def _leaf_device(leaf) -> Optional[torch.device]:
     return leaf.device if isinstance(leaf, torch.Tensor) else None
 
 
-def load_pytree(ckpt_dir: str, template):
+def _flat_shardings(shardings, names) -> Dict[str, object]:
+    """Leaf name → sharding of a shardings tree shaped like the template."""
+    out: Dict[str, object] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + (str(i),))
+        else:
+            out["/".join(path)] = node
+
+    walk(shardings, ())
+    missing = set(names) - set(out)
+    if missing:
+        raise ValueError(f"shardings lack leaves {sorted(missing)[:4]}")
+    return out
+
+
+def _load_sharded(path: str, meta: dict, sharding, row: Optional[int]):
+    """A :class:`~repro_torch.core.mesh.ShardedTensor` of the file's leaf
+    (or of its row ``row``) under ``sharding``: each distinct block read
+    once through its ``shard_subarray``, then copied to every position that
+    holds it."""
+    from repro_torch.core.mesh import ShardedTensor
+
+    storage = _storage(meta["dtype"])
+    gshape = tuple(meta["shape"])
+    shape = gshape[1:] if row is not None else gshape
+    mesh = sharding.mesh
+    read: Dict[tuple, torch.Tensor] = {}
+    blocks = []
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        for slot in range(mesh.size):
+            idx = sharding.index(slot, shape)
+            key = tuple((s.start, s.stop) for s in idx)
+            if key not in read:
+                gidx = ((slice(row, row + 1),) + idx) if row is not None else idx
+                block = np.empty(tuple(s.stop - s.start for s in idx), dtype=storage)
+                buf, pos = memoryview(block.reshape(-1).view(np.uint8)), 0
+                for off, ln in dt.iter_runs(shard_subarray(gshape, gidx, storage.itemsize), max_bytes=64 << 20):
+                    if os.preadv(fd, [buf[pos:pos + ln]], off) != ln:  # one read per run, into place
+                        raise IOError(f"{path}: short read of {ln} bytes at {off}")
+                    pos += ln
+                t = torch.from_numpy(block)
+                read[key] = t.view(torch.bfloat16) if meta["dtype"] == "bfloat16" else t
+            blocks.append(read[key].to(mesh.devices[slot]).clone())
+    finally:
+        os.close(fd)
+    return ShardedTensor(shape, sharding, blocks)
+
+
+def load_pytree(ckpt_dir: str, template, shardings=None):
     """Restore into the template's structure: ``(tree, step)``. A tensor
     leaf comes back as a tensor on the template leaf's device, a
     :class:`StackedLeaf` as a stacked leaf whose rows are
     views of one loaded global tensor, a numpy leaf as a numpy array (a
     bf16 one as its 16-bit words). A leaf whose manifest shape or dtype
-    differs from the template's raises."""
+    differs from the template's raises.
+
+    ``shardings``, a tree shaped like the template of
+    :class:`~repro_torch.core.mesh.NamedSharding` (``jax.device_put``'s
+    argument in the reference), restores each leaf as a ``ShardedTensor``
+    whose positions hold only their blocks, read from the file block by
+    block; a :class:`StackedLeaf` comes back as a stacked leaf of sharded
+    rows, each row laid out by the leaf's sharding."""
     with open(manifest_path(ckpt_dir)) as f:
         manifest = json.load(f)
     if not manifest.get("complete"):
         raise RuntimeError(f"incomplete checkpoint at {ckpt_dir}")
     names = leaf_names(template)
+    flat_shardings = None if shardings is None else _flat_shardings(shardings, names)
     out = {}
     for name, leaf in names.items():
         meta = manifest["leaves"][name]
@@ -245,7 +320,15 @@ def load_pytree(ckpt_dir: str, template):
                 f"{name}: checkpoint holds {meta['shape']} {meta['dtype']}, "
                 f"template wants {list(leaf.shape)} {dtype_name(leaf.dtype)}"
             )
-        raw = np.fromfile(os.path.join(ckpt_dir, meta["file"]), dtype=_storage(meta["dtype"]))
+        path = os.path.join(ckpt_dir, meta["file"])
+        if flat_shardings is not None:
+            sh = flat_shardings[name]
+            if isinstance(leaf, StackedLeaf):
+                out[name] = StackedLeaf([_load_sharded(path, meta, sh, l) for l in range(leaf.shape[0])])
+            else:
+                out[name] = _load_sharded(path, meta, sh, None)
+            continue
+        raw = np.fromfile(path, dtype=_storage(meta["dtype"]))
         arr = raw.reshape(meta["shape"])
         place = _leaf_device(leaf)
         if place is None:

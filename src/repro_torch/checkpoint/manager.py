@@ -277,14 +277,16 @@ class CheckpointManager:
             shutil.rmtree(self._dir_for(s), ignore_errors=True)
 
     # -- restore ------------------------------------------------------------
-    def restore_latest(self, template) -> Tuple[object, int]:
+    def restore_latest(self, template, shardings=None) -> Tuple[object, int]:
+        """The newest complete checkpoint into ``template``'s structure;
+        ``shardings=`` as in :func:`~repro_torch.checkpoint.iovec_store.load_pytree`."""
         steps = self.available_steps()
         if not steps:
             raise FileNotFoundError(f"no complete checkpoints under {self.base_dir}")
-        return store.load_pytree(self._dir_for(steps[-1]), template)
+        return store.load_pytree(self._dir_for(steps[-1]), template, shardings)
 
-    def restore_step(self, step: int, template):
-        return store.load_pytree(self._dir_for(step), template)
+    def restore_step(self, step: int, template, shardings=None):
+        return store.load_pytree(self._dir_for(step), template, shardings)
 
     # -- progress integration -------------------------------------------------
     def wait_for_pending(self, timeout: Optional[float] = WRITE_TIMEOUT_S) -> bool:

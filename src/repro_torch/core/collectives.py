@@ -27,6 +27,18 @@ Semantics:
 * ops on DIFFERENT streams run on different CUDA streams;
 * ``multi_stream_*`` split one tensor across k streams: every chunk is
   issued before any is joined, so the k collectives run concurrently.
+
+Autograd: a rank's result is computed from its peers' posted tensors with
+ordinary tensor ops (``torch.cat``, ``clone``, ``+``, ``narrow``), so one
+autograd graph spans the thread-ranks and a single ``backward`` (or
+``torch.autograd.grad``), called by the caller after the region, routes
+every cotangent as the reference's transposes do: ``ppermute``'s reverse
+permutation, ``all_gather``'s reduce-scatter, ``all_reduce``'s sum of
+cotangents, ``reduce_scatter``'s all-gather. Autograd runs each backward
+op on its forward op's CUDA stream and orders the streams itself. A rank
+thread must not run a backward through a collective itself: its peers
+would accumulate into shared grads in a racy order, so the result's hook
+raises when a backward reaches it inside a region.
 """
 
 from __future__ import annotations
@@ -88,8 +100,19 @@ def _issue(comm: StreamComm, x, token, compute: Callable[[List[torch.Tensor], in
     return y, done, side
 
 
+def _outside_regions(grad):
+    if _mesh.current_region() is not None:
+        raise RuntimeError(
+            "backward through a collective inside a shard_map region: call backward "
+            "from the caller, after the region"
+        )
+    return grad
+
+
 def _join(y, done, side, token):
     """Order the current stream after an issued op; returns ``(y, token')``."""
+    if y.requires_grad:
+        y.register_hook(_outside_regions)
     if done is None:
         return y, None
     cur = torch.cuda.current_stream(y.device)

@@ -17,8 +17,11 @@ may share one card; the mesh keeps a device per position so that they
 need not.
 
 * :class:`Mesh` / :func:`make_mesh` — named axes, row-major positions;
-* :class:`P` — the partition specs the reference's callers use: dim 0
-  sharded over one axis or over a tuple of axes, or ``P()`` replicated;
+* :class:`P` — partition specs as the reference writes them: one entry
+  per leading dim, each ``None``, an axis or a tuple of axes;
+* :class:`NamedSharding` / :class:`ShardedTensor` / :func:`device_put` —
+  ``jax.sharding.NamedSharding`` and ``jax.device_put(tree, shardings)``:
+  a global tensor held as each position's block;
 * :func:`axis_index` / :func:`axis_size` — the calling rank's coordinate
   and an axis' size, valid inside a region only;
 * :func:`shard_map` — run ``f`` per position: split the inputs by
@@ -43,6 +46,9 @@ __all__ = [
     "Mesh",
     "make_mesh",
     "P",
+    "NamedSharding",
+    "ShardedTensor",
+    "device_put",
     "axis_index",
     "axis_size",
     "current_region",
@@ -118,28 +124,171 @@ def make_mesh(shape: Sequence[int], names: Sequence[str], device="cuda") -> Mesh
 
 
 class P(tuple):
-    """A partition spec: ``P()`` replicated, ``P("data")`` dim 0 sharded
-    over one axis, ``P(("pod", "data"))`` dim 0 sharded over a tuple of
-    axes (major → minor). Other forms raise."""
+    """A partition spec, ``jax.sharding.PartitionSpec``: one entry per
+    leading dim of the array, each ``None`` (not sharded), an axis name or
+    a tuple of axis names (major → minor); dims past the entries are not
+    sharded, and ``P()`` is replicated. An axis shards at most one dim."""
 
     def __new__(cls, *parts):
-        if len(parts) > 1:
-            raise ValueError(f"P{parts}: only dim 0 may be sharded in this mesh layer")
-        if parts:
-            axes = (parts[0],) if isinstance(parts[0], str) else tuple(parts[0])
-            if not axes or not all(isinstance(a, str) for a in axes):
-                raise ValueError(f"P{parts}: dim 0 takes an axis name or a tuple of names")
+        parts = tuple(tuple(e) if isinstance(e, list) else e for e in parts)
+        # ("data",) is "data", () is None
+        parts = tuple(None if e == () else e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in parts)
+        seen = []
+        for e in parts:
+            if e is None:
+                continue
+            axes = (e,) if isinstance(e, str) else e
+            if not isinstance(axes, tuple) or not axes or not all(isinstance(a, str) for a in axes):
+                raise ValueError(f"P{parts}: an entry is None, an axis name or a tuple of names")
+            seen.extend(axes)
+        if len(set(seen)) != len(seen):
+            raise ValueError(f"P{parts}: an axis shards at most one dim")
         return super().__new__(cls, parts)
+
+    def dim_axes(self, dim: int) -> Tuple[str, ...]:
+        """The axes dim ``dim`` is sharded over (empty when it is not)."""
+        e = self[dim] if dim < len(self) else None
+        return () if e is None else (e,) if isinstance(e, str) else e
 
     @property
     def axes(self) -> Tuple[str, ...]:
-        """The axes dim 0 is sharded over (empty when replicated)."""
-        if not self:
-            return ()
-        return (self[0],) if isinstance(self[0], str) else tuple(self[0])
+        """Every axis the spec shards over, in dim order."""
+        return tuple(a for d in range(len(self)) for a in self.dim_axes(d))
 
     def __repr__(self) -> str:
         return f"P{tuple(self)}"
+
+
+class NamedSharding:
+    """``jax.sharding.NamedSharding``: ``spec`` laid over ``mesh``."""
+
+    def __init__(self, mesh: "Mesh", spec: P):
+        if not isinstance(spec, P):
+            raise TypeError(f"NamedSharding takes a P, got {spec!r}")
+        for a in spec.axes:
+            if a not in mesh.shape:
+                raise ValueError(f"{spec}: axis {a!r} not in mesh {mesh.shape}")
+        self.mesh, self.spec = mesh, spec
+
+    def index(self, slot: int, shape: Sequence[int]) -> Tuple[slice, ...]:
+        """Position ``slot``'s block of a global array of ``shape``, one
+        slice per dim."""
+        if len(self.spec) > len(shape):
+            raise ValueError(f"{self.spec} has more entries than shape {tuple(shape)} has dims")
+        out = []
+        for d, n in enumerate(shape):
+            index, count = _dim_block(self.mesh, self.spec, d, slot)
+            if n % count:
+                raise ValueError(f"{self.spec}: dim {d} of shape {tuple(shape)} does not split into {count} blocks")
+            step = n // count
+            out.append(slice(index * step, (index + 1) * step))
+        return tuple(out)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, NamedSharding) and other.mesh is self.mesh and other.spec == self.spec
+
+    __hash__ = None
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh.shape}, {self.spec})"
+
+
+def _index_key(index: Tuple[slice, ...]) -> tuple:
+    return tuple((s.start, s.stop) for s in index)
+
+
+def _assemble(sharding: NamedSharding, shape, blocks, device=None) -> torch.Tensor:
+    """The global tensor of ``shape`` from the positions' ``blocks`` (each
+    distinct block taken from the first position that holds it), on
+    ``device`` (position 0's by default); autograd tracks the copies."""
+    mesh = sharding.mesh
+    device = mesh.devices[0] if device is None else device
+    out = torch.empty(tuple(shape), dtype=blocks[0].dtype, device=device)
+    seen = set()
+    for slot, b in enumerate(blocks):
+        idx = sharding.index(slot, shape)
+        if _index_key(idx) not in seen:
+            seen.add(_index_key(idx))
+            out[idx] = b.to(device)
+    return out
+
+
+class ShardedTensor:
+    """A global tensor of ``shape`` held as its blocks under ``sharding``:
+    ``blocks[slot]`` is mesh position ``slot``'s block, on its device. Each
+    position holds a tensor of its own, replicas included, as devices do."""
+
+    def __init__(self, shape: Sequence[int], sharding: NamedSharding, blocks: Sequence[torch.Tensor]):
+        self.shape = tuple(int(n) for n in shape)
+        self.sharding = sharding
+        self.blocks = list(blocks)
+        if len(self.blocks) != sharding.mesh.size:
+            raise ValueError(f"{len(self.blocks)} blocks for {sharding.mesh.size} mesh positions")
+        for slot, b in enumerate(self.blocks):
+            want = tuple(s.stop - s.start for s in self.index(slot))
+            if tuple(b.shape) != want or b.dtype != self.blocks[0].dtype:
+                raise ValueError(f"block {slot}: {tuple(b.shape)}/{b.dtype}, expected {want}/{self.blocks[0].dtype}")
+
+    @property
+    def dtype(self):
+        return self.blocks[0].dtype
+
+    @property
+    def mesh(self) -> "Mesh":
+        return self.sharding.mesh
+
+    def index(self, slot: int) -> Tuple[slice, ...]:
+        return self.sharding.index(slot, self.shape)
+
+    def shards(self) -> List[Tuple[Tuple[slice, ...], torch.Tensor]]:
+        """(global index, block) for each distinct block, held by the first
+        position that holds it: every element exactly once."""
+        seen, out = set(), []
+        for slot, b in enumerate(self.blocks):
+            idx = self.index(slot)
+            if _index_key(idx) not in seen:
+                seen.add(_index_key(idx))
+                out.append((idx, b))
+        return out
+
+    def map(self, fn) -> "ShardedTensor":
+        """The same layout with ``fn`` applied to each distinct block; the
+        positions that hold one block share its result."""
+        done = {}
+        for slot in range(len(self.blocks)):
+            key = _index_key(self.index(slot))
+            if key not in done:
+                done[key] = fn(self.blocks[slot])
+        return ShardedTensor(self.shape, self.sharding, [done[_index_key(self.index(s))] for s in range(len(self.blocks))])
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The global tensor, assembled on ``device`` (position 0's by default)."""
+        return _assemble(self.sharding, self.shape, [b.detach() for b in self.blocks], device)
+
+    def resident_bytes(self, slot: int) -> int:
+        b = self.blocks[slot]
+        return b.numel() * b.element_size()
+
+    def __repr__(self) -> str:
+        return f"ShardedTensor({self.shape}, {self.dtype}, {self.sharding})"
+
+
+def device_put(tree, shardings):
+    """``jax.device_put(tree, shardings)``: every tensor of ``tree`` (dicts,
+    lists and tuples of tensors) as a :class:`ShardedTensor`, each
+    position's block copied onto its device. ``shardings`` is one
+    :class:`NamedSharding` for every leaf or a tree matching ``tree``."""
+    if isinstance(tree, dict):
+        return {k: device_put(v, shardings[k] if isinstance(shardings, dict) else shardings) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        per = shardings if isinstance(shardings, (list, tuple)) else [shardings] * len(tree)
+        return type(tree)(device_put(v, s) for v, s in zip(tree, per))
+    if not isinstance(shardings, NamedSharding):
+        raise TypeError(f"device_put: {shardings!r} is not a NamedSharding")
+    x = torch.as_tensor(tree).detach()
+    mesh = shardings.mesh
+    blocks = [x[shardings.index(slot, x.shape)].to(mesh.devices[slot]).clone() for slot in range(mesh.size)]
+    return ShardedTensor(x.shape, shardings, blocks)
 
 
 # ----------------------------------------------------------------------
@@ -279,10 +428,10 @@ def axis_size(name: str) -> int:
 # ----------------------------------------------------------------------
 
 
-def _block(mesh: Mesh, spec: P, slot: int) -> Tuple[int, int]:
-    """(block index, block count) of position ``slot`` under ``spec``."""
+def _dim_block(mesh: Mesh, spec: P, dim: int, slot: int) -> Tuple[int, int]:
+    """(block index, block count) of position ``slot`` along ``dim`` under ``spec``."""
     coords, index, count = mesh.coords(slot), 0, 1
-    for a in spec.axes:
+    for a in spec.dim_axes(dim):
         if a not in mesh.shape:
             raise ValueError(f"{spec}: axis {a!r} not in mesh {mesh.shape}")
         index, count = index * mesh.shape[a] + coords[a], count * mesh.shape[a]
@@ -295,32 +444,24 @@ def _split(x, spec, mesh: Mesh, slot: int):
         raise TypeError(f"in_specs entry {spec!r} is not a P")
     if not isinstance(x, torch.Tensor):
         if spec.axes:
-            raise TypeError(f"{spec} shards dim 0 of a {type(x).__name__}; only tensors can be split")
+            raise TypeError(f"{spec} shards a {type(x).__name__}; only tensors can be split")
         return x
-    index, count = _block(mesh, spec, slot)
-    if count > 1:
-        if x.dim() == 0 or x.shape[0] % count:
-            raise ValueError(f"{spec}: dim 0 of shape {tuple(x.shape)} does not split into {count} blocks")
-        step = x.shape[0] // count
-        x = x.narrow(0, index * step, step)
-    return x.to(mesh.devices[slot])
+    return x[NamedSharding(mesh, spec).index(slot, x.shape)].to(mesh.devices[slot])
 
 
 def _gather(spec, outs: list, mesh: Mesh):
     """The global output under ``spec`` (a P or a tuple of them, matching
     the per-rank outputs' structure) from every position's output."""
     if isinstance(spec, P):
-        first = {}
-        for slot in range(mesh.size):
-            first.setdefault(_block(mesh, spec, slot)[0], slot)
         if not spec.axes:
             return outs[0]
-        parts = [outs[first[b]] for b in range(len(first))]
-        if isinstance(parts[0], (tuple, list)):
-            return type(parts[0])(_gather(spec, [p[i] for p in outs], mesh) for i in range(len(parts[0])))
-        if not all(isinstance(p, torch.Tensor) and p.dim() > 0 for p in parts):
-            raise TypeError(f"{spec} gathers dim 0: every rank must return a tensor of rank >= 1")
-        return torch.cat([p.to(mesh.devices[0]) for p in parts], dim=0)
+        if isinstance(outs[0], (tuple, list)):
+            return type(outs[0])(_gather(spec, [p[i] for p in outs], mesh) for i in range(len(outs[0])))
+        if not all(isinstance(o, torch.Tensor) and o.dim() >= len(spec) for o in outs):
+            raise TypeError(f"{spec} gathers {len(spec)} dims: every rank must return a tensor of rank >= {len(spec)}")
+        counts = [_dim_block(mesh, spec, d, 0)[1] for d in range(len(spec))]
+        shape = [n * c for n, c in zip(outs[0].shape, counts)] + list(outs[0].shape[len(spec):])
+        return _assemble(NamedSharding(mesh, spec), shape, outs)
     if isinstance(spec, (tuple, list)):
         if not all(isinstance(o, (tuple, list)) and len(o) == len(spec) for o in outs):
             raise ValueError(f"out_specs has {len(spec)} entries; every rank must return as many outputs")
@@ -349,6 +490,10 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs):
     caller's current stream and the caller's current stream waits for all
     of it, so the result is ordered like any op on that stream.
 
+    The ranks run in the caller's grad mode; a result that autograd tracks
+    back into the ranks' work is differentiated by the caller, after the
+    region (see :mod:`repro_torch.core.collectives`).
+
     If a rank raises, the region fails: peers in a rendezvous wake with
     :class:`PeerFailed` and the first failure is re-raised here. Every
     rendezvous wait is bounded by ``RENDEZVOUS_TIMEOUT_S`` seconds."""
@@ -366,6 +511,7 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs):
             started[d] = torch.cuda.Event()
             started[d].record(s)
         rendezvous = _Rendezvous(RENDEZVOUS_TIMEOUT_S)
+        grad = torch.is_grad_enabled()  # grad mode is per thread: the ranks take the caller's
         outs: list = [None] * mesh.size
         done: list = [None] * mesh.size
         errors: list = []
@@ -374,12 +520,13 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs):
             stream = mesh.rank_stream(slot)
             _local.region = _Region(mesh, slot, rendezvous)
             try:
-                if stream is None:
-                    outs[slot] = f(*[_split(a, s, mesh, slot) for a, s in zip(args, specs)])
-                    return
-                stream.wait_event(started[mesh.devices[slot]])
-                with torch.cuda.stream(stream):
-                    outs[slot] = f(*[_split(a, s, mesh, slot) for a, s in zip(args, specs)])
+                with torch.set_grad_enabled(grad):
+                    if stream is None:
+                        outs[slot] = f(*[_split(a, s, mesh, slot) for a, s in zip(args, specs)])
+                        return
+                    stream.wait_event(started[mesh.devices[slot]])
+                    with torch.cuda.stream(stream):
+                        outs[slot] = f(*[_split(a, s, mesh, slot) for a, s in zip(args, specs)])
             except BaseException as e:  # noqa: BLE001 — re-raised by the caller below
                 errors.append(e)
                 rendezvous.fail(e)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -114,8 +115,10 @@ def flash_attention(q, k, v, causal: bool = True):
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
-    flash_attention.launches += 1
+    with _launches_lock:  # thread-ranks launch concurrently; += alone can lose a count
+        flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+_launches_lock = threading.Lock()

@@ -8,6 +8,23 @@ accumulation factor, as the reference's ``lax.scan`` does — ``.grad``
 would accumulate in the bf16 param dtype. With ``grad_accum == 1`` the
 grads keep the param dtype, as in the reference.
 
+With ``dp=`` (the mesh's data-parallel axes, ``sharding.dp_axes``) the
+step functions take the sharded state that :func:`device_put` builds under
+:func:`train_shardings`: params under ``param_specs``, moments under
+``opt_state_specs``, each mesh position (a thread-rank) holding only its
+blocks, and the batch split under ``batch_specs`` at step entry (each
+accumulation microbatch is the reference's: rows ``i·B/accum ...``, split
+over dp). Each layer gathers its blocks at block entry
+(``models.transformer.lm_xent_blocks``); each dp group's loss is computed
+once, by its position whose other coordinates are 0, the others only
+lending their blocks to the gathers; one ``torch.autograd.grad`` from the
+caller routes the cotangents back through the gathers to every block. The
+update is ZeRO-1: per leaf, the block grads are summed over the replica
+axes the moment is not sharded over (a ``reduce_scatter`` over the dp axes
+into the moment chunk, an ``all_reduce`` over the rest), AdamW runs on the
+chunk with the norm over every chunk, and an ``all_gather`` over dp puts
+the chunk back into the block.
+
 ``Trainer`` wires every substrate together the way the paper intends its
 extensions to be used: data prefetch + async checkpoints + heartbeats are
 generalized requests completed by ONE progress engine; the checkpoint
@@ -35,8 +52,10 @@ import torch
 
 from repro_torch.checkpoint import iovec_store as store
 from repro_torch.checkpoint.manager import WRITE_TIMEOUT_S, CheckpointManager
+from repro_torch.core.collectives import all_gather, all_reduce, reduce_scatter
+from repro_torch.core.mesh import NamedSharding, P, ShardedTensor, axis_index, current_region, shard_map
 from repro_torch.core.progress import AutotunePolicy, ProgressEngine
-from repro_torch.core.streams import stream_create, stream_free
+from repro_torch.core.streams import StreamComm, stream_create, stream_free
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
 from repro_torch.device import resolve_device
 from repro_torch.ft.heartbeat import HeartbeatMonitor
@@ -44,19 +63,194 @@ from repro_torch.ft.straggler import StragglerMonitor
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.convert import state_tree
+from repro_torch.models.transformer import TransformerLM, lm_xent_blocks
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.parallel import sharding as shd
 
-__all__ = ["make_grad_step", "make_train_step", "make_serve_step", "make_prefill_step", "Trainer"]
+__all__ = ["make_grad_step", "make_train_step", "make_serve_step", "make_prefill_step", "named",
+           "train_shardings", "Trainer"]
 
 
-def make_grad_step(cfg: ModelConfig):
+def _check_ported(cfg: ModelConfig) -> None:
+    for flag in ("seq_shard_acts", "moe_dispatch_sharding"):
+        if getattr(cfg, flag):
+            raise NotImplementedError(
+                f"{flag}=True is not ported to repro_torch yet (ROADMAP: tensor-parallel math of the sharded step)"
+            )
+
+
+# ----------------------------------------------------------------------
+# the sharded step
+# ----------------------------------------------------------------------
+
+
+def _mesh_of(params) -> object:
+    meshes = {id(st.mesh): st.mesh for st in params.values()}
+    if len(meshes) != 1 or not all(isinstance(st, ShardedTensor) for st in params.values()):
+        raise ValueError("dp= takes params that device_put laid over one mesh")
+    return next(iter(meshes.values()))
+
+
+def _check_dp(mesh, dp) -> None:
+    if tuple(dp) != shd.dp_axes(mesh):
+        raise ValueError(f"dp={tuple(dp)} but the params' mesh has dp axes {shd.dp_axes(mesh)}")
+
+
+def _meta_models(cfg: ModelConfig, n: int) -> list:
+    """One module tree per mesh position, on ``torch.device("meta")``:
+    ``functional_call`` swaps parameters on the module it runs, so rank
+    threads must not share one."""
+    return [TransformerLM(cfg, torch.device("meta")) for _ in range(n)]
+
+
+def _partial_grads(cfg: ModelConfig, models: list, params, batch):
+    """Every position's grads of its own blocks (name → list per position)
+    and the loss. A position's block grad holds the contributions of the
+    loss terms whose forward gathered that block; their sum over the
+    block's replicas is the gradient."""
+    mesh = _mesh_of(params)
+    specs = {n: st.sharding.spec for n, st in params.items()}
+    others = [a for a in mesh.axis_names if a not in shd.dp_axes(mesh)]
+    everyone = StreamComm(tuple(mesh.axis_names), mesh=mesh)
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    bspecs = shd.batch_specs(cfg, batch, mesh)
+    keys = sorted(batch)
+    leaves = [(n, slot, b) for n, st in params.items() for slot, b in enumerate(st.blocks)]
+    for _, _, b in leaves:
+        b.requires_grad_(True)
+
+    def body(*parts):
+        slot = current_region().slot
+        blocks = {n: st.blocks[slot] for n, st in params.items()}
+        counted = all(axis_index(a) == 0 for a in others)  # each dp group's loss once
+        out = lm_xent_blocks(cfg, models[slot], blocks, specs, dict(zip(keys, parts)), compute=counted)
+        if out is None:
+            out = (torch.zeros((), device=blocks[next(iter(blocks))].device),) * 2
+        total, _ = all_reduce(torch.stack(out), everyone)
+        return total[0] / torch.clamp(total[1], min=1.0)
+
+    region = shard_map(body, mesh, tuple(bspecs[k] for k in keys), P())
+    accum = max(1, cfg.grad_accum)
+    B = batch[keys[0]].shape[0]
+    if B % accum:
+        raise ValueError(f"batch {B} does not split into {accum} microbatches")
+    adt = torch_dtype(cfg.accum_dtype) if accum > 1 else None
+    sums = [None] * len(leaves)
+    loss_sum = 0.0
+    for i in range(accum):
+        rows = slice(i * B // accum, (i + 1) * B // accum)
+        loss = region(*[batch[k][rows] for k in keys])
+        grads = torch.autograd.grad(loss, [b for _, _, b in leaves], allow_unused=True)
+        for j, ((_, _, b), g) in enumerate(zip(leaves, grads)):
+            g = torch.zeros_like(b) if g is None else g
+            if adt is None:
+                sums[j] = g
+            elif sums[j] is None:
+                sums[j] = g.to(adt)
+            else:
+                sums[j].add_(g.to(adt))
+        loss_sum = loss_sum + loss.detach()
+    out = {n: [None] * mesh.size for n in params}
+    for (n, slot, _), g in zip(leaves, sums):
+        out[n][slot] = g / accum if accum > 1 else g
+    return out, loss_sum / accum
+
+
+def _zero1_update(opt_cfg: AdamWConfig, params, opt_state, grads):
+    """The ZeRO-1 update of the module docstring, in place; returns the
+    metrics of mesh position 0."""
+    mesh = _mesh_of(params)
+    dp = shd.dp_axes(mesh)
+    everyone = StreamComm(tuple(mesh.axis_names), mesh=mesh)
+    metrics = [None] * mesh.size
+
+    def plan(n):
+        """(non-dp replica axes to all-reduce, dp axes to all-reduce, dim
+        the moment shards over dp or None)."""
+        ps, ms = params[n].sharding.spec, opt_state["m"][n].sharding.spec
+        replica = [a for a in mesh.axis_names if a not in ps.axes]
+        extra = [a for a in ms.axes if a not in ps.axes]
+        dims = [d for d in range(len(ms)) if ms.dim_axes(d) != ps.dim_axes(d)]
+        if extra and (tuple(extra) != dp or len(dims) != 1 or ps.dim_axes(dims[0])):
+            raise ValueError(f"{n}: moment spec {ms} is not param spec {ps} with the dp axes on one more dim")
+        k = dims[0] if extra else None
+        return ([a for a in replica if a not in dp], [] if extra else [a for a in replica if a in dp], k)
+
+    plans = {n: plan(n) for n in params}
+
+    def body():
+        slot = current_region().slot
+        coords = mesh.coords(slot)
+        g_chunks, sq = {}, None
+        for n, (rest, dp_rep, k) in plans.items():
+            g = grads[n][slot]
+            if rest:
+                g, _ = all_reduce(g, StreamComm(tuple(rest), mesh=mesh))
+            if k is not None:
+                g, _ = reduce_scatter(g, StreamComm(dp, mesh=mesh), axis=k)
+            elif dp_rep:
+                g, _ = all_reduce(g, StreamComm(tuple(dp_rep), mesh=mesh))
+            g_chunks[n] = g
+            first = all(coords[a] == 0 for a in mesh.axis_names if a not in opt_state["m"][n].sharding.spec.axes)
+            s = torch.sum(torch.square(g.to(torch.float32))) * (1.0 if first else 0.0)
+            sq = s if sq is None else sq + s
+        total, _ = all_reduce(sq, everyone)
+        gnorm = torch.sqrt(total)
+        state = {key: {n: opt_state[key][n].blocks[slot] for n in params} for key in ("m", "v", "master")
+                 if key in opt_state}
+        state["count"] = opt_state["count"].blocks[slot]
+        ps = {}
+        for n, (_, _, k) in plans.items():
+            block = params[n].blocks[slot]
+            if k is None:
+                ps[n] = block
+            else:  # the block's chunk, updated apart from the block (its peers read the block meanwhile)
+                c = g_chunks[n].shape[k]
+                ps[n] = block.detach().narrow(k, StreamComm(dp, mesh=mesh).rank() * c, c).clone()
+        _, _, om = adamw_update(opt_cfg, g_chunks, state, ps, gnorm=gnorm)
+        for n, (_, _, k) in plans.items():
+            if k is not None:
+                full, _ = all_gather(ps[n], StreamComm(dp, mesh=mesh), axis=k)
+                params[n].blocks[slot].copy_(full)
+        metrics[slot] = om
+
+    with torch.no_grad():
+        shard_map(body, mesh, (), P())()
+    return metrics[0]
+
+
+def make_grad_step(cfg: ModelConfig, dp: tuple = ()):
     """The backward half of the train step: (model, batch) → (grads, loss),
     grads a dict keyed like ``model.named_parameters()``, with the
-    microbatch accumulation described in the module docstring."""
+    microbatch accumulation described in the module docstring.
+
+    With ``dp=`` the step takes the sharded params (name → ShardedTensor,
+    from :func:`device_put`) in place of the model and returns the grads
+    laid out as the params, summed over every block's replicas."""
+    _check_ported(cfg)
+    if dp:
+        def sharded_grad_step(params, batch):
+            mesh = _mesh_of(params)
+            _check_dp(mesh, dp)
+            partial, loss = _partial_grads(cfg, _meta_models(cfg, mesh.size), params, batch)
+            res = {n: [None] * mesh.size for n in params}
+
+            def body():
+                slot = current_region().slot
+                for n, st in params.items():
+                    replica = tuple(a for a in mesh.axis_names if a not in st.sharding.spec.axes)
+                    g = partial[n][slot]
+                    res[n][slot] = all_reduce(g, StreamComm(replica, mesh=mesh))[0] if replica else g
+
+            with torch.no_grad():
+                shard_map(body, mesh, (), P())()
+            return {n: ShardedTensor(st.shape, st.sharding, res[n]) for n, st in params.items()}, loss
+
+        return sharded_grad_step
 
     def grad_step(model, batch):
-        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-        names, ps = [n for n, _ in named], [p for _, p in named]
+        live = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        names, ps = [n for n, _ in live], [p for _, p in live]
         accum = cfg.grad_accum
         if accum <= 1:
             loss, _metrics = api.loss_fn(cfg, model, batch)
@@ -64,7 +258,7 @@ def make_grad_step(cfg: ModelConfig):
             return dict(zip(names, grads)), loss.detach()
         adt = torch_dtype(cfg.accum_dtype)
         micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:]) for k, v in batch.items()}
-        gsum = {n: torch.zeros(p.shape, dtype=adt, device=p.device) for n, p in named}
+        gsum = {n: torch.zeros(p.shape, dtype=adt, device=p.device) for n, p in live}
         lsum = torch.zeros((), dtype=torch.float32, device=ps[0].device)
         for i in range(accum):
             loss, _metrics = api.loss_fn(cfg, model, {k: v[i] for k, v in micro.items()})
@@ -76,9 +270,22 @@ def make_grad_step(cfg: ModelConfig):
     return grad_step
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, dp: tuple = ()):
     """(model, opt_state, batch) → (model, opt_state, metrics): the grad
-    step followed by the in-place AdamW update."""
+    step followed by the in-place AdamW update. With ``dp=`` it takes the
+    sharded params and optimizer state of :func:`train_shardings` (the
+    module docstring) and updates them in place, ZeRO-1."""
+    if dp:
+        _check_ported(cfg)
+
+        def sharded_train_step(params, opt_state, batch):
+            mesh = _mesh_of(params)
+            _check_dp(mesh, dp)
+            grads, loss = _partial_grads(cfg, _meta_models(cfg, mesh.size), params, batch)
+            om = _zero1_update(opt_cfg, params, opt_state, grads)
+            return params, opt_state, {"loss": loss, **om}
+
+        return sharded_train_step
     grad_step = make_grad_step(cfg)
 
     def train_step(model, opt_state, batch):
@@ -101,6 +308,36 @@ def make_prefill_step(cfg: ModelConfig):
         return api.prefill(cfg, params, batch)
 
     return prefill_step
+
+
+# ----------------------------------------------------------------------
+# sharded-step construction helpers
+# ----------------------------------------------------------------------
+
+
+def named(mesh, specs):
+    """The :class:`NamedSharding` tree of ``specs`` (a tree of P) on ``mesh``."""
+    if isinstance(specs, P):
+        return NamedSharding(mesh, specs)
+    if isinstance(specs, dict):
+        return {k: named(mesh, v) for k, v in specs.items()}
+    return type(specs)(named(mesh, v) for v in specs)
+
+
+def train_shardings(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, model, batch):
+    """``(pspecs, ospecs, bspecs, opt_abs)`` for ``model``'s parameters
+    (a ``torch.device("meta")`` model gives full-width specs), the AdamW
+    state and ``batch``; ``opt_abs`` is the state built on ``model``'s
+    device."""
+    params = dict(model.named_parameters())
+    pspecs = shd.param_specs(cfg, model, mesh)
+    opt_abs = adamw_init(opt_cfg, params)
+    ospec = shd.opt_state_specs(cfg, pspecs, model, mesh)
+    ospecs = {"m": ospec, "v": ospec, "count": P()}
+    if opt_cfg.master:
+        ospecs["master"] = ospec
+    bspecs = shd.batch_specs(cfg, batch, mesh)
+    return pspecs, ospecs, bspecs, opt_abs
 
 
 # ----------------------------------------------------------------------

@@ -35,7 +35,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.rwkv6 import RWKVLM
 from repro_torch.models.transformer import TransformerLM, layer_groups
 
-__all__ = ["params_from_numpy", "tensor_from_numpy", "leaf_map", "state_tree", "params_to_numpy"]
+__all__ = ["params_from_numpy", "tensor_from_numpy", "leaf_map", "state_tree", "shardings_tree", "params_to_numpy"]
 
 
 def tensor_from_numpy(a) -> torch.Tensor:
@@ -167,6 +167,19 @@ def state_tree(cfg: ModelConfig, model, values: Optional[Mapping[str, torch.Tens
     flat = {}
     for name, (stacked, names) in leaf_map(cfg, model).items():
         flat[name] = StackedLeaf([values[n] for n in names]) if stacked else values[names[0]]
+    return _nest(flat)
+
+
+def shardings_tree(cfg: ModelConfig, model, shardings: Mapping[str, object]):
+    """The reference's params tree over per-parameter ``shardings``
+    (parameter name → :class:`~repro_torch.core.mesh.NamedSharding`): a
+    stacked leaf takes the sharding its rows share — the ``shardings=``
+    argument of a restore into :func:`state_tree`'s structure."""
+    flat = {}
+    for name, (_stacked, names) in leaf_map(cfg, model).items():
+        if any(shardings[n] != shardings[names[0]] for n in names):
+            raise ValueError(f"{name}: the rows of a stacked leaf must share one sharding")
+        flat[name] = shardings[names[0]]
     return _nest(flat)
 
 

@@ -23,6 +23,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.collectives import all_gather
+from repro_torch.core.mesh import current_region
+from repro_torch.core.streams import StreamComm
 from repro_torch.models.common import (
     apply_norm,
     embed,
@@ -46,6 +49,7 @@ __all__ = [
     "init_cache",
     "prefill",
     "decode_step",
+    "lm_xent_blocks",
 ]
 
 
@@ -124,6 +128,8 @@ class DecoderLayer(nn.Module):
         a, seed = gqa_attention_full(cfg, self.attn, h, positions, window=self.spec.window, theta=self.spec.theta)
         x = x + a
         return x + swiglu(cfg, self.ffn, apply_norm(cfg, self.ln2, x)), seed
+
+    forward = forward_full  # what torch.func.functional_call runs
 
     def forward_decode(self, cfg: ModelConfig, x, cache_kv, pos):
         h = apply_norm(cfg, self.ln1, x)
@@ -301,3 +307,64 @@ def decode_step(cfg: ModelConfig, model: TransformerLM, cache, tokens, pos):
             x = layer.forward_decode(cfg, x, (K[r], V[r]), pos)
     x = apply_norm(cfg, model.final_norm, x)
     return logits_out(cfg, model.embed, x)[:, 0], cache
+
+
+# ----------------------------------------------------------------------
+# the sharded forward: per-rank code over a rank's parameter blocks
+# ----------------------------------------------------------------------
+
+
+def _constrain_layer(cfg: ModelConfig, blocks, specs, prefix: str):
+    """The parameters under ``prefix`` (a layer's, ``"groups.0.3."``), whole,
+    gathered from this rank's blocks at block entry: each leaf all-gathered
+    over the axes its spec shards it on, dim by dim. Per-rank code, inside a
+    region. The reference re-constrains the scan-sliced layer to its TP
+    layout (``fsdp_gather_layers``) and lets GSPMD run it sharded; a thread
+    mesh has no partitioner, so the port gathers each layer's weights whole
+    (Megatron-style sharded math is ROADMAP work). Autograd reaches the
+    blocks through the gathers. Returns names relative to ``prefix``."""
+    mesh = current_region().mesh
+    out = {}
+    for name, block in blocks.items():
+        if not name.startswith(prefix):
+            continue
+        full, spec = block, specs[name]
+        for d in range(len(spec)):
+            if spec.dim_axes(d):
+                full, _ = all_gather(full, StreamComm(spec.dim_axes(d), mesh=mesh), axis=d)
+        out[name[len(prefix):]] = full
+    return out
+
+
+def lm_xent_blocks(cfg: ModelConfig, model: TransformerLM, blocks, specs, batch, compute: bool = True):
+    """Per-rank: ``(summed next-token xent, token count)`` of this rank's
+    ``batch``, every parameter gathered from this rank's ``blocks`` (name →
+    block, laid out by ``specs``) at the entry of the layer that uses it
+    and applied with ``torch.func.functional_call`` on ``model``'s modules
+    (which may live on ``torch.device("meta")``). With ``compute=False``
+    the rank only takes part in the gathers its peers need and returns
+    ``None``. The sum and count give the reference's mean over any split
+    of the batch: ``Σ sum / Σ count``."""
+    emb = _constrain_layer(cfg, blocks, specs, "embed.")
+    x = None
+    if compute:
+        tokens = batch["tokens"].long()
+        x = embed(cfg, emb, tokens)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    for gi, layers in enumerate(model.groups):
+        for li, layer in enumerate(layers):
+            lp = _constrain_layer(cfg, blocks, specs, f"groups.{gi}.{li}.")
+            if compute:
+                def fwd(cfg_, x_, pos_, layer=layer, lp=lp):
+                    return torch.func.functional_call(layer, lp, (cfg_, x_, pos_))[0]
+
+                x = (remat_wrap(cfg, fwd) if torch.is_grad_enabled() else fwd)(cfg, x, positions)
+    norm = _constrain_layer(cfg, blocks, specs, "final_norm.")
+    if not compute:
+        return None
+    logits = logits_out(cfg, emb, apply_norm(cfg, norm, x))
+    mask = batch.get("loss_mask")
+    count = mask[:, 1:].float().sum() if mask is not None else torch.tensor(
+        float(tokens[:, 1:].numel()), device=logits.device)
+    return next_token_xent(logits, tokens, mask) * count, count

@@ -82,13 +82,15 @@ def adamw_init(cfg: AdamWConfig, params: Mapping[str, torch.Tensor]) -> Dict:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor], state: Dict, params: Mapping[str, torch.Tensor]):
+def adamw_update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor], state: Dict, params: Mapping[str, torch.Tensor],
+                 gnorm=None):
     """One step, in place. Returns (params, state, metrics) — the objects
     passed in, updated — with metrics ``grad_norm`` and ``lr`` as fp32
-    scalar tensors."""
+    scalar tensors. ``gnorm`` replaces the norm of ``grads`` for clipping:
+    a sharded update passes the norm over every rank's chunks."""
     state["count"].add_(1)
     count = state["count"]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0) if cfg.clip_norm > 0 else 1.0
     lr = lr_schedule(cfg, count)
     cf = count.to(torch.float32)

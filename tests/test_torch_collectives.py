@@ -344,8 +344,9 @@ def test_mesh_specs_and_region_context():
     mesh = m.mesh()
     assert mesh.shape == {"pod": 2, "data": 4} and mesh.size == 8
     assert mesh.coords(6) == {"pod": 1, "data": 2}
+    assert m.P("pod", "data").dim_axes(1) == ("data",)  # one entry per dim, as the reference's specs
     with pytest.raises(ValueError):
-        m.P("pod", "data")  # only dim 0 is sharded
+        m.P("pod", "pod")  # an axis shards at most one dim
     with pytest.raises(RuntimeError, match="region"):
         m.C.mesh.axis_index("data")
     x = torch.arange(24.0).reshape(4, 6)

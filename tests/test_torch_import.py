@@ -34,7 +34,8 @@ def test_every_port_module_imports_without_jax():
     assert "repro_torch.serving.engine" in mods and "repro_torch.kernels._build" in mods
     assert "repro_torch.serving.paged_kv" in mods and "repro_torch.core.threadcomm" in mods
     for sub in ("checkpoint.iovec_store", "checkpoint.manager", "data.pipeline", "optim.adamw", "optim.compression",
-                "optim.grad_overlap", "ft.heartbeat", "ft.straggler", "ft.elastic", "launch.train"):
+                "optim.grad_overlap", "ft.heartbeat", "ft.straggler", "ft.elastic", "launch.train",
+                "parallel.pipeline", "parallel.sharding"):
         assert f"repro_torch.{sub}" in mods, sub
     benches = [str(p) for p in _port_bench_files()]
     assert any(b.endswith("serving_load.py") for b in benches)
@@ -122,3 +123,20 @@ def test_unported_configs_raise_with_roadmap_pointer():
         get_config("jamba-v0.1-52b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+
+
+def _all_names(path: Path):
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__" for t in node.targets):
+            return {ast.literal_eval(e) for e in node.value.elts}
+    raise AssertionError(f"{path} has no __all__")
+
+
+@pytest.mark.parametrize("module", ["parallel/pipeline.py", "parallel/sharding.py", "launch/train.py"])
+def test_port_exports_the_reference_names(module):
+    """Every public name of the reference module has the port's counterpart
+    (``repro.parallel`` and the sharded-step helpers of ``launch/train``)."""
+    ref = _all_names(REPO / "src" / "repro" / module)
+    if module == "launch/train.py":
+        ref |= {"named", "train_shardings"}  # public in the reference, outside its __all__
+    assert ref <= _all_names(PORT / module), sorted(ref - _all_names(PORT / module))
