@@ -24,7 +24,13 @@ its gradients; the sharded ZeRO-1 step on a ``(2, 2, 2)`` mesh of
 thread-ranks with its checkpoint and a sharded restore), and
 serves requests with the full-width ``rwkv6-7b``
 (32 layers, d_model 4096, bf16, random weights from a seed) with the WKV-6
-kernel on every prefill. Each phase prints one JSON line; any failure exits
+kernel on every prefill, and runs the rest of the transformer zoo at the
+published widths (``zoo``: the MoE ``granite-moe-1b-a400m`` served with
+flash at hd 64; ``gemma3-4b`` served with its local layers' ring caches
+wrapping and flash at hd 256 on its global layers; ``phi-3-vision-4.2b``'s
+image prefix with flash at hd 96; ``deepseek-v3-671b``'s MLA and 256-expert
+MoE cut to 4 layers, decoding through the absorbed latent cache). Each
+phase prints one JSON line; any failure exits
 non-zero before the last line. The last lines are the per-kernel summary (each
 kernel's ``launches`` summed over the paths that run it, with each path's
 count, taken from 0 just before it, under ``launches_by_path``), the card's
@@ -133,6 +139,23 @@ PIPE_DEPTH = 2
 PIPE_LOSS_BATCH = (4, 128)
 SHARDED_BATCH = (8, 128)
 SHARDED_LR = 1e-3
+# the zoo phase: (b) gemma3-4b's prompts (multiples of 128; 1152 > its
+# 1024-token window, so its local rings wrap) and its engine's max_len;
+# (c) phi-3-vision's text tokens after its 576 image rows and its decode
+# steps; (d) deepseek-v3 cut to its 3 dense layers and 1 MoE layer, 2
+# prompts of 128 tokens, 8 decode steps
+ZOO_GEMMA_S = (1152, 640, 1152, 640)
+ZOO_GEMMA_MAX_LEN = 1280
+ZOO_PHI_TEXT = 192
+ZOO_PHI_STEPS = 8
+ZOO_DEEPSEEK_LAYERS = 4
+ZOO_DEEPSEEK_BATCH = 2
+ZOO_DEEPSEEK_S = 128
+ZOO_DEEPSEEK_STEPS = 8
+# flash at the zoo's new head dims, at their served shapes (B, S, nq, nkv):
+# phi-3-vision's prefill (hd 96) and gemma3's global layers at its longest
+# prompt (hd 256)
+ZOO_FLASH = {96: (1, 768, 32, 32), 256: (1, 1152, 8, 4)}
 
 
 def emit(phase: str, **kw) -> None:
@@ -321,7 +344,33 @@ def phase_kernels(torch, timer):
         flash_times.append(dict(S=S, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ms_over_library=ms / lib_ms,
                                 bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                                 bound_by="bytes" if t_bytes >= t_ops else "operations"))
-    emit("kernels", kernel="flash_attention", cases=flash_rows, timings=flash_times)
+    # the zoo's head dims at their served shapes, bf16 (served) and fp32
+    zoo_rows = []
+    for hd, (B, S, nq, nkv) in ZOO_FLASH.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            tol = 2e-2 if bf16 else (2e-5 if nq == nkv else 3e-5)
+            q, k, v = qkv(B, S, nq, nkv, hd, dtype)
+            out = fa.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_plain(q, k, v)
+            row = dict(B=B, S=S, nq=nq, nkv=nkv, hd=hd, dtype=str(dtype).split(".")[-1], causal=True, tol=tol,
+                       max_abs_err=max_err(out, ref), ok=within(out, ref, tol))
+            check(row["ok"], f"flash_attention vs plain within {tol}: {row}")
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, k, v read once, out written once
+            flops = 4 * B * nq * hd * S * (S + 1) // 2  # QK^T and PV over the causal triangle
+            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+            t_ops = flops / (H100_BF16_FLOPS if bf16 else H100_FP32_FLOPS) * 1e3
+            row.update(ms=timer(lambda: fa.flash_attention(q, k, v)), plain_ms=timer(lambda: fa.flash_attention_plain(q, k, v)),
+                       library_ms=timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                               enable_gqa=nq != nkv)),
+                       bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            zoo_rows.append(row)
+            del q, k, v, qt, kt, vt, out, ref
+    emit("kernels", kernel="flash_attention", cases=flash_rows, timings=flash_times, zoo_head_dims=zoo_rows)
 
     # dt_pack / dt_unpack: byte-exact over the reference sweep shapes, the
     # enqueue phase's KV span (start = slot 1, position 128) and edge layouts
@@ -388,7 +437,8 @@ def phase_kernels(torch, timer):
     del bufs, kv, packed, zeros
     torch.cuda.empty_cache()
     wkv = wkv6_kernel_rows(torch, timer, gen)
-    return dict(flash_times=flash_times, flash_err=serve_err, pack=pack_t, unpack=unpack_t, wkv=wkv)
+    return dict(flash_times=flash_times, flash_err=serve_err, flash_zoo=zoo_rows, pack=pack_t, unpack=unpack_t,
+                wkv=wkv)
 
 
 def wkv6_bound(B, S, H, chunk, hs=64) -> dict:
@@ -1872,6 +1922,555 @@ def phase_pipeline(torch, smi: str) -> dict:
     return dict(flash_launches=host["flash_launches"])
 
 
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 numbers at magnitude ``|x|`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|: a relative error at the tensor's scale."""
+    return max_err(a, b) / b.float().abs().max().item()
+
+
+def release(torch) -> None:
+    """Collect what nothing references any more and hand the allocator's
+    cached blocks back to the card, so the next model finds them free."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zoo_bytes(torch, cfg) -> dict:
+    """The weights' bytes of ``cfg``, reckoned on a meta model, beside the
+    card's free memory; raises when they would not fit."""
+    from repro_torch.models.transformer import TransformerLM
+
+    meta = TransformerLM(cfg, torch.device("meta"))
+    n = sum(q.numel() for q in meta.parameters())
+    nbytes = sum(q.numel() * q.element_size() for q in meta.parameters())
+    free, total = torch.cuda.mem_get_info()
+    check(nbytes < free, f"{cfg.name}: {nbytes / 1e9:.2f} GB of weights fit in {free / 1e9:.2f} GB free")
+    return dict(params=n, weight_bytes=nbytes, free_bytes_before=free)
+
+
+def zoo_serve(torch, cfg, model, prompts, max_batch: int, max_len: int, max_new: int) -> dict:
+    """``ServeEngine`` (recorded decode step, progress engine) over
+    ``prompts``, all submitted at once; flash launches counted from 0 just
+    before the run and read just after."""
+    import numpy as np
+
+    from repro_torch.core.progress import ProgressEngine
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.engine import ServeEngine
+
+    pe = ProgressEngine()
+    eng = ServeEngine(cfg, model, max_batch=max_batch, max_len=max_len, progress_engine=pe, step_schedule=True)
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    done_at = {}
+    for _ in range(10_000):
+        if all(r.done for r in reqs):
+            break
+        eng.step()
+        for r in reqs:
+            if r.done and r.rid not in done_at:
+                done_at[r.rid] = time.perf_counter()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    steps = eng.step_schedule.stats()["replays"]
+    pe.stop_all()
+    check(all(r.done and len(r.out_tokens) == max_new for r in reqs),
+          f"{cfg.name}: every request has {max_new} tokens: {[len(r.out_tokens) for r in reqs]}")
+    toks = sum(len(r.out_tokens) for r in reqs)
+    lats = [done_at[r.rid] - t0 for r in reqs]
+    return dict(reqs=reqs, launches=launches, stats=dict(
+        requests=len(reqs), prompt_lens=[len(p) for p in prompts], max_new_tokens=max_new, max_batch=max_batch,
+        max_len=max_len, tokens=toks, wall_s=wall, tokens_per_s=toks / wall, decode_steps=steps,
+        latency_p50_ms=float(np.percentile(lats, 50) * 1e3), latency_p95_ms=float(np.percentile(lats, 95) * 1e3)))
+
+
+def greedy_alone(torch, cfg, model, prompt, n: int, max_len: int):
+    """One request decoded alone (batch of one): its ``n`` greedy tokens and,
+    per token, the top-2 logit margin and the top logit."""
+    from repro_torch.models import api
+
+    logits, cache = api.prefill(cfg, model, {"tokens": prompt[None]}, max_len=max_len)
+    toks, margins = [], []
+    for i in range(n):
+        top = torch.topk(logits[0].float(), 2).values
+        toks.append(int(torch.argmax(logits[0])))
+        margins.append(((top[0] - top[1]).item(), top[0].item()))
+        if i + 1 < n:
+            tok = torch.tensor([toks[-1]], device="cuda")
+            logits, cache = api.decode_step(cfg, model, cache, tok, torch.tensor([len(prompt) + i], device="cuda"))
+    return toks, margins
+
+
+class MoERoutes:
+    """The MoE routers' top-k choices over a forward. While the context is
+    open ``torch.topk``, which inside a model's forward only ``moe_apply``
+    calls, is wrapped: without ``impose`` every call's choices ``(N, k)``
+    and the gap between its k-th and (k+1)-th probability are recorded in
+    ``calls`` and ``gaps``, in call order; with it, call ``i`` takes the
+    experts ``impose(i)`` instead, at its own router's probabilities."""
+
+    def __init__(self, torch, impose=None):
+        self.torch, self.impose, self.calls, self.gaps = torch, impose, [], []
+
+    def __enter__(self):
+        orig = self.orig = self.torch.topk
+
+        def topk(probs, k, dim=-1):
+            if self.impose is not None:
+                idx = self.impose(len(self.calls))
+                self.calls.append(idx)
+                return probs.gather(-1, idx), idx
+            v, idx = orig(probs, k, dim=dim)
+            top = orig(probs, k + 1, dim=dim).values
+            self.calls.append(idx)
+            self.gaps.append(top[:, k - 1] - top[:, k])
+            return v, idx
+
+        self.torch.topk = topk
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.topk = self.orig
+
+
+def route_flips(torch, a: MoERoutes, b_calls: list) -> dict:
+    """How many (layer, token) top-k expert sets of run ``a`` differ from
+    those of ``b_calls``, matched call by call; the largest k-th/(k+1)-th
+    probability gap of ``a`` among them, beside the median over all."""
+    flipped, gaps = [], []
+    for x, y, g in zip(a.calls, b_calls, a.gaps):
+        f = (x.sort(-1).values != y.sort(-1).values).any(-1)
+        flipped.append(int(f.sum()))
+        gaps.append(g[f])
+    flip_gaps = torch.cat(gaps)
+    return dict(flipped=sum(flipped), choices=sum(x.shape[0] for x in a.calls), flipped_per_call=flipped,
+                flipped_gap_max=flip_gaps.max().item() if flip_gaps.numel() else None,
+                gap_median=torch.cat(a.gaps).median().item())
+
+
+def decode_vs_full(torch, cfg, model, batch, n_prefix: int, steps: int, routes: dict | None = None) -> float:
+    """Prefill the first ``n_prefix`` tokens of ``batch``, decode the next
+    ``steps`` tokens of it through the cache, and hold each step's logits
+    against ``lm_forward`` of the whole sequence at the same position; the
+    largest relative error over the steps. With ``routes`` (a MoE model),
+    the routing's part in that error is put into it: how the cached path's
+    top-k choices differ from the full forward's (:func:`route_flips`), and
+    the largest error again with the full forward's choices imposed on the
+    cached path (``rel_shared``)."""
+    from repro_torch.models import api
+    from repro_torch.models.transformer import lm_forward
+
+    tokens = torch.as_tensor(batch["tokens"], device="cuda").long()
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    n_img = cfg.n_img_tokens if "img_embeds" in extra else 0
+    B, T, k = tokens.shape[0], n_img + tokens.shape[1], cfg.moe.top_k
+    with torch.no_grad(), MoERoutes(torch) as full_routes:
+        full, _, _, _, _ = lm_forward(cfg, model, {"tokens": tokens, **extra})
+
+    def full_choice(i):  # the full forward's choices for the cached path's i-th call
+        n = len(full_routes.calls)
+        at = slice(0, n_img + n_prefix) if i < n else slice(n_img + n_prefix + i // n - 1, n_img + n_prefix + i // n)
+        return full_routes.calls[i % n].view(B, T, k)[:, at].reshape(-1, k)
+
+    def cached(hook) -> float:
+        with hook:
+            _, cache = api.prefill(cfg, model, {"tokens": tokens[:, :n_prefix], **extra}, max_len=T)
+            worst = 0.0
+            for i in range(steps):
+                p = n_prefix + i
+                pos = torch.full((B,), n_img + p, device="cuda")
+                logits, cache = api.decode_step(cfg, model, cache, tokens[:, p], pos)
+                worst = max(worst, rel_err(logits, full[:, n_img + p]))
+        return worst
+
+    own = MoERoutes(torch)
+    worst = cached(own)
+    if routes is not None:
+        routes.update(route_flips(torch, own, [full_choice(i) for i in range(len(own.calls))]))
+        routes["rel_shared"] = cached(MoERoutes(torch, impose=full_choice))
+    del full
+    return worst
+
+
+def layer_attn_rels(torch, cfg, model, batch) -> list:
+    """Each full-attention layer's attention output (``wo`` included), the
+    flash route against the einsum route on the same input: the layer
+    inputs of one einsum forward. Returns the relative errors in order."""
+    from repro_torch.models.common import apply_norm, gqa_attention_full
+    from repro_torch.models.transformer import _embed_inputs
+
+    ein = cfg.replace(attn_impl="einsum")
+    rels = []
+    with torch.no_grad():
+        x, positions, _, _ = _embed_inputs(ein, model, batch)
+        for layers in model.groups:
+            for layer in layers:
+                if layer.spec.attn == "gqa" and layer.spec.window == 0:
+                    h = apply_norm(ein, layer.ln1, x)
+                    a_f, _ = gqa_attention_full(cfg, layer.attn, h, positions, theta=layer.spec.theta)
+                    a_e, _ = gqa_attention_full(ein, layer.attn, h, positions, theta=layer.spec.theta)
+                    rels.append(rel_err(a_f, a_e))
+                x, _ = layer.forward_full(ein, x, positions)
+    return rels
+
+
+def residual_rels(torch, cfg, model, batch) -> list:
+    """The residual stream after each layer, the flash route against the
+    einsum route with the einsum run's expert choices imposed on the flash
+    run: ``||a - b|| / ||b||`` per layer, in order. How a per-layer
+    rounding difference grows with depth, routing aside."""
+    from repro_torch.models.transformer import _embed_inputs
+
+    def walk(c, hook) -> list:
+        xs = []
+        with torch.no_grad(), hook:
+            x, positions, _, _ = _embed_inputs(c, model, batch)
+            for layers in model.groups:
+                for layer in layers:
+                    x, _ = layer.forward_full(c, x, positions)
+                    xs.append(x.float())
+        return xs
+
+    ein = MoERoutes(torch)
+    xe = walk(cfg.replace(attn_impl="einsum"), ein)
+    xf = walk(cfg, MoERoutes(torch, impose=lambda i: ein.calls[i]))
+    return [((a - b).norm() / b.norm()).item() for a, b in zip(xf, xe)]
+
+
+def route_checks(torch, cfg, model, batch, decode_batch, n_prefix: int, steps: int, max_len: int,
+                 model32=None, hold_bf16: bool = False) -> tuple:
+    """Does flash change the model, and does the decode match the full
+    forward? In bf16 (the served dtype): every full-attention layer's
+    output, flash vs einsum on a shared input (held within 2e-2, the
+    reference's kernel bound, ``tests/test_kernels.py``); the whole model's
+    last logits both ways and its decode vs the full forward (held within
+    5e-2, the reference's decode-vs-full bound, ``tests/test_models_smoke.py
+    :107``, where ``hold_bf16``; else reported: a random-weight MoE's
+    routing turns bf16 rounding into whole-model differences, see
+    ``PERF.md``). For a MoE model, both again with one run's expert choices
+    imposed on the other, beside how many choices differ: the decode held
+    within 5e-2, the prefill reported with its residual stream's growth
+    over the layers (:func:`residual_rels`) in bf16 and on the fp32 copy.
+    On ``model32``, an fp32 copy of the same weights: the whole model's last
+    logits flash vs einsum (held within 1e-3: only summation order differs),
+    its decode vs the full forward (held within 5e-2), and the model's own
+    bf16 rounding (einsum bf16 vs fp32), reported; and the fp32 kernel's
+    launches in that flash prefill."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+
+    ein = cfg.replace(attn_impl="einsum")
+    out, checks = {}, []
+    layer = layer_attn_rels(torch, cfg, model, batch)
+    out["layer_attn_rel_bf16_max"] = max(layer)
+    checks.append((max(layer) <= 2e-2, f"every layer's attention, flash vs einsum in bf16: {layer}"))
+    with MoERoutes(torch) as r_flash:
+        l_flash, _ = api.prefill(cfg, model, batch, max_len=max_len)
+    with MoERoutes(torch) as r_ein:
+        l_ein16, _ = api.prefill(ein, model, batch, max_len=max_len)
+    out["prefill_flash_vs_einsum_rel_bf16"] = rel_err(l_flash, l_ein16)
+    dec_routes = {} if cfg.moe.enabled else None
+    out["decode_vs_full_rel_bf16"] = decode_vs_full(torch, cfg, model, decode_batch, n_prefix, steps, dec_routes)
+    if hold_bf16:
+        for k in ("prefill_flash_vs_einsum_rel_bf16", "decode_vs_full_rel_bf16"):
+            checks.append((out[k] <= 5e-2, f"{k}: {out[k]} <= 5e-2"))
+    if cfg.moe.enabled:  # the routing's part: the same checks with one run's expert choices imposed on the other
+        out["prefill_routes_flash_vs_einsum_bf16"] = route_flips(torch, r_flash, r_ein.calls)
+        with MoERoutes(torch, impose=lambda i: r_ein.calls[i]):
+            l_shared, _ = api.prefill(cfg, model, batch, max_len=max_len)
+        out["prefill_flash_vs_einsum_rel_bf16_shared_routes"] = rel_err(l_shared, l_ein16)
+        out["residual_rel_bf16_shared_routes"] = residual_rels(torch, cfg, model, batch)
+        out["decode_routes_vs_full_bf16"] = dec_routes
+        out["decode_vs_full_rel_bf16_shared_routes"] = dec_routes["rel_shared"]
+        k = "decode_vs_full_rel_bf16_shared_routes"
+        checks.append((out[k] <= 5e-2, f"{k}: {out[k]} <= 5e-2"))
+    if model32 is not None:
+        cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+        fa.flash_attention.launches = 0  # the fp32 kernel's launches in one prefill, for the kernels line
+        l32_flash, _ = api.prefill(cfg32, model32, batch, max_len=max_len)
+        out["fp32_prefill_flash_launches"] = fa.flash_attention.launches
+        l32_ein, _ = api.prefill(cfg32.replace(attn_impl="einsum"), model32, batch, max_len=max_len)
+        out["prefill_flash_vs_einsum_rel_fp32"] = rel_err(l32_flash, l32_ein)
+        out["model_bf16_vs_fp32_rel"] = rel_err(l_ein16, l32_ein)
+        out["decode_vs_full_rel_fp32"] = decode_vs_full(torch, cfg32, model32, decode_batch, n_prefix, steps)
+        if cfg.moe.enabled:
+            out["residual_rel_fp32_shared_routes"] = residual_rels(torch, cfg32, model32, batch)
+        checks.append((out["prefill_flash_vs_einsum_rel_fp32"] <= 1e-3,
+                       f"fp32 copy, flash vs einsum last logits: {out['prefill_flash_vs_einsum_rel_fp32']} <= 1e-3"))
+        checks.append((out["decode_vs_full_rel_fp32"] <= 5e-2,
+                       f"fp32 copy, decode vs the full forward: {out['decode_vs_full_rel_fp32']} <= 5e-2"))
+    return out, checks
+
+
+def batch_route_flips(torch, cfg, model, a, b, max_len: int) -> dict:
+    """Prompt ``a`` prefilled alone and beside ``b`` (of its length) in a
+    batch of two: how many of ``a``'s top-k choices differ between the two
+    (:func:`route_flips`), its last logits' relative difference, and that
+    difference again with each prompt's lone choices imposed on the batch."""
+    import numpy as np
+
+    from repro_torch.models import api
+
+    lone = {}
+    for name, p in (("a", a), ("b", b)):
+        with MoERoutes(torch) as lone[name]:
+            logits, _ = api.prefill(cfg, model, {"tokens": p[None]}, max_len=max_len)
+        if name == "a":
+            l_alone = logits
+    pair = {"tokens": torch.as_tensor(np.stack([a, b]), device="cuda")}
+    with MoERoutes(torch) as batched:
+        l_pair, _ = api.prefill(cfg, model, pair, max_len=max_len)
+    n = len(a)
+    mine = MoERoutes(torch)
+    mine.calls, mine.gaps = [c[:n] for c in batched.calls], [g[:n] for g in batched.gaps]
+    both = lambda i: torch.cat([lone["a"].calls[i], lone["b"].calls[i]])
+    with MoERoutes(torch, impose=both):
+        l_shared, _ = api.prefill(cfg, model, pair, max_len=max_len)
+    return dict(route_flips(torch, mine, lone["a"].calls), rel=rel_err(l_pair[:1], l_alone),
+                rel_shared=rel_err(l_shared[:1], l_alone))
+
+
+def alone_divergences(torch, cfg, model, reqs, max_len: int) -> list:
+    """Each served request decoded alone (batch of one): where its greedy
+    tokens first leave the batched engine's, with the lone run's top-2
+    margin there and one bf16 step of its top logit."""
+    out = []
+    for r in reqs:
+        alone, margins = greedy_alone(torch, cfg, model, r.prompt, len(r.out_tokens), max_len)
+        i = next((j for j, (a, b) in enumerate(zip(alone, r.out_tokens)) if a != b), None)
+        if i is not None:
+            out.append(dict(rid=r.rid, step=i, margin=margins[i][0], bf16_step=bf16_step(margins[i][1])))
+    return out
+
+
+def zoo_granite(torch, smi: str) -> tuple:
+    """(a) full-width granite-moe-1b-a400m behind ServeEngine: the serve
+    phase's traffic, flash on every prefill; then the same traffic on an
+    fp32 copy of the weights (the fp32 kernel on every prefill) for the
+    batch-independence check."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = get_config("granite-moe-1b-a400m").replace(attn_impl="flash")
+    sizes = zoo_bytes(torch, cfg)
+    model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (FLASH_SERVE_S[i % len(FLASH_SERVE_S)],)) for i in range(8)]
+    for p in prompts[: len(FLASH_SERVE_S)]:  # warm-up outside the counted run
+        api.prefill(cfg, model, {"tokens": p[None]}, max_len=512)
+    run = zoo_serve(torch, cfg, model, prompts, max_batch=4, max_len=512, max_new=16)
+    checks = [(run["launches"] == len(prompts) * cfg.n_layers,
+               f"granite: flash launches {run['launches']} == {len(prompts)} prefills x {cfg.n_layers} layers")]
+
+    model32 = copy.deepcopy(model).float()  # the same weights, widened
+    r0 = run["reqs"][2]  # 384 tokens
+    seq = np.concatenate([r0.prompt, np.asarray(r0.out_tokens[:8])])[None]
+    routes, more = route_checks(torch, cfg, model, {"tokens": r0.prompt[None]}, {"tokens": seq}, len(r0.prompt), 8,
+                                512, model32=model32)
+    checks += more
+
+    # dropless eval capacity: a token's output does not depend on its batch,
+    # so each request served alone gives the batched engine's tokens, up to
+    # a top-2 tie within one bf16 step. Held on the fp32 copy; in bf16 the
+    # batch size changes the products' rounding, which can flip a routed
+    # expert (reported, with a prompt's choices alone and in a batch of two)
+    div16 = alone_divergences(torch, cfg, model, run["reqs"], 512)
+    batch_routes = batch_route_flips(torch, cfg, model, prompts[2], prompts[5], 512)
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    run32 = zoo_serve(torch, cfg32, model32, prompts, max_batch=4, max_len=512, max_new=16)
+    div32 = alone_divergences(torch, cfg32, model32, run32["reqs"], 512)
+    checks += [(d["margin"] <= d["bf16_step"], f"granite fp32: a request leaves its lone run at a clear margin: {d}")
+               for d in div32]
+
+    cache = api.init_cache(cfg, 4, 512, "cuda")
+    tok = torch.zeros(4, dtype=torch.long, device="cuda")
+    pos = torch.full((4,), 400, dtype=torch.long, device="cuda")
+    decode_ms = host_ms(torch, lambda: api.decode_step(cfg, model, cache, tok, pos))
+    kv_bytes = sum(t.numel() * t.element_size() for g in cache for e in g for t in e)
+    decode_bound_ms = (sizes["weight_bytes"] + kv_bytes) / H100_BYTES_PER_S * 1e3  # dropless: every expert is read
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, experts=cfg.moe.n_experts,
+               top_k=cfg.moe.top_k, **sizes, **run["stats"], flash_launches=run["launches"], **routes,
+               alone_divergences_bf16=div16, batch_routes_bf16=batch_routes, alone_divergences_fp32=div32, fp32_run=run32["stats"],
+               fp32_flash_launches=run32["launches"], decode_step_host_ms=decode_ms,
+               decode_step_bound_ms=decode_bound_ms, nvidia_smi=smi)
+    return out, checks
+
+
+def zoo_gemma3(torch, smi: str) -> tuple:
+    """(b) full-width gemma3-4b behind ServeEngine: 1152- and 640-token
+    prompts, the 1152-token ones wrapping the local layers' 1024-slot
+    rings; flash (hd 256) on the global layers' prefills only."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.transformer import layer_groups
+
+    cfg = get_config("gemma3-4b").replace(attn_impl="flash")
+    n_global = sum(reps * sum(s.window == 0 for s in pat) for pat, reps in layer_groups(cfg))
+    checks = [(n_global == 5 and cfg.resolved_head_dim == 256, f"gemma3: 5 global layers of hd 256, got {n_global}")]
+    sizes = zoo_bytes(torch, cfg)
+    model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (n,)) for n in ZOO_GEMMA_S]
+    fa.flash_attention.launches = 0
+    api.prefill(cfg, model, {"tokens": prompts[0][None]}, max_len=ZOO_GEMMA_MAX_LEN)  # also the warm-up
+    torch.cuda.synchronize()
+    per_prefill = fa.flash_attention.launches
+    checks.append((per_prefill == n_global, f"gemma3: {per_prefill} flash launches in one prefill == {n_global}"))
+    run = zoo_serve(torch, cfg, model, prompts, max_batch=2, max_len=ZOO_GEMMA_MAX_LEN, max_new=16)
+    checks.append((run["launches"] == n_global * len(prompts),
+                   f"gemma3: flash launches {run['launches']} == {len(prompts)} prefills x {n_global} global layers"))
+    r0 = run["reqs"][0]
+    checks.append((len(r0.prompt) > cfg.sliding_window, "gemma3: the first prompt wraps the local rings"))
+    seq = np.concatenate([r0.prompt, np.asarray(r0.out_tokens[:8])])[None]
+    model32 = copy.deepcopy(model).float()  # the same weights, widened
+    routes, more = route_checks(torch, cfg, model, {"tokens": r0.prompt[None]}, {"tokens": seq}, len(r0.prompt), 8,
+                                ZOO_GEMMA_MAX_LEN, model32=model32, hold_bf16=True)
+    checks += more
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, head_dim=cfg.resolved_head_dim,
+               window=cfg.sliding_window, global_layers=n_global, **sizes, **run["stats"],
+               flash_launches=run["launches"], flash_launches_per_prefill=per_prefill, **routes, nvidia_smi=smi)
+    return out, checks
+
+
+def zoo_phi3(torch, smi: str) -> tuple:
+    """(c) full-width phi-3-vision-4.2b through ``api.prefill`` and
+    ``api.decode_step``: 576 image rows (seeded normal) + 192 text tokens,
+    flash (hd 96) on every layer of the prefill, then 8 greedy decode steps."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+
+    cfg = get_config("phi-3-vision-4.2b").replace(attn_impl="flash")
+    n_img, n_text, steps = cfg.n_img_tokens, ZOO_PHI_TEXT, ZOO_PHI_STEPS
+    sizes = zoo_bytes(torch, cfg)
+    model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.standard_normal((1, n_img, cfg.d_model)).astype(np.float32)).cuda()
+    text = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n_text))).cuda()
+    batch = {"tokens": text, "img_embeds": img}
+    max_len = n_img + n_text + steps
+    api.prefill(cfg, model, batch, max_len=max_len)  # warm-up
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(cfg, model, batch, max_len=max_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    checks = [(launches == cfg.n_layers, f"phi-3: flash launches {launches} == {cfg.n_layers} layers")]
+    gen = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        gen.append(int(torch.argmax(logits[0])))
+        pos = torch.tensor([n_img + n_text + i], device="cuda")
+        logits, cache = api.decode_step(cfg, model, cache, torch.tensor([gen[-1]], device="cuda"), pos)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    checks.append((bool(torch.isfinite(logits).all()) and logits.shape == (1, cfg.vocab),
+                   "phi-3: finite (1, vocab) logits"))
+    del cache
+    seq = torch.cat([text, torch.tensor([gen], device="cuda")], dim=1)
+    model32 = copy.deepcopy(model).float()  # the same weights, widened
+    routes, more = route_checks(torch, cfg, model, batch, {"tokens": seq, "img_embeds": img}, n_text, steps, max_len,
+                                model32=model32, hold_bf16=True)
+    checks += more
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, head_dim=cfg.resolved_head_dim,
+               img_tokens=n_img, text_tokens=n_text, decode_steps=steps, **sizes, flash_launches=launches,
+               prefill_host_s=prefill_s, decode_host_s=decode_s, **routes, nvidia_smi=smi)
+    return out, checks
+
+
+def zoo_deepseek(torch, smi: str) -> tuple:
+    """(d) deepseek-v3-671b at the published widths, cut to 4 layers (its 3
+    dense layers and 1 MoE layer of 256 experts) and no MTP module: two
+    128-token prompts, then 8 decode steps through the absorbed latent cache."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+
+    cfg = get_config("deepseek-v3-671b").replace(n_layers=ZOO_DEEPSEEK_LAYERS, mtp_depth=0)
+    sizes = zoo_bytes(torch, cfg)
+    model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    B, S, steps = ZOO_DEEPSEEK_BATCH, ZOO_DEEPSEEK_S, ZOO_DEEPSEEK_STEPS
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + steps))).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(cfg, model, {"tokens": tokens[:, :S]}, max_len=S + steps)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    checks = [(tuple(cache[0][0][0].shape) == (cfg.moe.first_k_dense, B, S + steps, cfg.mla.kv_lora_rank),
+               "deepseek: the dense layers' latent cache rows"),
+              (bool(torch.isfinite(logits).all()), "deepseek: finite prefill logits")]
+    del logits, cache
+    routes = {}
+    dec16 = decode_vs_full(torch, cfg, model, {"tokens": tokens}, S, steps, routes)  # reported (see route_checks)
+    checks.append((routes["rel_shared"] <= 5e-2, f"deepseek bf16, absorbed decode vs the full forward with the "
+                   f"full forward's expert choices imposed: rel {routes['rel_shared']} <= 5e-2"))
+    cache = api.init_cache(cfg, B, S + steps, "cuda")
+    tok = torch.zeros(B, dtype=torch.long, device="cuda")
+    pos = torch.full((B,), S, dtype=torch.long, device="cuda")
+    decode_ms = host_ms(torch, lambda: api.decode_step(cfg, model, cache, tok, pos), reps=3)
+    kv_bytes = sum(t.numel() * t.element_size() for g in cache for e in g for t in e)
+    del cache
+    # the same weights widened to fp32 in place, one tensor at a time (60 GB:
+    # a copy beside the bf16 model would not fit), for the held check
+    for q in model.parameters():
+        q.data = q.data.float()
+        release(torch)
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    dec32 = decode_vs_full(torch, cfg32, model, {"tokens": tokens}, S, steps)
+    tol = 5e-2
+    checks.append((dec32 <= tol, f"deepseek fp32 copy, absorbed decode vs the full forward: rel {dec32} <= {tol}"))
+    out = dict(arch=cfg.name, reduced=dict(n_layers=f"61 -> {cfg.n_layers}", mtp_depth="1 -> 0"),
+               n_layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads, experts=cfg.moe.n_experts, **sizes,
+               batch=B, prompt_len=S, decode_steps=steps, prefill_host_s=prefill_s, decode_vs_full_rel_bf16=dec16,
+               decode_routes_vs_full_bf16=routes, decode_vs_full_rel_fp32=dec32, tol=tol, decode_step_host_ms=decode_ms,
+               decode_step_bound_ms=(sizes["weight_bytes"] + kv_bytes) / H100_BYTES_PER_S * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi)
+    return out, checks
+
+
+def phase_zoo(torch, smi: str) -> dict:
+    """The rest of the transformer zoo at published widths, one model at a
+    time: (a) granite MoE served, (b) gemma3 local/global served, (c) the
+    phi-3 VLM prefix, (d) deepseek MLA + MoE at 4 layers. Each part's line
+    is printed before its checks are applied."""
+    t0 = time.perf_counter()
+    parts, failed = {}, []
+    for name, fn in (("granite", zoo_granite), ("gemma3", zoo_gemma3), ("phi3", zoo_phi3), ("deepseek", zoo_deepseek)):
+        release(torch)  # the previous model went with its part's frame
+        t = time.perf_counter()
+        parts[name], checks = fn(torch, smi)
+        parts[name]["part_host_s"] = time.perf_counter() - t
+        emit("zoo", part=name, **parts[name], checks_failed=[w for ok, w in checks if not ok])
+        failed += [f"{name}: {w}" for ok, w in checks if not ok]
+    launches = {k: parts[k]["flash_launches"] for k in ("granite", "gemma3", "phi3")}
+    launches["granite_fp32"] = parts["granite"]["fp32_flash_launches"]
+    fp32_check = {k: parts[k]["fp32_prefill_flash_launches"] for k in ("phi3", "gemma3")}
+    emit("zoo", part="summary", flash_launches=launches, fp32_check_prefill_flash_launches=fp32_check,
+         phase_host_s=time.perf_counter() - t0, nvidia_smi=smi)
+    check(not failed, f"zoo: {failed}")
+    return dict(flash_launches=launches, fp32_check_launches=fp32_check)
+
+
 def phase_timer_ab(torch) -> None:
     """The timer's variants, each in turns so that a change of timer can be
     told from noise, and the pack's timed shapes under the default timer.
@@ -1924,6 +2523,16 @@ def phase_timer_ab(torch) -> None:
         for key in ("spin", "no_spin", "no_spin", "spin"):
             spin[name][key].append(spins[key](rows[name]))
     emit("timer_ab", flush=flush, spin=spin, pack_shapes=pack_shape_rows(torch, flushes["read"], bufs, check_exact=False))
+
+
+def zoo_launches(zoo: dict, row: dict) -> dict:
+    """The zoo's K2 launches at a kernels-line row's head dim and dtype:
+    the served bf16 run of the model with that head dim, or its fp32
+    copy's one flash prefill (a check), and which run it was."""
+    part = {96: "phi3", 256: "gemma3"}[row["hd"]]
+    if row["dtype"] == "bfloat16":
+        return dict(launches=zoo["flash_launches"][part], launches_in=f"zoo {part}: the bf16 run")
+    return dict(launches=zoo["fp32_check_launches"][part], launches_in=f"zoo {part}: the fp32 copy's flash prefill")
 
 
 def main() -> int:
@@ -1980,6 +2589,7 @@ def main() -> int:
     train = phase_train(torch)
     pipe = phase_pipeline(torch, smi)
     rwkv = phase_serve_rwkv(torch)
+    zoo = phase_zoo(torch, smi)
 
     ft = kern["flash_times"][-1]  # the longest served prompt, S = 384
     ut = paged["unpack"]["timings"]["decode_step"]  # the paged path's most frequent move
@@ -1987,11 +2597,16 @@ def main() -> int:
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:75",
              launches=serve["flash_launches"] + paged["flash_launches"] + train["flash_launches"]
-             + pipe["flash_launches"],
+             + pipe["flash_launches"] + sum(zoo["flash_launches"].values()),
              launches_by_path=dict(serve=serve["flash_launches"], serve_paged=paged["flash_launches"],
-                                   train=train["flash_launches"], pipeline=pipe["flash_launches"]),
+                                   train=train["flash_launches"], pipeline=pipe["flash_launches"],
+                                   **{f"zoo_{k}": n for k, n in zoo["flash_launches"].items()}),
              max_abs_err=kern["flash_err"], ms=ft["ms"], plain_ms=ft["plain_ms"], bound_ms=ft["bound_ms"],
-             bound_by=ft["bound_by"], library_ms=ft["library_ms"]),
+             bound_by=ft["bound_by"], library_ms=ft["library_ms"],
+             by_head_dim=[dict({k: r[k] for k in ("hd", "dtype", "B", "S", "nq", "nkv", "max_abs_err", "ms", "plain_ms",
+                                                  "bound_ms", "bound_by", "library_ms")},
+                               **zoo_launches(zoo, r))
+                          for r in kern["flash_zoo"]]),
         dict(name="dt_pack", route="cuda", source="src/repro_torch/csrc/dt_pack.cu",
              replaces="src/repro/kernels/dt_pack.py:50",
              launches=enq["dt_pack"] + paged["pack_launches"] + dist["launches"],

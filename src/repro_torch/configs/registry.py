@@ -3,26 +3,31 @@
 ``get_config(arch, smoke=False)`` → ModelConfig with the exact published
 numbers (or the reduced smoke variant), as in ``repro.configs.registry``.
 Only the architectures whose model family is ported are known here; the
-rest of the JAX package's zoo raises with a pointer to ROADMAP.md.
+rest of the JAX package's zoo (Jamba's hybrid and Whisper's
+encoder-decoder, ROADMAP P12b) raises with a pointer to ROADMAP.md.
 """
 
 from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import qwen1p5_0p5b, rwkv6_7b
+from repro_torch.configs import (
+    deepseek_v3,
+    gemma3_4b,
+    granite_moe_1b,
+    internlm2_20b,
+    llama3_405b,
+    phi3_vision,
+    qwen1p5_0p5b,
+    rwkv6_7b,
+)
 from repro_torch.models.config import ModelConfig
 
-_MODULES = {m.ARCH: m for m in (qwen1p5_0p5b, rwkv6_7b)}
+_MODULES = {m.ARCH: m for m in (qwen1p5_0p5b, rwkv6_7b, granite_moe_1b, deepseek_v3, llama3_405b, internlm2_20b,
+                                gemma3_4b, phi3_vision)}
 
-#: the JAX package's architectures that wait for later slices of the port
+#: the JAX package's architectures that wait for a later slice of the port (ROADMAP P12b)
 PENDING_ARCHS = (
-    "granite-moe-1b-a400m",
-    "deepseek-v3-671b",
-    "llama3-405b",
-    "internlm2-20b",
-    "gemma3-4b",
-    "phi-3-vision-4.2b",
     "jamba-v0.1-52b",
     "whisper-tiny",
 )

@@ -42,6 +42,21 @@
 // fp32 inputs keep the CUDA-core kernel below (fp32 FMAs, register tiles of
 // 4 rows x 4 keys, K/V in padded shared memory): TF32 tensor cores would not
 // hold the fp32 tolerance.
+//
+// Head dims: 64, 96, 128 and 256 (the zoo's: qwen and granite 64, phi-3
+// 96, llama3 and internlm2 128, gemma3's global layers 256). The fp32
+// kernel takes each as it is (hd 256: 214,016 bytes of shared memory). The
+// bf16 kernel stores a row as ceil(hd/64) swizzled 64-column sub-tiles; at
+// hd 96 the second sub-tile is half used: Q.K^T runs only the hd/16 = 6 k16
+// steps over real columns, and V's columns 96..127 are zeroed once per block
+// (cp.async never writes them), so P.V's last 32 output columns hold zeros
+// that are not written back. One padded layout keeps one wgmma shape (n64)
+// and one swizzle for every hd, at the cost of a quarter of P.V's products
+// at hd 96. At hd 256 one warpgroup holding all of O (128 fp32 registers
+// a thread beside the 32 of S) hit 255 registers and spilled 276 bytes a
+// thread; so at hd > 128 a block has two warpgroups over the same 64 query
+// rows: both compute the same S = Q.K^T and softmax (the products are
+// repeated, the loads are shared), and each owns half of O's sub-tiles.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -195,7 +210,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // bf16: tensor cores (wgmma), cp.async K/V ring, P in registers
 // ---------------------------------------------------------------------------
 
-constexpr int WG = 128;            // one warpgroup per block
+constexpr int WG = 128;            // threads of one warpgroup
+
+// warpgroups of a bf16 block: two at hd > 128, each owning half of O's columns
+__host__ __device__ constexpr int bf16_warpgroups(int hd) { return hd > 128 ? 2 : 1; }
 constexpr int SUB_BYTES = 64 * 128;  // one 64-row x 64-column bf16 sub-tile (8 atoms of 8 x 128 B)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -276,19 +294,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 64 rows x HD columns of bf16, rows `row_stride` elements apart, into the
 // swizzled tile at shared address `dst`: 16-byte cp.async copies,
 // neighbouring threads on neighbouring chunks of a row.
-template <int HD>
+template <int HD, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int64_t row_stride, int tid) {
     constexpr int CPR = HD / 8;  // 16-byte chunks per row
 #pragma unroll
-    for (int m = 0; m < 64 * CPR / WG; ++m) {
-        const int idx = tid + WG * m;
+    for (int m = 0; m < 64 * CPR / NT; ++m) {
+        const int idx = tid + NT * m;
         const int r = idx / CPR, c = idx % CPR;
         cp_async16(dst + swz(r, c), src + r * row_stride + c * 8);
     }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(WG)
+__global__ void __launch_bounds__(WG * bf16_warpgroups(HD))
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                       int S, int nq, int group,
@@ -296,8 +314,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
                       int64_t ksb, int64_t kss, int64_t ksh,
                       int64_t vsb, int64_t vss, int64_t vsh,
                       float scale_log2, int causal) {
-    constexpr int NSUB = HD / 64;             // 64-column sub-tiles per row
+    constexpr int NSUB = (HD + 63) / 64;      // 64-column sub-tiles per row (the last one padded at hd 96)
     constexpr int TILE = NSUB * SUB_BYTES;    // bytes of one 64-row tile
+    constexpr int NT = WG * bf16_warpgroups(HD);  // threads of the block
+    constexpr int NOWN = NSUB / bf16_warpgroups(HD);  // O sub-tiles one warpgroup owns
     extern __shared__ uint8_t smem_raw[];
     // swizzle atoms must sit on 1024-byte boundaries
     const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -306,7 +326,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     const uint32_t Vs0 = base + 3 * TILE;     // V ring: stages at Vs0, Vs0 + TILE
 
     const int tid = threadIdx.x;
-    const int warp = tid / 32, lane = tid % 32;
+    const int wg = tid / WG;  // this warpgroup owns O's sub-tiles wg*NOWN .. wg*NOWN + NOWN - 1
+    const int warp = (tid % WG) / 32, lane = tid % 32;
     const int n_qt = gridDim.x;
     const int qt = n_qt - 1 - blockIdx.x;  // longest causal rows first
     const int h = blockIdx.y;
@@ -319,9 +340,17 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     const __nv_bfloat16* vb = v + b * vsb + hk * vsh;
 
     const int n_kt = causal ? qt + 1 : S / BK;  // causal: tiles above the diagonal hold no visible key
-    load_tile<HD>(Qs, qb, qss, tid);
-    load_tile<HD>(Ks0, kb, kss, tid);
-    load_tile<HD>(Vs0, vb, vss, tid);
+    if constexpr (HD % 64 != 0) {  // V's padded columns: zeros, so P.V adds nothing there (made visible by the first fence)
+        constexpr int PAD = NSUB * 8 - HD / 8;  // 16-byte chunks of padding per row
+        uint8_t* vs_generic = smem_raw + (Vs0 - smem_u32(smem_raw));
+        for (int i = tid; i < 2 * 64 * PAD; i += NT) {
+            const int stage = i / (64 * PAD), r = (i / PAD) % 64, c = HD / 8 + i % PAD;
+            *reinterpret_cast<uint4*>(vs_generic + stage * TILE + swz(r, c)) = make_uint4(0u, 0u, 0u, 0u);
+        }
+    }
+    load_tile<HD, NT>(Qs, qb, qss, tid);
+    load_tile<HD, NT>(Ks0, kb, kss, tid);
+    load_tile<HD, NT>(Vs0, vb, vss, tid);
     cp_async_commit();
 
     // rows r0 = 16*warp + lane/4 and r0 + 8 of the tile; accumulator element
@@ -330,17 +359,17 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     const int cq = 2 * (lane % 4);
     float m_run[2] = {NEG_INF, NEG_INF};  // running max, in log2 units of the scaled logits
     float l_run[2] = {0.f, 0.f};          // this thread's share of the running sum
-    float acc[NSUB][32];
+    float acc[NOWN][32];
 #pragma unroll
-    for (int n = 0; n < NSUB; ++n)
+    for (int n = 0; n < NOWN; ++n)
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
 
     for (int kt = 0; kt < n_kt; ++kt) {
         const int st = kt & 1;
         if (kt + 1 < n_kt) {  // the next tile loads while this one is multiplied
-            load_tile<HD>(Ks0 + (st ^ 1) * TILE, kb + (int64_t)(kt + 1) * BK * kss, kss, tid);
-            load_tile<HD>(Vs0 + (st ^ 1) * TILE, vb + (int64_t)(kt + 1) * BK * vss, vss, tid);
+            load_tile<HD, NT>(Ks0 + (st ^ 1) * TILE, kb + (int64_t)(kt + 1) * BK * kss, kss, tid);
+            load_tile<HD, NT>(Vs0 + (st ^ 1) * TILE, vb + (int64_t)(kt + 1) * BK * vss, vss, tid);
         }
         cp_async_commit();  // possibly empty: keeps "all but the newest group" meaning this tile
         cp_async_wait1();
@@ -393,7 +422,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
             l_run[hr] = alpha * l_run[hr] + psum;
             m_run[hr] = m_new;
 #pragma unroll
-            for (int n = 0; n < NSUB; ++n)
+            for (int n = 0; n < NOWN; ++n)
 #pragma unroll
                 for (int j = 0; j < 8; ++j) {
                     acc[n][4 * j + 2 * hr] *= alpha;
@@ -411,17 +440,18 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
             pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
         }
 #pragma unroll
-        for (int n = 0; n < NSUB; ++n) fence_regs(acc[n]);
+        for (int n = 0; n < NOWN; ++n) fence_regs(acc[n]);
         wgmma_fence();
 #pragma unroll
-        for (int n = 0; n < NSUB; ++n)
+        for (int n = 0; n < NOWN; ++n)
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk)  // 16 keys = two 8-row atoms: 2048 bytes
-                wgmma_rs(acc[n], pa[kk], desc_sw128(Vs0 + st * TILE + n * SUB_BYTES + kk * 2048, 1024, 1024));
+                wgmma_rs(acc[n], pa[kk],
+                         desc_sw128(Vs0 + st * TILE + (wg * NOWN + n) * SUB_BYTES + kk * 2048, 1024, 1024));
         wgmma_commit();
         wgmma_wait0();
 #pragma unroll
-        for (int n = 0; n < NSUB; ++n) fence_regs(acc[n]);
+        for (int n = 0; n < NOWN; ++n) fence_regs(acc[n]);
         __syncthreads();  // every warp is done with this stage before it is refilled
     }
 
@@ -435,15 +465,18 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     }
     __nv_bfloat16* ob = o + (((int64_t)b * S + q0) * nq + h) * HD;
 #pragma unroll
-    for (int n = 0; n < NSUB; ++n)
+    for (int n = 0; n < NOWN; ++n)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 8; ++j) {
+            const int col0 = 64 * (wg * NOWN + n) + 8 * j;
+            if (col0 >= HD) continue;  // padded columns (hd 96) are not written
 #pragma unroll
             for (int hr = 0; hr < 2; ++hr) {
-                const int row = r0 + 8 * hr, col = 64 * n + 8 * j + cq;
+                const int row = r0 + 8 * hr, col = col0 + cq;
                 *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)row * nq * HD + col) =
                     __floats2bfloat162_rn(acc[n][4 * j + 2 * hr] * inv[hr], acc[n][4 * j + 2 * hr + 1] * inv[hr]);
             }
+        }
 }
 
 template <typename T, int HD>
@@ -473,7 +506,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
     int64_t strides = 0;
     for (int a = 0; a < 3; ++a) strides |= qst[a] | kst[a] | vst[a];
     if ((ptrs & 15) != 0 || (strides & 7) != 0) return (int)cudaErrorMisalignedAddress;
-    const size_t smem = (size_t)5 * (HD / 64) * SUB_BYTES + 1024;  // Q, 2 K and 2 V stages, alignment slack
+    const size_t smem = (size_t)5 * ((HD + 63) / 64) * SUB_BYTES + 1024;  // Q, 2 K and 2 V stages, alignment slack
     static bool attribute_set = false;  // once per process: the call costs host time on every launch
     if (!attribute_set) {
         cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<HD>,
@@ -482,7 +515,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
         attribute_set = true;
     }
     dim3 grid(S / BQ, nq, B);
-    flash_fwd_bf16_kernel<HD><<<grid, WG, smem, stream>>>(
+    flash_fwd_bf16_kernel<HD><<<grid, WG * bf16_warpgroups(HD), smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (__nv_bfloat16*)o,
         S, nq, nq / nkv, qst[0], qst[1], qst[2], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2],
         1.4426950408889634f / sqrtf((float)HD), causal);
@@ -501,9 +534,15 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
                                          const int64_t* vst, int causal, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (S % BQ != 0 || nkv <= 0 || nq % nkv != 0) return (int)cudaErrorInvalidValue;
-    if (dtype == 0 && hd == 64) return launch<float, 64>(q, k, v, o, B, S, nq, nkv, qst, kst, vst, causal, st);
-    if (dtype == 0 && hd == 128) return launch<float, 128>(q, k, v, o, B, S, nq, nkv, qst, kst, vst, causal, st);
-    if (dtype == 1 && hd == 64) return launch_bf16<64>(q, k, v, o, B, S, nq, nkv, qst, kst, vst, causal, st);
-    if (dtype == 1 && hd == 128) return launch_bf16<128>(q, k, v, o, B, S, nq, nkv, qst, kst, vst, causal, st);
+#define REPRO_FLASH_HD(HDV)                                                                           \
+    if (hd == HDV)                                                                                    \
+        return dtype == 0 ? launch<float, HDV>(q, k, v, o, B, S, nq, nkv, qst, kst, vst, causal, st)  \
+                          : launch_bf16<HDV>(q, k, v, o, B, S, nq, nkv, qst, kst, vst, causal, st);
+    if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+    REPRO_FLASH_HD(64)
+    REPRO_FLASH_HD(96)
+    REPRO_FLASH_HD(128)
+    REPRO_FLASH_HD(256)
+#undef REPRO_FLASH_HD
     return (int)cudaErrorInvalidValue;
 }

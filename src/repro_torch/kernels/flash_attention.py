@@ -27,10 +27,11 @@ import threading
 
 import torch
 
-__all__ = ["flash_attention", "flash_attention_plain", "tensor_core_layout_error", "KERNEL_HEAD_DIMS", "KERNEL_BLOCK"]
+__all__ = ["flash_attention", "flash_attention_plain", "check_kernel_inputs", "tensor_core_layout_error",
+           "KERNEL_HEAD_DIMS", "KERNEL_BLOCK"]
 
-#: head dims the CUDA kernel is instantiated for
-KERNEL_HEAD_DIMS = (64, 128)
+#: head dims the CUDA kernels are instantiated for (the zoo's: 64, 96, 128, 256)
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)
 #: query/key tile of the CUDA kernel: S must be a multiple of it
 KERNEL_BLOCK = 64
 NEG_INF = -1e30
@@ -81,14 +82,12 @@ def _check(q, k, v) -> None:
         )
 
 
-def flash_attention(q, k, v, causal: bool = True):
-    """Flash attention forward. CUDA tensors launch the Hopper kernel (or
-    raise); CPU tensors run :func:`flash_attention_plain`."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+def check_kernel_inputs(q, k, v) -> None:
+    """Raise ``ValueError`` for q/k/v the CUDA kernels do not take: a head
+    dim outside :data:`KERNEL_HEAD_DIMS`, another dtype than float32 or
+    bfloat16, S not a multiple of :data:`KERNEL_BLOCK`, a non-unit hd
+    stride, or (bf16) a layout the tensor cores cannot read. There is no
+    fallback: a CUDA call the kernels do not take raises."""
     B, S, nq, hd = q.shape
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention kernel supports hd in {KERNEL_HEAD_DIMS}, got {hd}")
@@ -102,6 +101,18 @@ def flash_attention(q, k, v, causal: bool = True):
         err = tensor_core_layout_error([t.data_ptr() for t in (q, k, v)], [t.stride()[:3] for t in (q, k, v)])
         if err:
             raise ValueError(err)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Flash attention forward. CUDA tensors launch the Hopper kernel (or
+    raise); CPU tensors run :func:`flash_attention_plain`."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    check_kernel_inputs(q, k, v)
+    B, S, nq, hd = q.shape
     from repro_torch.kernels import _build
 
     lib = _build.load()

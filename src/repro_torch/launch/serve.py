@@ -3,6 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke --attn-impl flash
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --no-smoke \
         --attn-impl flash --prompt-lens 128,256,448 --max-len 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b --device cpu
+
+``--arch`` takes every ported architecture (``repro_torch.configs.list_archs``):
+the dense, MoE, MLA, local/global and VLM transformers and RWKV-6. A VLM
+is served on text prompts alone, as the JAX package's serve CLI serves it.
 
 Runs on the card by default (``--device cpu`` for the plain path). The
 JAX driver's ``--smoke`` flag cannot be switched off; here it is
@@ -22,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.core.progress import ProgressEngine
 from repro_torch.device import resolve_device
 from repro_torch.models import api
@@ -31,7 +36,7 @@ from repro_torch.serving.engine import ServeEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=list_archs())
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction, default=True)
     ap.add_argument("--attn-impl", choices=("einsum", "flash"), default=None,
                     help="override the config's sequence-mixer implementation: flash selects the "

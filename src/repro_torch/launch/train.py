@@ -23,7 +23,9 @@ update is ZeRO-1: per leaf, the block grads are summed over the replica
 axes the moment is not sharded over (a ``reduce_scatter`` over the dp axes
 into the moment chunk, an ``all_reduce`` over the rest), AdamW runs on the
 chunk with the norm over every chunk, and an ``all_gather`` over dp puts
-the chunk back into the block.
+the chunk back into the block. The single-rank step takes every ported
+transformer (MoE, MLA with MTP, the VLM prefix included); the sharded step
+takes the dense configs only (ROADMAP P11c).
 
 ``Trainer`` wires every substrate together the way the paper intends its
 extensions to be used: data prefetch + async checkpoints + heartbeats are
@@ -63,7 +65,7 @@ from repro_torch.ft.straggler import StragglerMonitor
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.convert import state_tree
-from repro_torch.models.transformer import TransformerLM, lm_xent_blocks
+from repro_torch.models.transformer import TransformerLM, check_dense_only, lm_xent_blocks
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.parallel import sharding as shd
 
@@ -229,6 +231,8 @@ def make_grad_step(cfg: ModelConfig, dp: tuple = ()):
     laid out as the params, summed over every block's replicas."""
     _check_ported(cfg)
     if dp:
+        check_dense_only(cfg, "the sharded step")
+
         def sharded_grad_step(params, batch):
             mesh = _mesh_of(params)
             _check_dp(mesh, dp)
@@ -277,6 +281,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, dp: tuple = ()):
     module docstring) and updates them in place, ZeRO-1."""
     if dp:
         _check_ported(cfg)
+        check_dense_only(cfg, "the sharded step")
 
         def sharded_train_step(params, opt_state, batch):
             mesh = _mesh_of(params)

@@ -6,9 +6,11 @@
     prefill(cfg, params, batch, max_len)      → (last_logits, cache)
     decode_step(cfg, params, cache, tok, pos) → (logits, cache)
 
-Batches are dicts with ``tokens`` (numpy or tensor) and an optional
-``loss_mask``. The dense transformer and RWKV-6 families are ported; Jamba
-and Whisper raise ``NotImplementedError`` with a pointer to ROADMAP.md.
+Batches are dicts with ``tokens`` (numpy or tensor), an optional
+``loss_mask`` and, for a VLM, optional ``img_embeds`` (B, n_img, d). The
+transformer family (dense, MoE, MLA with MTP, local/global attention, the
+VLM prefix) and RWKV-6 are ported; Jamba and Whisper raise
+``NotImplementedError`` with a pointer to ROADMAP.md (P12b).
 Entry points that create tensors run on ``cuda`` unless the caller passes
 ``device="cpu"``; the others run where ``params`` live.
 """
@@ -35,7 +37,7 @@ def _family(cfg: ModelConfig) -> str:
     else:
         return "transformer"
     raise NotImplementedError(
-        f"{cfg.name}: the {f} model family is not ported to repro_torch yet (ROADMAP: model zoo)"
+        f"{cfg.name}: the {f} model family is not ported to repro_torch yet (ROADMAP P12b: model zoo)"
     )
 
 

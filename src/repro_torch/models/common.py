@@ -1,6 +1,6 @@
-"""Shared neural building blocks of the dense transformer and RWKV-6, in PyTorch.
+"""Shared neural building blocks of the transformer family and RWKV-6, in PyTorch.
 
-Mirrors the dense parts of ``repro.models.common`` operation for
+Mirrors the transformer parts of ``repro.models.common`` operation for
 operation, so the two packages agree within rounding:
 
 * ``rms_norm`` scales by ``(1 + w)`` (zero-initialised weights);
@@ -17,6 +17,9 @@ Parameters are any string-keyed mapping of tensors (the port's
 ``embed_params``) keep the reference's distributions but draw from a
 ``torch.Generator``, whose numbers differ from ``jax.random``'s: tests
 carry JAX weights across with ``models.convert.params_from_numpy``.
+
+Sliding-window layers (gemma3's local layers) mask the full forward to the
+window and decode into a ring cache (:func:`gqa_attention_decode`).
 
 The flash gate of :func:`gqa_attention_full` is the reference's:
 ``attn_impl == "flash"``, causal, no sliding window and ``S % 128 == 0``;
@@ -207,25 +210,30 @@ def gqa_attention_full(
     return out, (k, v)
 
 
-def gqa_attention_decode(cfg: ModelConfig, p, x, cache_kv, pos, theta: float = 10_000.0):
+def gqa_attention_decode(cfg: ModelConfig, p, x, cache_kv, pos, window: int = 0, theta: float = 10_000.0):
     """One-token decode. x (B,1,d); cache_kv = (K,V) of (B,T,nkv,hd); pos
-    (B,) absolute position of the new token.
+    (B,) absolute position of the new token. With ``window > 0`` the cache
+    is a ring of ``T = min(window, max_len)`` slots: the new token goes to
+    slot ``pos % T``, and every slot is valid once ``pos + 1 >= T``.
 
-    The new K/V rows are written **in place** into the cache tensors at
-    ``slot = pos`` (``index_put_``), where the JAX package returns an
-    updated copy: the serving engine's batch cache is updated without a
-    per-step copy of every layer. Returns (out, (K, V)) with K/V the same
-    tensors that were passed in."""
+    The new K/V rows are written **in place** into the cache tensors
+    (``index_put_``), where the JAX package returns an updated copy: the
+    serving engine's batch cache is updated without a per-step copy of
+    every layer. Returns (out, (K, V)) with K/V the same tensors that were
+    passed in."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     q, k_new, v_new = gqa_qkv(cfg, p, x, pos[:, None], theta)
     K, V = cache_kv
     T = K.shape[1]
+    slot = pos % max(T, 1) if window > 0 else pos
     bidx = torch.arange(B, device=x.device)
-    K.index_put_((bidx, pos), k_new[:, 0].to(K.dtype))
-    V.index_put_((bidx, pos), v_new[:, 0].to(V.dtype))
-    mask = (torch.arange(T, device=x.device)[None, :] <= pos[:, None])[:, None, None, None]
-    out = attend(q, K.to(cfg.cdtype), V.to(cfg.cdtype), mask, 1.0 / math.sqrt(hd))
+    K.index_put_((bidx, slot), k_new[:, 0].to(K.dtype))
+    V.index_put_((bidx, slot), v_new[:, 0].to(V.dtype))
+    mask = torch.arange(T, device=x.device)[None, :] <= pos[:, None]
+    if window > 0:
+        mask = mask | (pos[:, None] + 1 >= T)
+    out = attend(q, K.to(cfg.cdtype), V.to(cfg.cdtype), mask[:, None, None, None], 1.0 / math.sqrt(hd))
     out = out.reshape(B, 1, cfg.n_heads * hd) @ p["wo"].to(cfg.cdtype)
     return out, (K, V)
 

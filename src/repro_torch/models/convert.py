@@ -6,7 +6,10 @@ per-layer leaves stacked on axis 0 as ``repro.models.transformer.init_lm``
 and ``repro.models.rwkv6.init_rwkv`` (``jax.vmap`` over layers) build them.
 It returns a :class:`~repro_torch.models.transformer.TransformerLM`, or an
 :class:`~repro_torch.models.rwkv6.RWKVLM` for the RWKV family, holding the
-same values; a key set that differs from the port's raises.
+same values; a key set that differs from the port's raises. Every leaf of
+the transformer family's tree crosses: multi-position patterns
+(``groups[g][p]``), the MoE and shared-expert leaves, the MLA leaves,
+``img_proj`` and ``mtp/*``.
 ``np.asarray`` of a JAX bfloat16 array is an ``ml_dtypes.bfloat16``
 array, which ``torch.from_numpy`` refuses, so such leaves travel as their
 16-bit pattern (``int16``) and are re-viewed as ``torch.bfloat16``.
@@ -83,25 +86,35 @@ def _rwkv_from_numpy(cfg: ModelConfig, tree, device) -> RWKVLM:
     return model
 
 
+def _flat_paths(tree, prefix: str = "") -> Dict[str, object]:
+    """'/'-joined path → leaf of a nested dict/list/tuple tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out: Dict[str, object] = {}
+    for k, v in items:
+        out.update(_flat_paths(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
 @torch.no_grad()
 def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     """The port's model holding the values of the JAX params ``tree``."""
     if cfg.family == "ssm_rwkv":
         return _rwkv_from_numpy(cfg, tree, resolve_device(device))
     model = TransformerLM(cfg, resolve_device(device))
-    for k, p in model.embed.items():
-        _assign(p, tree["embed"][k], f"embed.{k}")
-    _assign(model.final_norm["w"], tree["final_norm"]["w"], "final_norm.w")
-    for gi, ((pattern, reps), layers) in enumerate(zip(layer_groups(cfg), model.groups)):
-        for i, layer in enumerate(layers):
-            r, pi = divmod(i, len(pattern))
-            src = tree["groups"][gi][pi]
-            for part in ("ln1", "ln2", "attn", "ffn"):
-                mod = getattr(layer, part)
-                if set(mod.keys()) != set(src[part].keys()):
-                    raise ValueError(f"groups[{gi}][{pi}].{part}: keys {sorted(src[part])} != {sorted(mod.keys())}")
-                for k, p in mod.items():
-                    _assign(p, np.asarray(src[part][k])[r], f"groups[{gi}][{pi}].{part}.{k}[{r}]")
+    src = _flat_paths(tree)
+    names = leaf_map(cfg, model)
+    if set(src) != set(names):
+        raise ValueError(f"params tree: keys {sorted(set(src) - set(names))} are not the port's, "
+                         f"{sorted(set(names) - set(src))} are missing")
+    params = dict(model.named_parameters())
+    for ref, (stacked, port) in names.items():
+        for r, n in enumerate(port):
+            _assign(params[n], np.asarray(src[ref])[r] if stacked else src[ref], f"{ref}[{r}]" if stacked else ref)
     return model
 
 
@@ -112,13 +125,18 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
 
 def leaf_map(cfg: ModelConfig, model) -> Dict[str, Tuple[bool, Tuple[str, ...]]]:
     """Reference leaf name → (stacked, the port's parameter names): one
-    name for an unstacked leaf, one per layer (row) for a stacked one."""
+    name for an unstacked leaf, one per layer (row) for a stacked one. A
+    transformer layer's parameter ``groups.{g}.{i}.{rest}`` is row ``i //
+    len(pattern)`` of the reference's ``groups/{g}/{i % len(pattern)}/{rest}``
+    (``rest`` with '/' for '.', ``ffn/shared/w_gate`` included); every other
+    parameter (``embed``, ``final_norm``, ``img_proj``, ``mtp``) is a leaf of
+    its own, its name the reference's path."""
     out: Dict[str, Tuple[bool, Tuple[str, ...]]] = {}
-    for k in model.embed.keys():
-        out[f"embed/{k}"] = (False, (f"embed.{k}",))
-    for k in model.final_norm.keys():
-        out[f"final_norm/{k}"] = (False, (f"final_norm.{k}",))
     if isinstance(model, RWKVLM):
+        for k in model.embed.keys():
+            out[f"embed/{k}"] = (False, (f"embed.{k}",))
+        for k in model.final_norm.keys():
+            out[f"final_norm/{k}"] = (False, (f"final_norm.{k}",))
         first = model.layers[0]
         n = len(model.layers)
         for part in ("ln1", "ln2", "ln_x"):
@@ -127,13 +145,22 @@ def leaf_map(cfg: ModelConfig, model) -> Dict[str, Tuple[bool, Tuple[str, ...]]]
         for k in first.p.keys():
             out[f"layers/{k}"] = (True, tuple(f"layers.{l}.p.{k}" for l in range(n)))
         return out
-    for gi, ((pattern, reps), layers) in enumerate(zip(layer_groups(cfg), model.groups)):
-        for pi in range(len(pattern)):
-            first = layers[pi]
-            for part in ("ln1", "ln2", "attn", "ffn"):
-                for k in getattr(first, part).keys():
-                    out[f"groups/{gi}/{pi}/{part}/{k}"] = (
-                        True, tuple(f"groups.{gi}.{r * len(pattern) + pi}.{part}.{k}" for r in range(reps)))
+    patterns = [len(pattern) for pattern, _ in layer_groups(cfg)]
+    rows: Dict[str, Dict[int, str]] = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] != "groups":
+            out["/".join(parts)] = (False, (name,))
+            continue
+        gi, li = int(parts[1]), int(parts[2])
+        r, pi = divmod(li, patterns[gi])
+        ref = "/".join(["groups", str(gi), str(pi)] + parts[3:])
+        if ref not in out:
+            out[ref] = (True, ())
+            rows[ref] = {}
+        rows[ref][r] = name
+    for ref, by_row in rows.items():
+        out[ref] = (True, tuple(by_row[r] for r in range(len(by_row))))
     return out
 
 

@@ -1,16 +1,22 @@
-"""Decoder-only transformer LM (dense GQA family), in PyTorch.
+"""Unified decoder-only transformer LM, in PyTorch.
 
-Mirrors the dense-GQA path of ``repro.models.transformer`` (llama3 /
-internlm2 / qwen, QKV bias included). Layers are organised into *groups*
-of a repeated block pattern exactly as in the JAX package; where JAX runs
-``lax.scan`` over parameters stacked on a leading ``reps`` axis, the port
-holds one :class:`DecoderLayer` per layer in an ``nn.ModuleList`` and
-loops over them. The KV cache keeps the JAX layout — per group, a tuple
-per pattern position of ``(K, V)``, each ``(reps, B, T, nkv, hd)`` — which
-the paged KV store of the next slice depends on.
+Mirrors ``repro.models.transformer``: dense GQA (llama3 / internlm2 /
+qwen, QKV bias included), MoE (granite), MLA + MoE + multi-token
+prediction (deepseek-v3), 5:1 local:global attention with ring caches
+(gemma3), and the VLM prefix (phi-3-vision's backbone fed precomputed
+patch embeddings). Layers are organised into *groups* of a repeated block
+pattern exactly as in the JAX package (gemma3: 5 × (5 local + 1 global) +
+a tail of 4 locals; deepseek: the leading dense layers, then the MoE
+layers); where JAX runs ``lax.scan`` over parameters stacked on a leading
+``reps`` axis, the port holds one :class:`DecoderLayer` per layer in an
+``nn.ModuleList`` and loops over them. The cache keeps the JAX layout —
+per group, a tuple per pattern position of a pair, each ``(reps, B, T,
+...)``: ``(K, V)`` of ``(nkv, hd)`` rows for GQA (``T = min(window,
+max_len)`` on a sliding-window layer, a ring where position ``p`` lives at
+slot ``p % T``), ``(c_kv, k_rope)`` latent rows for MLA.
 
-MLA, MoE, local/global attention, VLM and multi-token-prediction specs are
-not ported yet: they raise ``NotImplementedError`` (never skipped).
+The sharded forward (:func:`lm_xent_blocks`) covers the dense configs
+only; MoE, MLA, the VLM prefix and MTP raise there (ROADMAP P11c).
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from torch import nn
 from repro_torch.core.collectives import all_gather
 from repro_torch.core.mesh import current_region
 from repro_torch.core.streams import StreamComm
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (
     apply_norm,
     embed,
@@ -42,6 +50,7 @@ __all__ = [
     "LayerSpec",
     "layer_groups",
     "DecoderLayer",
+    "MTPHead",
     "TransformerLM",
     "init_lm",
     "lm_forward",
@@ -50,6 +59,7 @@ __all__ = [
     "prefill",
     "decode_step",
     "lm_xent_blocks",
+    "check_dense_only",
 ]
 
 
@@ -64,99 +74,184 @@ class LayerSpec:
 
 def layer_groups(cfg: ModelConfig) -> List[Tuple[Tuple[LayerSpec, ...], int]]:
     """Return [(block_pattern, reps), ...] covering cfg.n_layers."""
-    unported = []
-    if cfg.mla is not None:
-        unported.append("MLA attention")
-    if cfg.moe.enabled:
-        unported.append("MoE FFN")
-    if cfg.local_global_pattern > 0:
-        unported.append("local/global attention")
-    if cfg.vlm:
-        unported.append("VLM prefix")
-    if cfg.mtp_depth:
-        unported.append("multi-token prediction")
     if cfg.encdec or cfg.family not in ("dense", "vlm", "moe", "mla_moe"):
-        unported.append(f"family {cfg.family!r}")
-    if unported:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unported)} not ported to repro_torch yet (ROADMAP: model zoo)"
+            f"{cfg.name}: family {cfg.family!r} is not a transformer of repro_torch (ROADMAP P12b: the model zoo)"
         )
-    spec = LayerSpec("gqa", 0, cfg.rope_theta, False, cfg.d_ff)
-    return [((spec,), cfg.n_layers)]
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"{cfg.name}: norm {cfg.norm!r} is not ported yet (ROADMAP P12b: the model zoo)")
+    if cfg.mla is not None:
+        groups = []
+        kd = cfg.moe.first_k_dense
+        if kd:
+            groups.append(((LayerSpec("mla", 0, cfg.rope_theta, False, cfg.moe.dense_d_ff or cfg.d_ff),), kd))
+        groups.append(((LayerSpec("mla", 0, cfg.rope_theta, True, cfg.d_ff),), cfg.n_layers - kd))
+        return groups
+    if cfg.local_global_pattern > 0:
+        k = cfg.local_global_pattern
+        local = LayerSpec("gqa", cfg.sliding_window, cfg.rope_theta_local, False, cfg.d_ff)
+        glob = LayerSpec("gqa", 0, cfg.rope_theta, False, cfg.d_ff)
+        reps = cfg.n_layers // (k + 1)
+        groups = [((local,) * k + (glob,), reps)] if reps else []
+        tail = cfg.n_layers - reps * (k + 1)
+        if tail:
+            groups.append(((local,), tail))
+        return groups
+    groups = []
+    kd = cfg.moe.first_k_dense if cfg.moe.enabled else 0
+    if kd:
+        groups.append(((LayerSpec("gqa", 0, cfg.rope_theta, False, cfg.moe.dense_d_ff or cfg.d_ff),), kd))
+    groups.append(((LayerSpec("gqa", 0, cfg.rope_theta, cfg.moe.enabled, cfg.d_ff),), cfg.n_layers - kd))
+    return groups
 
 
-def _param(shape, cfg: ModelConfig, device) -> nn.Parameter:
+def check_dense_only(cfg: ModelConfig, what: str) -> None:
+    """Raise for a config the sharded forward, the sharded step and the
+    pipeline do not cover yet: MoE, MLA, the VLM prefix, MTP."""
+    parts = [name for name, on in (("MoE", cfg.moe.enabled), ("MLA", cfg.mla is not None), ("the VLM prefix", cfg.vlm),
+                                   ("MTP", cfg.mtp_depth > 0)) if on]
+    if parts:
+        raise NotImplementedError(
+            f"{what} covers dense configs only; {cfg.name} has {', '.join(parts)} (ROADMAP P11c)"
+        )
+
+
+def _param(shape, cfg: ModelConfig, device, dtype=None) -> nn.Parameter:
     # created without gradients: serving never takes them, and the trainer
     # turns them on for the model it trains
-    return nn.Parameter(torch.empty(shape, dtype=cfg.pdtype, device=device), requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype or cfg.pdtype, device=device), requires_grad=False)
+
+
+def _params(cfg: ModelConfig, device, shapes: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _param(s, cfg, device) for k, s in shapes.items()})
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm GQA + SwiGLU layer. Parameter names follow the JAX
-    package's tree: ``ln1.w``, ``ln2.w``, ``attn.{wq,wk,wv,wo,bq,bk,bv}``,
-    ``ffn.{w_gate,w_up,w_down}``."""
+    """One pre-norm layer: GQA or MLA attention, then a SwiGLU or MoE FFN.
+    Parameter names follow the JAX package's tree: ``ln1.w``, ``ln2.w``,
+    ``attn.{wq,wk,wv,wo,bq,bk,bv}`` (GQA) or
+    ``attn.{wq_a,q_norm,wq_b,wkv_a,kv_norm,wkv_b,wo}`` (MLA),
+    ``ffn.{w_gate,w_up,w_down}`` (SwiGLU) or ``ffn.{router,we_gate,we_up,
+    we_down}`` with ``ffn.shared.{w_gate,w_up,w_down}`` (MoE; the router is
+    fp32 whatever the param dtype)."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, device):
         super().__init__()
         self.spec = spec
         d, hd = cfg.d_model, cfg.resolved_head_dim
         nq, nkv = cfg.n_heads, cfg.n_kv_heads
-        d_ff = spec.d_ff or cfg.d_ff
-        self.ln1 = nn.ParameterDict({"w": _param((d,), cfg, device)})
-        self.ln2 = nn.ParameterDict({"w": _param((d,), cfg, device)})
-        attn = {
-            "wq": _param((d, nq * hd), cfg, device),
-            "wk": _param((d, nkv * hd), cfg, device),
-            "wv": _param((d, nkv * hd), cfg, device),
-            "wo": _param((nq * hd, d), cfg, device),
-        }
-        if cfg.qkv_bias:
-            attn["bq"] = _param((nq * hd,), cfg, device)
-            attn["bk"] = _param((nkv * hd,), cfg, device)
-            attn["bv"] = _param((nkv * hd,), cfg, device)
-        self.attn = nn.ParameterDict(attn)
-        self.ffn = nn.ParameterDict(
-            {
-                "w_gate": _param((d, d_ff), cfg, device),
-                "w_up": _param((d, d_ff), cfg, device),
-                "w_down": _param((d_ff, d), cfg, device),
-            }
-        )
+        self.ln1 = _params(cfg, device, {"w": (d,)})
+        self.ln2 = _params(cfg, device, {"w": (d,)})
+        if spec.attn == "mla":
+            m = cfg.mla
+            self.attn = _params(cfg, device, {
+                "wq_a": (d, m.q_lora_rank),
+                "q_norm": (m.q_lora_rank,),
+                "wq_b": (m.q_lora_rank, nq * m.qk_head_dim),
+                "wkv_a": (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                "kv_norm": (m.kv_lora_rank,),
+                "wkv_b": (m.kv_lora_rank, nq * (m.qk_nope_head_dim + m.v_head_dim)),
+                "wo": (nq * m.v_head_dim, d),
+            })
+        else:
+            attn = {"wq": (d, nq * hd), "wk": (d, nkv * hd), "wv": (d, nkv * hd), "wo": (nq * hd, d)}
+            if cfg.qkv_bias:
+                attn.update(bq=(nq * hd,), bk=(nkv * hd,), bv=(nkv * hd,))
+            self.attn = _params(cfg, device, attn)
+        if spec.moe:
+            m = cfg.moe
+            E, de = m.n_experts, m.d_expert
+            self.ffn = nn.ParameterDict({
+                "router": _param((d, E), cfg, device, torch.float32),
+                "we_gate": _param((E, d, de), cfg, device),
+                "we_up": _param((E, d, de), cfg, device),
+                "we_down": _param((E, de, d), cfg, device),
+            })
+            if m.n_shared:
+                ds = m.n_shared * (m.d_shared or m.d_expert)
+                self.ffn.add_module("shared", _params(cfg, device, {"w_gate": (d, ds), "w_up": (d, ds),
+                                                                    "w_down": (ds, d)}))
+        else:
+            d_ff = spec.d_ff or cfg.d_ff
+            self.ffn = _params(cfg, device, {"w_gate": (d, d_ff), "w_up": (d, d_ff), "w_down": (d_ff, d)})
+
+    def apply_full(self, cfg: ModelConfig, x, positions, train: bool = False):
+        """(x, aux loss, cache seed) of the full-sequence layer; ``train``
+        selects the MoE's train capacity."""
+        spec = self.spec
+        h = apply_norm(cfg, self.ln1, x)
+        if spec.attn == "mla":
+            a, seed = mla_mod.mla_full(cfg, self.attn, h, positions, spec.theta)
+        else:
+            a, seed = gqa_attention_full(cfg, self.attn, h, positions, window=spec.window, theta=spec.theta)
+        x = x + a
+        h = apply_norm(cfg, self.ln2, x)
+        if spec.moe:
+            f, aux = moe_mod.moe_apply(cfg, self.ffn, h, train=train)
+        else:
+            f, aux = swiglu(cfg, self.ffn, h), torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + f, aux, seed
 
     def forward_full(self, cfg: ModelConfig, x, positions):
-        h = apply_norm(cfg, self.ln1, x)
-        a, seed = gqa_attention_full(cfg, self.attn, h, positions, window=self.spec.window, theta=self.spec.theta)
-        x = x + a
-        return x + swiglu(cfg, self.ffn, apply_norm(cfg, self.ln2, x)), seed
+        """(x, cache seed) of the full-sequence layer at eval capacity."""
+        x, _, seed = self.apply_full(cfg, x, positions)
+        return x, seed
 
     forward = forward_full  # what torch.func.functional_call runs
 
-    def forward_decode(self, cfg: ModelConfig, x, cache_kv, pos):
+    def forward_decode(self, cfg: ModelConfig, x, cache, pos):
+        """One-token layer; ``cache`` (this layer's pair) is written in place."""
+        spec = self.spec
         h = apply_norm(cfg, self.ln1, x)
-        a, _ = gqa_attention_decode(cfg, self.attn, h, cache_kv, pos, theta=self.spec.theta)
+        if spec.attn == "mla":
+            a, _ = mla_mod.mla_decode(cfg, self.attn, h, cache, pos, spec.theta)
+        else:
+            a, _ = gqa_attention_decode(cfg, self.attn, h, cache, pos, window=spec.window, theta=spec.theta)
         x = x + a
-        return x + swiglu(cfg, self.ffn, apply_norm(cfg, self.ln2, x))
+        h = apply_norm(cfg, self.ln2, x)
+        f = moe_mod.moe_apply(cfg, self.ffn, h)[0] if spec.moe else swiglu(cfg, self.ffn, h)
+        return x + f
+
+
+class MTPHead(nn.Module):
+    """DeepSeek-V3's multi-token prediction module (depth 1): ``proj``
+    (2d, d), ``norm_h.w``, ``norm_e.w`` and one layer of the last group's
+    spec, as the reference's ``params["mtp"]``."""
+
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, device):
+        super().__init__()
+        d = cfg.d_model
+        self.proj = _param((2 * d, d), cfg, device)
+        self.norm_h = _params(cfg, device, {"w": (d,)})
+        self.norm_e = _params(cfg, device, {"w": (d,)})
+        self.layer = DecoderLayer(cfg, spec, device)
 
 
 class TransformerLM(nn.Module):
     """Embedding, ``groups[g]`` = the layers of group ``g`` in execution
     order (rep-major over the group's pattern), final norm, tied or untied
-    output projection. The forward functions take the config explicitly
-    (as the JAX API does), so one set of weights serves several
-    ``attn_impl`` settings."""
+    output projection, and — where the config has them — ``img_proj``
+    (d, d) for the VLM prefix and the ``mtp`` head. The forward functions
+    take the config explicitly (as the JAX API does), so one set of
+    weights serves several ``attn_impl`` settings."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         d = cfg.d_model
-        emb = {"tok": _param((cfg.vocab, d), cfg, device)}
+        emb = {"tok": (cfg.vocab, d)}
         if not cfg.tie_embeddings:
-            emb["out"] = _param((d, cfg.vocab), cfg, device)
-        self.embed = nn.ParameterDict(emb)
-        self.final_norm = nn.ParameterDict({"w": _param((d,), cfg, device)})
+            emb["out"] = (d, cfg.vocab)
+        self.embed = _params(cfg, device, emb)
+        self.final_norm = _params(cfg, device, {"w": (d,)})
+        groups = layer_groups(cfg)
         self.groups = nn.ModuleList(
             nn.ModuleList(DecoderLayer(cfg, spec, device) for _ in range(reps) for spec in pattern)
-            for pattern, reps in layer_groups(cfg)
+            for pattern, reps in groups
         )
+        if cfg.vlm:
+            self.img_proj = _param((d, d), cfg, device)
+        if cfg.mtp_depth:
+            self.mtp = MTPHead(cfg, groups[-1][0][0], device)
 
     @property
     def device(self) -> torch.device:
@@ -171,19 +266,21 @@ class TransformerLM(nn.Module):
 @torch.no_grad()
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> TransformerLM:
     """Random init with the JAX package's scales (``dense_init``: normal ·
-    1/sqrt(fan_in); token embedding 0.02; norm weights and biases zero),
-    drawn in fp32 from ``generator`` (on its own device) and cast to
-    ``cfg.param_dtype``. The draws differ from ``jax.random``'s: tests carry
+    1/sqrt(shape[0]), which for an expert stack ``(E, ...)`` is 1/sqrt(E);
+    token embedding and router 0.02; norm weights and biases zero), drawn
+    in fp32 from ``generator`` (on its own device) and cast to the
+    parameter's dtype. The draws differ from ``jax.random``'s: tests carry
     JAX weights across with :func:`repro_torch.models.convert.params_from_numpy`."""
     model = TransformerLM(cfg, device)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "w" or leaf.startswith("b"):
+        if leaf in ("w", "q_norm", "kv_norm", "bq", "bk", "bv"):
             p.zero_()
             continue
-        scale = 0.02 if leaf == "tok" else 1.0 / math.sqrt(p.shape[0])
+        scale = 0.02 if leaf in ("tok", "router") else 1.0 / math.sqrt(p.shape[0])
         draw = torch.randn(tuple(p.shape), generator=generator, device=generator.device, dtype=torch.float32)
         p.copy_((draw * scale).to(p.dtype))
+        del draw
     return model
 
 
@@ -198,40 +295,81 @@ def _tokens(model: TransformerLM, tokens) -> torch.Tensor:
     return tokens.to(device=model.device, dtype=torch.long)
 
 
-def _trunk(cfg: ModelConfig, model: TransformerLM, batch, collect_cache: bool):
+def _embed_inputs(cfg: ModelConfig, model: TransformerLM, batch):
+    """Token embeddings, with the projected image prefix in front when the
+    config is a VLM and the batch has ``img_embeds`` (B, n_img, d).
+    Returns (x, positions, n_img, tokens); positions count the prefix."""
     tokens = _tokens(model, batch["tokens"])
     x = embed(cfg, model.embed, tokens)
+    n_img = 0
+    if cfg.vlm and "img_embeds" in batch:
+        img = torch.as_tensor(batch["img_embeds"]).to(device=x.device, dtype=cfg.cdtype)
+        x = torch.cat([img @ model.img_proj.to(cfg.cdtype), x], dim=1)
+        n_img = img.shape[1]
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    return x, torch.arange(S, device=x.device).expand(B, S), n_img, tokens
+
+
+def _trunk(cfg: ModelConfig, model: TransformerLM, batch, collect_cache: bool, train: bool = False):
+    """(trunk output before the final norm, summed aux loss, per-group
+    lists of per-layer cache seeds, n_img, tokens)."""
+    x, positions, n_img, tokens = _embed_inputs(cfg, model, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     seeds = []
     for layers in model.groups:
         g_seeds = []
         for layer in layers:
             # remat only matters where autograd records the forward
-            fwd = remat_wrap(cfg, layer.forward_full) if torch.is_grad_enabled() else layer.forward_full
-            x, seed = fwd(cfg, x, positions)
+            fwd = remat_wrap(cfg, layer.apply_full) if torch.is_grad_enabled() else layer.apply_full
+            x, a, seed = fwd(cfg, x, positions, train)
+            aux = aux + a
             if collect_cache:
                 g_seeds.append(seed)
         seeds.append(g_seeds)
-    return apply_norm(cfg, model.final_norm, x), seeds
+    return x, aux, seeds, n_img, tokens
 
 
-def lm_forward(cfg: ModelConfig, model: TransformerLM, batch, collect_cache: bool = False):
-    """Returns (logits (B,S,vocab), per-group lists of per-layer (k, v)
-    seeds | None)."""
-    x, seeds = _trunk(cfg, model, batch, collect_cache)
-    return logits_out(cfg, model.embed, x), (seeds if collect_cache else None)
+def lm_forward(cfg: ModelConfig, model: TransformerLM, batch, collect_cache: bool = False, train: bool = False):
+    """Returns (logits (B,S,vocab), aux loss, per-group lists of per-layer
+    cache seeds | None, n_img, trunk output h) — the reference's tuple. The
+    VLM prefix is part of the sequence; the logits cover all of it."""
+    h, aux, seeds, n_img, _ = _trunk(cfg, model, batch, collect_cache, train)
+    logits = logits_out(cfg, model.embed, apply_norm(cfg, model.final_norm, h))
+    return logits, aux, (seeds if collect_cache else None), n_img, h
+
+
+def _mtp_loss(cfg: ModelConfig, model: TransformerLM, h_final, tokens):
+    """DeepSeek-V3 multi-token prediction (depth 1): predict t+2 from the
+    trunk state at t combined with the embedding of token t+1."""
+    mp = model.mtp
+    B, S, _ = h_final.shape
+    h = apply_norm(cfg, mp.norm_h, h_final[:, : S - 1])
+    e = apply_norm(cfg, mp.norm_e, embed(cfg, model.embed, tokens[:, 1:]))
+    z = torch.cat([h, e], dim=-1) @ mp.proj.to(cfg.cdtype)
+    positions = torch.arange(S - 1, device=z.device).expand(B, S - 1)
+    z, _, _ = mp.layer.apply_full(cfg, z, positions, train=True)
+    logits = logits_out(cfg, model.embed, apply_norm(cfg, model.final_norm, z))
+    return next_token_xent(logits, tokens[:, 1:])  # logits[t] predicts tokens[t+2]
 
 
 def lm_loss(cfg: ModelConfig, model: TransformerLM, batch):
-    """Scalar next-token loss (+metrics dict)."""
-    logits, _ = lm_forward(cfg, model, batch)
+    """Scalar training loss ``xent + aux + mtp_loss_weight · mtp`` and the
+    reference's metrics: ``xent``, ``aux``, ``mtp`` (with MTP) and ``loss``.
+    The VLM prefix's logits are left out of the loss."""
+    logits, aux, _, n_img, h = lm_forward(cfg, model, batch, train=True)
     tokens = _tokens(model, batch["tokens"])
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = _tokens(model, mask)
-    loss = next_token_xent(logits, tokens, mask)
-    return loss, {"xent": loss, "aux": torch.zeros((), device=loss.device), "loss": loss}
+    loss = next_token_xent(logits[:, n_img:] if n_img else logits, tokens, mask)
+    metrics = {"xent": loss, "aux": aux}
+    total = loss + aux
+    if cfg.mtp_depth:
+        mtp = _mtp_loss(cfg, model, h[:, n_img:] if n_img else h, tokens)
+        metrics["mtp"] = mtp
+        total = total + cfg.mtp_loss_weight * mtp
+    metrics["loss"] = total
+    return total, metrics
 
 
 # ----------------------------------------------------------------------
@@ -243,21 +381,25 @@ def _cache_len(spec: LayerSpec, max_len: int) -> int:
     return min(spec.window, max_len) if spec.window else max_len
 
 
+def _cache_rows(cfg: ModelConfig, spec: LayerSpec) -> Tuple[tuple, tuple]:
+    """The per-position shapes of a layer's cache pair."""
+    if spec.attn == "mla":
+        return (cfg.mla.kv_lora_rank,), (cfg.mla.qk_rope_head_dim,)
+    row = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    return row, row
+
+
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device):
     """Zero cache mirroring the group structure: per group, a tuple per
-    pattern position of (K, V), each (reps, B, T, nkv, hd)."""
-    hd = cfg.resolved_head_dim
+    pattern position of a pair, each (reps, B, T, ...) — (K, V) for GQA,
+    (c_kv, k_rope) for MLA; T = min(window, max_len) on a windowed layer."""
     cache = []
     for pattern, reps in layer_groups(cfg):
         entries = []
         for spec in pattern:
-            shape = (reps, B, _cache_len(spec, max_len), cfg.n_kv_heads, hd)
-            entries.append(
-                (
-                    torch.zeros(shape, dtype=cfg.cdtype, device=device),
-                    torch.zeros(shape, dtype=cfg.cdtype, device=device),
-                )
-            )
+            lead = (reps, B, _cache_len(spec, max_len))
+            entries.append(tuple(torch.zeros(lead + row, dtype=cfg.cdtype, device=device)
+                                 for row in _cache_rows(cfg, spec)))
         cache.append(tuple(entries))
     return cache
 
@@ -265,11 +407,12 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device):
 @torch.no_grad()
 def prefill(cfg: ModelConfig, model: TransformerLM, batch, max_len: Optional[int] = None):
     """Full forward returning (last-position logits (B,vocab), cache filled
-    to S and zero-padded to ``max_len``). Only the last position's logits
-    are computed: each row of the output projection is independent, so
-    they equal the JAX package's full-sequence logits taken at ``[:, -1]``."""
-    x, seeds = _trunk(cfg, model, batch, collect_cache=True)
-    logits = logits_out(cfg, model.embed, x[:, -1])
+    to S and zero-padded to ``max_len``; a windowed layer's ring holds the
+    last T positions, position p at slot p % T). Only the last position's
+    logits are computed: each row of the output projection is independent,
+    so they equal the JAX package's full-sequence logits taken at ``[:, -1]``."""
+    x, _, seeds, _, _ = _trunk(cfg, model, batch, collect_cache=True)
+    logits = logits_out(cfg, model.embed, apply_norm(cfg, model.final_norm, x[:, -1]))
     S = x.shape[1]
     max_len = max_len or S
     cache = []
@@ -278,7 +421,7 @@ def prefill(cfg: ModelConfig, model: TransformerLM, batch, max_len: Optional[int
         for pi, spec in enumerate(pattern):
             T = _cache_len(spec, max_len)
             pair = []
-            for j in (0, 1):  # k, v
+            for j in (0, 1):
                 a = torch.stack([g_seeds[r * len(pattern) + pi][j] for r in range(reps)])
                 if S >= T:
                     # ring convention: position p lives at slot p % T
@@ -303,8 +446,8 @@ def decode_step(cfg: ModelConfig, model: TransformerLM, cache, tokens, pos):
     for (pattern, reps), layers, gc in zip(layer_groups(cfg), model.groups, cache):
         for i, layer in enumerate(layers):
             r, pi = divmod(i, len(pattern))
-            K, V = gc[pi]
-            x = layer.forward_decode(cfg, x, (K[r], V[r]), pos)
+            a, b = gc[pi]
+            x = layer.forward_decode(cfg, x, (a[r], b[r]), pos)
     x = apply_norm(cfg, model.final_norm, x)
     return logits_out(cfg, model.embed, x)[:, 0], cache
 
@@ -344,7 +487,8 @@ def lm_xent_blocks(cfg: ModelConfig, model: TransformerLM, blocks, specs, batch,
     (which may live on ``torch.device("meta")``). With ``compute=False``
     the rank only takes part in the gathers its peers need and returns
     ``None``. The sum and count give the reference's mean over any split
-    of the batch: ``Σ sum / Σ count``."""
+    of the batch: ``Σ sum / Σ count``. Dense configs only (ROADMAP P11c)."""
+    check_dense_only(cfg, "lm_xent_blocks")
     emb = _constrain_layer(cfg, blocks, specs, "embed.")
     x = None
     if compute:

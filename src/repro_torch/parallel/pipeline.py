@@ -37,6 +37,7 @@ from repro_torch.core.collectives import all_reduce, ppermute
 from repro_torch.core.enqueue import OffloadWindow, _poll_dispatched, _wait_dispatched, dispatch_enqueue, dispatch_state
 from repro_torch.core.mesh import P, axis_index, axis_size, current_region, shard_map
 from repro_torch.core.streams import STREAM_NULL, StreamComm, new_token, serialize_on
+from repro_torch.models.transformer import check_dense_only
 
 __all__ = ["gpipe_forward", "gpipe_forward_host", "pipeline_loss_fn", "split_stages"]
 
@@ -349,8 +350,10 @@ def pipeline_loss_fn(
 
     params = {"embed": ..., "stages": every stage's parameters (see the
     module docstring), "head": ...}. Call ``backward`` on the result after
-    the region, from the caller.
+    the region, from the caller. Dense configs only (ROADMAP P11c).
     """
+    check_dense_only(cfg, "the pipeline")
+
     def loss(params, batch):
         def inner(stages, tokens):
             rank = axis_index(pipe_axis)

@@ -118,9 +118,11 @@ def test_cuda_requested_without_cuda_raises(name):
 def test_unported_configs_raise_with_roadmap_pointer():
     from repro_torch.configs import get_config, list_archs
 
-    assert list_archs() == ["qwen1.5-0.5b", "rwkv6-7b"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("jamba-v0.1-52b")
+    assert list_archs() == ["qwen1.5-0.5b", "rwkv6-7b", "granite-moe-1b-a400m", "deepseek-v3-671b", "llama3-405b",
+                            "internlm2-20b", "gemma3-4b", "phi-3-vision-4.2b"]
+    for arch in ("jamba-v0.1-52b", "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

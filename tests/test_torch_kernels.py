@@ -86,6 +86,33 @@ def test_gqa_flash_attention_matches_pallas(nq, nkv):
     np.testing.assert_allclose(_np(o_port), _np(o_jax), atol=3e-5, rtol=3e-5)
 
 
+@pytest.mark.parametrize("hd", [96, 256])
+@pytest.mark.parametrize("nq,nkv", [(4, 4), (4, 2)], ids=["mha", "gqa"])
+def test_flash_attention_plain_new_head_dims_match_pallas(hd, nq, nkv):
+    """phi-3's hd 96 and gemma3's hd 256 (the CUDA kernels' new head dims):
+    the plain version the card holds them against, against the Pallas
+    kernel in interpret mode, S = 128."""
+    B, S = 1, 128
+    q, k, v = _normal(hd + nkv, (B, S, nq, hd), (B, S, nkv, hd), (B, S, nkv, hd))
+    o_jax = jops.gqa_flash_attention(*map(jnp.asarray, (q, k, v)), block_q=64, block_k=64)
+    o_port = tfa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(_np(o_port), _np(o_jax), atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("hd,ok", [(64, True), (96, True), (128, True), (256, True), (80, False), (32, False),
+                                   (512, False)])
+def test_flash_kernel_head_dims(hd, ok):
+    """The CUDA kernels take hd 64, 96, 128 and 256; any other hd raises on
+    the card (no fallback), while a CPU tensor runs the plain version."""
+    q = torch.zeros(1, 128, 2, hd, dtype=torch.bfloat16)
+    if ok:
+        tfa.check_kernel_inputs(q, q, q)
+    else:
+        with pytest.raises(ValueError, match="hd in"):
+            tfa.check_kernel_inputs(q, q, q)
+    assert tfa.flash_attention(q, q, q).shape == q.shape and tfa.flash_attention.launches == 0
+
+
 def test_flash_attention_noncausal_matches_pallas():
     q, k, v = _normal(3, *[(1, 128, 64)] * 3)
     o_jax = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), causal=False, block_q=64, block_k=64)

@@ -157,9 +157,9 @@ def test_init_params_uses_reference_scales():
 
 
 @pytest.mark.parametrize("arch_kw,match", [
-    (dict(local_global_pattern=5), "local/global"),
+    (dict(norm="layernorm"), "layernorm"),
     (dict(family="hybrid"), "jamba"),
-    (dict(mtp_depth=1), "multi-token"),
+    (dict(encdec=True), "encdec"),
 ])
 def test_unported_model_parts_raise(arch_kw, match):
     _, tcfg = _configs("float32", **arch_kw)

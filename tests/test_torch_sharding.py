@@ -6,7 +6,9 @@ The reference's specs are computed on its abstract params
 ``torch.device("meta")``, at smoke and full width, for ``qwen1.5-0.5b`` and
 ``rwkv6-7b``, on the ``(2, 16, 16)`` and ``(16, 16)`` meshes (only the
 axis names and sizes are read, so a stand-in mesh serves), with the
-baseline layout, ``fsdp`` and ``tp_strategy="ep_only"``. A port spec must
+baseline layout, ``fsdp`` and ``tp_strategy="ep_only"``; the parameter and
+moment specs also for ``granite-moe-1b-a400m`` (MoE) and
+``deepseek-v3-671b`` (MLA, MoE with a shared expert, MTP). A port spec must
 equal the reference's spec of the stacked leaf with the stacking entry
 dropped; ``models.convert.leaf_map`` pairs the names. Exact equality.
 """
@@ -66,7 +68,7 @@ def _flat(tree):
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("mesh_name", sorted(MESHES))
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "rwkv6-7b", "granite-moe-1b-a400m", "deepseek-v3-671b"])
 def test_param_and_moment_specs_match_reference(arch, smoke, mesh_name, variant):
     mesh = _StubMesh(*MESHES[mesh_name])
     jcfg = jget(arch, smoke=smoke).replace(**VARIANTS[variant])
