@@ -29,7 +29,12 @@ published widths (``zoo``: the MoE ``granite-moe-1b-a400m`` served with
 flash at hd 64; ``gemma3-4b`` served with its local layers' ring caches
 wrapping and flash at hd 256 on its global layers; ``phi-3-vision-4.2b``'s
 image prefix with flash at hd 96; ``deepseek-v3-671b``'s MLA and 256-expert
-MoE cut to 4 layers, decoding through the absorbed latent cache). Each
+MoE cut to 4 layers, decoding through the absorbed latent cache), and the
+rest of the model zoo (``zoo2``: ``jamba-v0.1-52b`` cut to one period of 8
+layers, served with its Mamba states in the engine's cache and flash at
+hd 128 on its attention layer; ``whisper-tiny``'s 1500 stub frames and
+decoder prompts through the api with flash at hd 64 on the decoder; the
+``Trainer`` on whisper-tiny and on rwkv6-7b cut to 4 layers). Each
 phase prints one JSON line; any failure exits
 non-zero before the last line. The last lines are the per-kernel summary (each
 kernel's ``launches`` summed over the paths that run it, with each path's
@@ -156,6 +161,21 @@ ZOO_DEEPSEEK_STEPS = 8
 # phi-3-vision's prefill (hd 96) and gemma3's global layers at its longest
 # prompt (hd 256)
 ZOO_FLASH = {96: (1, 768, 32, 32), 256: (1, 1152, 8, 4)}
+# the zoo2 phase: (a) jamba-v0.1-52b cut to one period (8 of 32 layers),
+# serve's traffic into ServeEngine(4, 512); (b) whisper-tiny at full depth:
+# 4 requests of 1500 stub frames and these decoder prompts, 16 greedy steps
+# each through the api; (c) Trainer steps on whisper-tiny and on rwkv6-7b
+# cut to 4 of 32 layers, with the batches (B x S) they train on
+ZOO2_JAMBA_LAYERS = 8
+ZOO2_WHISPER_S = (128, 256, 384, 128)
+ZOO2_NEW = 16
+ZOO2_TRAIN_STEPS = 4
+ZOO2_RWKV_LAYERS = 4
+ZOO2_WHISPER_BATCH = (4, 256)
+ZOO2_RWKV_BATCH = (8, 128)
+# flash at the zoo2 paths' shapes (hd, (B, S, nq, nkv)), bf16: jamba's
+# attention layer and whisper's decoder self-attention at the longest prompt
+ZOO2_FLASH = {"jamba": (128, (1, 384, 32, 8)), "whisper": (64, (1, 384, 6, 6))}
 
 
 def emit(phase: str, **kw) -> None:
@@ -370,6 +390,26 @@ def phase_kernels(torch, timer):
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
             zoo_rows.append(row)
             del q, k, v, qt, kt, vt, out, ref
+    for part, (hd, (B, S, nq, nkv)) in ZOO2_FLASH.items():
+        q, k, v = qkv(B, S, nq, nkv, hd, torch.bfloat16)
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v)
+        row = dict(part=part, B=B, S=S, nq=nq, nkv=nkv, hd=hd, dtype="bfloat16", causal=True, tol=2e-2,
+                   max_abs_err=max_err(out, ref), ok=within(out, ref, 2e-2))
+        check(row["ok"], f"flash_attention vs plain within 2e-2: {row}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, k, v read once, out written once
+        flops = 4 * B * nq * hd * S * (S + 1) // 2  # QK^T and PV over the causal triangle
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+        row.update(ms=timer(lambda: fa.flash_attention(q, k, v)), plain_ms=timer(lambda: fa.flash_attention_plain(q, k, v)),
+                   library_ms=timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                           enable_gqa=nq != nkv)),
+                   bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        zoo_rows.append(row)
+        del q, k, v, qt, kt, vt, out, ref
     emit("kernels", kernel="flash_attention", cases=flash_rows, timings=flash_times, zoo_head_dims=zoo_rows)
 
     # dt_pack / dt_unpack: byte-exact over the reference sweep shapes, the
@@ -1944,9 +1984,9 @@ def release(torch) -> None:
 def zoo_bytes(torch, cfg) -> dict:
     """The weights' bytes of ``cfg``, reckoned on a meta model, beside the
     card's free memory; raises when they would not fit."""
-    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.models.api import model_class
 
-    meta = TransformerLM(cfg, torch.device("meta"))
+    meta = model_class(cfg)(cfg, torch.device("meta"))
     n = sum(q.numel() for q in meta.parameters())
     nbytes = sum(q.numel() * q.element_size() for q in meta.parameters())
     free, total = torch.cuda.mem_get_info()
@@ -2060,21 +2100,24 @@ def route_flips(torch, a: MoERoutes, b_calls: list) -> dict:
 def decode_vs_full(torch, cfg, model, batch, n_prefix: int, steps: int, routes: dict | None = None) -> float:
     """Prefill the first ``n_prefix`` tokens of ``batch``, decode the next
     ``steps`` tokens of it through the cache, and hold each step's logits
-    against ``lm_forward`` of the whole sequence at the same position; the
+    against the full forward (``lm_forward``, or ``jamba_forward`` for
+    Jamba) of the whole sequence at the same position; the
     largest relative error over the steps. With ``routes`` (a MoE model),
     the routing's part in that error is put into it: how the cached path's
     top-k choices differ from the full forward's (:func:`route_flips`), and
     the largest error again with the full forward's choices imposed on the
     cached path (``rel_shared``)."""
     from repro_torch.models import api
+    from repro_torch.models.jamba import jamba_forward
     from repro_torch.models.transformer import lm_forward
 
     tokens = torch.as_tensor(batch["tokens"], device="cuda").long()
     extra = {k: v for k, v in batch.items() if k != "tokens"}
     n_img = cfg.n_img_tokens if "img_embeds" in extra else 0
     B, T, k = tokens.shape[0], n_img + tokens.shape[1], cfg.moe.top_k
+    forward = jamba_forward if api.family(cfg) == "jamba" else lambda *a: lm_forward(*a)[:1]
     with torch.no_grad(), MoERoutes(torch) as full_routes:
-        full, _, _, _, _ = lm_forward(cfg, model, {"tokens": tokens, **extra})
+        full = forward(cfg, model, {"tokens": tokens, **extra})[0]
 
     def full_choice(i):  # the full forward's choices for the cached path's i-th call
         n = len(full_routes.calls)
@@ -2471,6 +2514,285 @@ def phase_zoo(torch, smi: str) -> dict:
     return dict(flash_launches=launches, fp32_check_launches=fp32_check)
 
 
+def jamba_attn_rel(torch, cfg, model, batch) -> float:
+    """The attention layer's output (``wo`` included), flash against einsum
+    on the same input: the layer input of one einsum forward of the layers
+    before it."""
+    from repro_torch.models.common import apply_norm, embed, gqa_attention_full
+
+    ein = cfg.replace(attn_impl="einsum")
+    with torch.no_grad():
+        tokens = torch.as_tensor(batch["tokens"], device="cuda").long()
+        x = embed(ein, model.embed, tokens)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device="cuda").expand(B, S)
+        for layer in model.blocks[0]:
+            if layer.kind[0] == "attn":
+                h = apply_norm(ein, layer.ln1, x)
+                a_f, _ = gqa_attention_full(cfg, layer.mixer, h, positions, theta=cfg.rope_theta)
+                a_e, _ = gqa_attention_full(ein, layer.mixer, h, positions, theta=cfg.rope_theta)
+                return rel_err(a_f, a_e)
+            x, _, _ = layer.apply_full(ein, x, positions, None)
+    raise AssertionError("no attention layer in the first period")
+
+
+def zoo2_jamba(torch, smi: str) -> tuple:
+    """(a) jamba-v0.1-52b at its published widths cut to one period (7
+    Mamba + 1 attention layers, 4 MoE + 4 dense FFNs) behind ServeEngine:
+    serve's traffic, flash on the attention layer of every prefill. Then
+    the same weights widened to fp32 in place (the bf16 model goes tensor by
+    tensor: the two together would not fit) for the held whole-model checks
+    and the same traffic again, each request against its lone run."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.jamba import block_layout
+    from repro_torch.serving.paged_kv import cache_leaves
+
+    cfg = get_config("jamba-v0.1-52b").replace(n_layers=ZOO2_JAMBA_LAYERS, attn_impl="flash")
+    layout = block_layout(cfg)
+    n_attn = sum(m == "attn" for m, _ in layout)
+    checks = [(n_attn == 1 and sum(f == "moe" for _, f in layout) == 4 and cfg.resolved_head_dim == 128,
+               f"jamba: one period of 1 attention layer (hd 128) and 4 MoE layers: {layout}")]
+    sizes = zoo_bytes(torch, cfg)
+    model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (FLASH_SERVE_S[i % len(FLASH_SERVE_S)],)) for i in range(8)]
+    for p in prompts[: len(FLASH_SERVE_S)]:  # warm-up outside the counted run
+        api.prefill(cfg, model, {"tokens": p[None]}, max_len=512)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api.prefill(cfg, model, {"tokens": prompts[2][None]}, max_len=512)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    run = zoo_serve(torch, cfg, model, prompts, max_batch=4, max_len=512, max_new=ZOO2_NEW)
+    checks.append((run["launches"] == len(prompts) * n_attn,
+                   f"jamba: flash launches {run['launches']} == {len(prompts)} prefills x {n_attn} attention layer"))
+    r0 = run["reqs"][2]  # 384 tokens
+    batch = {"tokens": r0.prompt[None]}
+    seq = {"tokens": np.concatenate([r0.prompt, np.asarray(r0.out_tokens[:8])])[None]}
+    out = {"layer_attn_rel_bf16": jamba_attn_rel(torch, cfg, model, batch)}
+    checks.append((out["layer_attn_rel_bf16"] <= 2e-2,
+                   f"jamba: the attention layer, flash vs einsum in bf16: {out['layer_attn_rel_bf16']} <= 2e-2"))
+    # bf16 whole-model readings, reported: a random router's near-uniform
+    # choices flip under bf16 rounding (PERF.md section 6)
+    ein = cfg.replace(attn_impl="einsum")
+    with MoERoutes(torch) as r_flash:
+        l_flash, _ = api.prefill(cfg, model, batch, max_len=512)
+    with MoERoutes(torch) as r_ein:
+        l_ein, _ = api.prefill(ein, model, batch, max_len=512)
+    with MoERoutes(torch, impose=lambda i: r_ein.calls[i]):
+        l_shared, _ = api.prefill(cfg, model, batch, max_len=512)
+    out.update(prefill_flash_vs_einsum_rel_bf16=rel_err(l_flash, l_ein),
+               prefill_routes_flash_vs_einsum_bf16=route_flips(torch, r_flash, r_ein.calls),
+               prefill_flash_vs_einsum_rel_bf16_shared_routes=rel_err(l_shared, l_ein))
+    dec_routes = {}
+    out["decode_vs_full_rel_bf16"] = decode_vs_full(torch, cfg, model, seq, len(r0.prompt), 8, dec_routes)
+    out["decode_routes_vs_full_bf16"] = dec_routes
+    del l_flash, l_ein, l_shared
+    cache = api.init_cache(cfg, 4, 512, "cuda")
+    tok = torch.zeros(4, dtype=torch.long, device="cuda")
+    pos = torch.full((4,), 400, dtype=torch.long, device="cuda")
+    decode_ms = host_ms(torch, lambda: api.decode_step(cfg, model, cache, tok, pos))
+    state_bytes = sum(t.numel() * t.element_size() for t in cache_leaves(cache))
+    decode_bound_ms = (sizes["weight_bytes"] + state_bytes) / H100_BYTES_PER_S * 1e3  # dropless: every expert is read
+    del cache
+
+    # the same weights widened to fp32 in place, one tensor at a time
+    for q in model.parameters():
+        q.data = q.data.float()
+        release(torch)
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    l32_flash, _ = api.prefill(cfg32, model, batch, max_len=512)
+    l32_ein, _ = api.prefill(cfg32.replace(attn_impl="einsum"), model, batch, max_len=512)
+    out["prefill_flash_vs_einsum_rel_fp32"] = rel_err(l32_flash, l32_ein)
+    out["decode_vs_full_rel_fp32"] = decode_vs_full(torch, cfg32, model, seq, len(r0.prompt), 8)
+    checks.append((out["prefill_flash_vs_einsum_rel_fp32"] <= 1e-3,
+                   f"jamba fp32 copy, flash vs einsum last logits: {out['prefill_flash_vs_einsum_rel_fp32']} <= 1e-3"))
+    checks.append((out["decode_vs_full_rel_fp32"] <= 5e-2,
+                   f"jamba fp32 copy, decode vs the full forward: {out['decode_vs_full_rel_fp32']} <= 5e-2"))
+    run32 = zoo_serve(torch, cfg32, model, prompts, max_batch=4, max_len=512, max_new=ZOO2_NEW)
+    div32 = alone_divergences(torch, cfg32, model, run32["reqs"], 512)
+    checks += [(d["margin"] <= d["bf16_step"], f"jamba fp32: a request leaves its lone run at a clear margin: {d}")
+               for d in div32]
+    out = dict(arch=cfg.name, reduced=dict(n_layers=f"32 -> {cfg.n_layers}"), n_layers=cfg.n_layers,
+               d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+               experts=cfg.moe.n_experts, top_k=cfg.moe.top_k, d_inner=cfg.ssm.d_inner(cfg.d_model), **sizes,
+               **run["stats"], flash_launches=run["launches"], prefill_384_host_s=prefill_s, **out,
+               alone_divergences_fp32=div32, fp32_run=run32["stats"], fp32_flash_launches=run32["launches"],
+               decode_step_host_ms=decode_ms, decode_step_bound_ms=decode_bound_ms,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi)
+    return out, checks
+
+
+def whisper_serve(torch, cfg, model, reqs, steps: int) -> tuple:
+    """Each request (tokens (1, S), enc_frames (1, 1500, d)) prefilled and
+    decoded ``steps - 1`` greedy steps through the api: its tokens, the
+    logits of each decode step, and the host seconds."""
+    from repro_torch.models import api
+
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in reqs:
+        S = batch["tokens"].shape[1]
+        logits, cache = api.prefill(cfg, model, batch, max_len=S + steps)
+        toks, step_logits = [int(torch.argmax(logits[0]))], []
+        for i in range(steps - 1):
+            pos = torch.tensor([S + i], device="cuda")
+            logits, cache = api.decode_step(cfg, model, cache, torch.tensor([toks[-1]], device="cuda"), pos)
+            step_logits.append(logits)
+            toks.append(int(torch.argmax(logits[0])))
+        outs.append((toks, torch.cat(step_logits)))
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0
+
+
+def zoo2_whisper(torch, smi: str) -> tuple:
+    """(b) whisper-tiny at its published widths (4 + 4 layers, d 384):
+    4 requests, each of 1500 seeded-normal frames (the stub front end) and
+    a decoder prompt, prefilled with flash (hd 64) on the decoder's
+    self-attention and decoded through the api; each decode step held
+    against the teacher-forced decoder over the same tokens."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.common import logits_out
+    from repro_torch.models.whisper import decode_full, encode
+    from repro_torch.serving.paged_kv import cache_leaves
+
+    cfg = get_config("whisper-tiny").replace(attn_impl="flash")
+    sizes = zoo_bytes(torch, cfg)
+    model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    reqs = [{"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (1, n))).cuda(),
+             "enc_frames": torch.from_numpy(rng.standard_normal((1, cfg.n_audio_ctx, cfg.d_model),
+                                                                dtype=np.float32)).cuda()}
+            for n in ZOO2_WHISPER_S]
+    api.prefill(cfg, model, reqs[0], max_len=ZOO2_WHISPER_S[0] + ZOO2_NEW)  # warm-up
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    outs, serve_s = whisper_serve(torch, cfg, model, reqs, ZOO2_NEW)
+    launches = fa.flash_attention.launches
+    checks = [(launches == len(reqs) * cfg.n_layers,
+               f"whisper: flash launches {launches} == {len(reqs)} prefills x {cfg.n_layers} decoder layers"),
+              (all(len(t) == ZOO2_NEW for t, _ in outs), f"whisper: every request has {ZOO2_NEW} tokens")]
+    # each decode step against the teacher-forced decoder over prompt + the
+    # tokens fed so far (einsum: S + 15 is not a multiple of 128)
+    dvf = []
+    with torch.no_grad():
+        for batch, (toks, step_logits) in zip(reqs, outs):
+            S = batch["tokens"].shape[1]
+            seq = torch.cat([batch["tokens"], torch.tensor([toks[:-1]], device="cuda")], dim=1)
+            x, _ = decode_full(cfg, model, seq, encode(cfg, model, batch["enc_frames"]))
+            full = logits_out(cfg, model.embed, x[0, S:])
+            dvf.append(rel_err(step_logits, full))
+    checks.append((max(dvf) <= 5e-2, f"whisper bf16, decode vs the teacher-forced decoder: {dvf} <= 5e-2"))
+    long = reqs[ZOO2_WHISPER_S.index(max(ZOO2_WHISPER_S))]
+    ein = cfg.replace(attn_impl="einsum")
+    l_flash, _ = api.prefill(cfg, model, long)
+    l_ein, _ = api.prefill(ein, model, long)
+    model32 = copy.deepcopy(model).float()
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    l32_flash, _ = api.prefill(cfg32, model32, long)
+    l32_ein, _ = api.prefill(cfg32.replace(attn_impl="einsum"), model32, long)
+    rel16, rel32 = rel_err(l_flash, l_ein), rel_err(l32_flash, l32_ein)
+    checks += [(rel16 <= 5e-2, f"whisper bf16, flash vs einsum last logits: {rel16} <= 5e-2"),
+               (rel32 <= 1e-3, f"whisper fp32 copy, flash vs einsum last logits: {rel32} <= 1e-3")]
+    checks.append((all(bool(torch.isfinite(sl).all()) for _, sl in outs), "whisper: finite decode logits"))
+    S = max(ZOO2_WHISPER_S)
+    _, cache = api.prefill(cfg, model, long, max_len=S + ZOO2_NEW)
+    tok, pos = torch.tensor([0], device="cuda"), torch.tensor([S], device="cuda")
+    decode_ms = host_ms(torch, lambda: api.decode_step(cfg, model, cache, tok, pos))
+    state_bytes = sum(t.numel() * t.element_size() for t in cache_leaves(cache))
+    out = dict(arch=cfg.name, enc_layers=cfg.n_enc_layers, dec_layers=cfg.n_layers, d_model=cfg.d_model,
+               heads=cfg.n_heads, head_dim=cfg.resolved_head_dim, frames=cfg.n_audio_ctx, **sizes,
+               requests=len(reqs), prompt_lens=list(ZOO2_WHISPER_S), new_tokens=ZOO2_NEW, serve_host_s=serve_s,
+               tokens_per_s=len(reqs) * ZOO2_NEW / serve_s, flash_launches=launches, decode_vs_full_rel_bf16=dvf,
+               prefill_flash_vs_einsum_rel_bf16=rel16, prefill_flash_vs_einsum_rel_fp32=rel32,
+               decode_step_host_ms=decode_ms,
+               decode_step_bound_ms=(sizes["weight_bytes"] + state_bytes) / H100_BYTES_PER_S * 1e3, nvidia_smi=smi)
+    return out, checks
+
+
+def zoo2_train_one(torch, cfg, data_shape, lr: float) -> tuple:
+    """``Trainer`` on ``cfg`` for ZOO2_TRAIN_STEPS steps: its losses, step
+    host ms, peak memory, and the flash and WKV kernel launches in the run
+    (none: training takes the einsum and per-token routes, as the
+    reference's loss does)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as wk
+    from repro_torch.launch.train import Trainer
+    from repro_torch.optim.adamw import AdamWConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, AdamWConfig(lr=lr, warmup_steps=1, total_steps=ZOO2_TRAIN_STEPS),
+                 DataConfig(batch=data_shape[0], seq=data_shape[1]), autotune=False, seed=0)
+    try:
+        n_params = sum(p.numel() for p in tr.params.parameters())
+        fa.flash_attention.launches = wk.wkv6.launches = 0
+        t0 = time.perf_counter()
+        hist = tr.run(ZOO2_TRAIN_STEPS, log_every=1)
+        wall = time.perf_counter() - t0
+        out = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params, batch=data_shape[0],
+                   seq=data_shape[1], grad_accum=cfg.grad_accum, remat=cfg.remat, attn_impl=cfg.attn_impl,
+                   losses=[float(l) for l in hist], wall_s=wall,
+                   step_host_ms=statistics.median(tr.step_seconds[1:]) * 1e3,
+                   flash_launches=fa.flash_attention.launches, wkv6_launches=wk.wkv6.launches,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    finally:
+        tr.close()
+    name = cfg.name
+    checks = [(len(hist) == ZOO2_TRAIN_STEPS and all(math.isfinite(l) for l in out["losses"]),
+               f"{name}: finite losses {out['losses']}"),
+              (out["losses"][-1] < out["losses"][0], f"{name}: the last loss is below the first: {out['losses']}"),
+              (out["wkv6_launches"] == 0 and out["flash_launches"] == 0,
+               f"{name}: no K2 or K3 launch under autograd: {out['flash_launches']}, {out['wkv6_launches']}")]
+    return out, checks
+
+
+def zoo2_train(torch, smi: str) -> tuple:
+    """(c) training: whisper-tiny at its published widths and depth, and
+    rwkv6-7b at its published widths cut to 4 of 32 layers (its fp32 master
+    and AdamW moments at full depth would not fit one card), through
+    ``Trainer``. rwkv6 trains with ``attn_impl="flash"``, so its K3 count
+    shows that the loss takes the per-token route."""
+    from repro_torch.configs import get_config
+
+    whisper, c1 = zoo2_train_one(torch, get_config("whisper-tiny"), ZOO2_WHISPER_BATCH, 1e-3)
+    release(torch)
+    rcfg = get_config("rwkv6-7b").replace(n_layers=ZOO2_RWKV_LAYERS, attn_impl="flash")
+    rwkv, c2 = zoo2_train_one(torch, rcfg, ZOO2_RWKV_BATCH, 1e-3)
+    rwkv["reduced"] = dict(n_layers=f"32 -> {rcfg.n_layers}")
+    return dict(whisper=whisper, rwkv=rwkv, nvidia_smi=smi), c1 + c2
+
+
+def phase_zoo2(torch, smi: str) -> dict:
+    """The rest of the model zoo at published widths, one model at a time:
+    (a) jamba served at one period, (b) whisper-tiny through the api, (c)
+    whisper-tiny and rwkv6-7b (4 layers) trained. Each part's line is
+    printed before its checks are applied."""
+    t0 = time.perf_counter()
+    parts, failed = {}, []
+    for name, fn in (("jamba", zoo2_jamba), ("whisper", zoo2_whisper), ("train", zoo2_train)):
+        release(torch)  # the previous model went with its part's frame
+        t = time.perf_counter()
+        parts[name], checks = fn(torch, smi)
+        parts[name]["part_host_s"] = time.perf_counter() - t
+        emit("zoo2", part=name, **parts[name], checks_failed=[w for ok, w in checks if not ok])
+        failed += [f"{name}: {w}" for ok, w in checks if not ok]
+    launches = dict(jamba=parts["jamba"]["flash_launches"], jamba_fp32=parts["jamba"]["fp32_flash_launches"],
+                    whisper=parts["whisper"]["flash_launches"])
+    emit("zoo2", part="summary", flash_launches=launches, phase_host_s=time.perf_counter() - t0, nvidia_smi=smi)
+    check(not failed, f"zoo2: {failed}")
+    return dict(flash_launches=launches)
+
+
 def phase_timer_ab(torch) -> None:
     """The timer's variants, each in turns so that a change of timer can be
     told from noise, and the pack's timed shapes under the default timer.
@@ -2525,10 +2847,12 @@ def phase_timer_ab(torch) -> None:
     emit("timer_ab", flush=flush, spin=spin, pack_shapes=pack_shape_rows(torch, flushes["read"], bufs, check_exact=False))
 
 
-def zoo_launches(zoo: dict, row: dict) -> dict:
+def zoo_launches(zoo: dict, zoo2: dict, row: dict) -> dict:
     """The zoo's K2 launches at a kernels-line row's head dim and dtype:
     the served bf16 run of the model with that head dim, or its fp32
     copy's one flash prefill (a check), and which run it was."""
+    if "part" in row:  # a zoo2 shape
+        return dict(launches=zoo2["flash_launches"][row["part"]], launches_in=f"zoo2 {row['part']}: the bf16 run")
     part = {96: "phi3", 256: "gemma3"}[row["hd"]]
     if row["dtype"] == "bfloat16":
         return dict(launches=zoo["flash_launches"][part], launches_in=f"zoo {part}: the bf16 run")
@@ -2590,6 +2914,7 @@ def main() -> int:
     pipe = phase_pipeline(torch, smi)
     rwkv = phase_serve_rwkv(torch)
     zoo = phase_zoo(torch, smi)
+    zoo2 = phase_zoo2(torch, smi)
 
     ft = kern["flash_times"][-1]  # the longest served prompt, S = 384
     ut = paged["unpack"]["timings"]["decode_step"]  # the paged path's most frequent move
@@ -2597,15 +2922,16 @@ def main() -> int:
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:75",
              launches=serve["flash_launches"] + paged["flash_launches"] + train["flash_launches"]
-             + pipe["flash_launches"] + sum(zoo["flash_launches"].values()),
+             + pipe["flash_launches"] + sum(zoo["flash_launches"].values()) + sum(zoo2["flash_launches"].values()),
              launches_by_path=dict(serve=serve["flash_launches"], serve_paged=paged["flash_launches"],
                                    train=train["flash_launches"], pipeline=pipe["flash_launches"],
-                                   **{f"zoo_{k}": n for k, n in zoo["flash_launches"].items()}),
+                                   **{f"zoo_{k}": n for k, n in zoo["flash_launches"].items()},
+                                   **{f"zoo_{k}": n for k, n in zoo2["flash_launches"].items()}),
              max_abs_err=kern["flash_err"], ms=ft["ms"], plain_ms=ft["plain_ms"], bound_ms=ft["bound_ms"],
              bound_by=ft["bound_by"], library_ms=ft["library_ms"],
              by_head_dim=[dict({k: r[k] for k in ("hd", "dtype", "B", "S", "nq", "nkv", "max_abs_err", "ms", "plain_ms",
                                                   "bound_ms", "bound_by", "library_ms")},
-                               **zoo_launches(zoo, r))
+                               **zoo_launches(zoo, zoo2, r))
                           for r in kern["flash_zoo"]]),
         dict(name="dt_pack", route="cuda", source="src/repro_torch/csrc/dt_pack.cu",
              replaces="src/repro/kernels/dt_pack.py:50",

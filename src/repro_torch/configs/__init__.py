@@ -1,4 +1,4 @@
-"""Published model configurations (the ported part of the zoo)."""
+"""Published model configurations of the whole zoo."""
 
 from repro_torch.configs.registry import get_config, list_archs
 

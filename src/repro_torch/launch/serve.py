@@ -4,18 +4,22 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --no-smoke \
         --attn-impl flash --prompt-lens 128,256,448 --max-len 512
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --device cpu
 
-``--arch`` takes every ported architecture (``repro_torch.configs.list_archs``):
-the dense, MoE, MLA, local/global and VLM transformers and RWKV-6. A VLM
-is served on text prompts alone, as the JAX package's serve CLI serves it.
+``--arch`` takes every architecture (``repro_torch.configs.list_archs``):
+the dense, MoE, MLA, local/global and VLM transformers, RWKV-6 and the
+Jamba hybrid are served; a VLM on text prompts alone, as the JAX
+package's serve CLI serves it. Whisper's encoder-decoder needs audio
+frames with each prompt, which ``ServeEngine`` does not take (nor does
+the reference's): it raises, pointing at ``models.api``.
 
 Runs on the card by default (``--device cpu`` for the plain path). The
 JAX driver's ``--smoke`` flag cannot be switched off; here it is
 ``--smoke/--no-smoke``. ``--prompt-lens`` sets the prompt lengths the
 requests cycle over (default: the JAX driver's 4..10 token prompts).
 ``--attn-impl flash`` selects the sequence mixer's kernel: for the
-transformer, the flash kernel on prefills whose length is a multiple of
-128; for RWKV-6, the WKV-6 kernel on prefills whose length is a multiple
+transformer and Jamba's attention layers, the flash kernel on prefills
+whose length is a multiple of 128; for RWKV-6, the WKV-6 kernel on prefills whose length is a multiple
 of 64. Other prefills and every decode step take the plain path.
 """
 
@@ -94,7 +98,7 @@ def main(argv=None):
         f"[serve] latency p50={np.percentile(lats,50)*1e3:.0f}ms "
         f"p95={np.percentile(lats,95)*1e3:.0f}ms max_batch={args.max_batch} "
         f"(continuous batching over {args.max_batch} "
-        f"{'recurrent-state' if cfg.family == 'ssm_rwkv' else 'KV'} slots)"
+        f"{ {'rwkv': 'recurrent-state', 'jamba': 'KV + Mamba-state'}.get(api.family(cfg), 'KV')} slots)"
     )
 
 

@@ -23,9 +23,11 @@ update is ZeRO-1: per leaf, the block grads are summed over the replica
 axes the moment is not sharded over (a ``reduce_scatter`` over the dp axes
 into the moment chunk, an ``all_reduce`` over the rest), AdamW runs on the
 chunk with the norm over every chunk, and an ``all_gather`` over dp puts
-the chunk back into the block. The single-rank step takes every ported
-transformer (MoE, MLA with MTP, the VLM prefix included); the sharded step
-takes the dense configs only (ROADMAP P11c).
+the chunk back into the block. The single-rank step takes every family of
+the zoo (the transformer with MoE, MLA with MTP and the VLM prefix;
+RWKV-6 on its per-token route; Jamba; Whisper, whose batches carry
+``enc_frames``) under every remat policy; the sharded step takes the
+dense transformer configs only (ROADMAP P11c).
 
 ``Trainer`` wires every substrate together the way the paper intends its
 extensions to be used: data prefetch + async checkpoints + heartbeats are

@@ -1,1 +1,1 @@
-"""The dense GQA transformer family of the model zoo, in PyTorch."""
+"""The model zoo of the port, in PyTorch: the transformer family, RWKV-6, Jamba (with its Mamba block) and Whisper."""

@@ -1,9 +1,10 @@
-"""Shared neural building blocks of the transformer family and RWKV-6, in PyTorch.
+"""Shared neural building blocks of the model zoo, in PyTorch.
 
-Mirrors the transformer parts of ``repro.models.common`` operation for
-operation, so the two packages agree within rounding:
+Mirrors ``repro.models.common`` operation for operation, so the two
+packages agree within rounding:
 
 * ``rms_norm`` scales by ``(1 + w)`` (zero-initialised weights);
+  ``layer_norm`` (eps 1e-5) by ``w`` plus ``b``;
 * RoPE rotates split halves (``x[..., :hd/2]``, ``x[..., hd/2:]``), not
   interleaved pairs;
 * ``attend`` takes the logits to fp32, the softmax in fp32, then casts
@@ -22,9 +23,9 @@ Sliding-window layers (gemma3's local layers) mask the full forward to the
 window and decode into a ring cache (:func:`gqa_attention_decode`).
 
 The flash gate of :func:`gqa_attention_full` is the reference's:
-``attn_impl == "flash"``, causal, no sliding window and ``S % 128 == 0``;
-it calls the flash kernel for CUDA tensors and its plain version for CPU
-tensors.
+``attn_impl == "flash"``, causal, no sliding window, ``S % 128 == 0`` and
+no ``kv_override`` (cross-attention); it calls the flash kernel for CUDA
+tensors and its plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.models.config import ModelConfig
 
@@ -42,19 +43,23 @@ __all__ = [
     "norm_params",
     "embed_params",
     "rms_norm",
+    "layer_norm",
     "apply_norm",
     "rope_freqs",
     "apply_rope",
     "attend",
     "causal_mask",
+    "decode_mask",
     "gqa_qkv",
     "gqa_attention_full",
     "gqa_attention_decode",
     "swiglu",
+    "gelu_mlp",
     "embed",
     "logits_out",
     "next_token_xent",
     "remat_wrap",
+    "tag_act",
 ]
 
 NEG_INF = -1e30
@@ -89,6 +94,7 @@ def embed_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
         p["out"] = dense_init(generator, (cfg.d_model, cfg.vocab), None, cfg.pdtype, device)
     return p
 
+
 # ----------------------------------------------------------------------
 # norms
 # ----------------------------------------------------------------------
@@ -100,9 +106,17 @@ def rms_norm(x, w, eps: float = 1e-6):
     return (y * (1.0 + w.float())).to(x.dtype)
 
 
+def layer_norm(x, w, b, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
+
+
 def apply_norm(cfg: ModelConfig, p, x):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet (ROADMAP: model zoo)")
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["w"], p["b"])
     return rms_norm(x, p["w"])
 
 
@@ -159,6 +173,17 @@ def causal_mask(S: int, T: int, offset: int = 0, window: int = 0, device=None):
     return m[None, None, None]  # (1,1,1,S,T)
 
 
+def decode_mask(T: int, pos, ring: bool = False):
+    """Mask for one-token decode against a cache of physical length T.
+
+    Full cache: slots <= pos are valid. Ring cache: all slots valid once
+    pos+1 >= T, else slots <= pos."""
+    m = torch.arange(T, device=pos.device)[None, :] <= pos[:, None]
+    if ring:
+        m = m | (pos[:, None] + 1 >= T)
+    return m[:, None, None, None]  # (B,1,1,1,T)
+
+
 def gqa_qkv(cfg: ModelConfig, p, x, positions, theta: float, use_rope: bool = True):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -186,31 +211,43 @@ def gqa_attention_full(
     positions,
     window: int = 0,
     theta: float = 10_000.0,
+    kv_override=None,
     causal: bool = True,
+    use_rope: bool = True,
 ):
-    """Full-sequence (prefill) self-attention. Returns (out, (k, v)) so
-    callers can seed a KV cache."""
+    """Full-sequence (train/prefill) self-attention. Returns (out, (k, v))
+    so callers can seed a KV cache. ``kv_override`` supplies the K/V of a
+    cross-attention (no mask, no rope on the queries)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q, k, v = gqa_qkv(cfg, p, x, positions, theta)
-    if cfg.attn_impl == "flash" and causal and window == 0 and S % 128 == 0:
-        # blocked attention: O(S·d) device-memory traffic instead of the
-        # einsum path's O(S²) logit materialization
-        from repro_torch.kernels.ops import gqa_flash_attention
+    cd = cfg.cdtype
+    if kv_override is None:
+        q, k, v = gqa_qkv(cfg, p, x, positions, theta, use_rope=use_rope)
+        if cfg.attn_impl == "flash" and causal and window == 0 and S % 128 == 0:
+            # blocked attention: O(S·d) device-memory traffic instead of the
+            # einsum path's O(S²) logit materialization
+            from repro_torch.kernels.ops import gqa_flash_attention
 
-        out = gqa_flash_attention(q, k, v, causal=True)
-        out = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"].to(cfg.cdtype)
-        return out, (k, v)
-    if causal:
-        mask = causal_mask(S, S, window=window, device=x.device)
+            out = gqa_flash_attention(q, k, v, causal=True)
+            out = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"].to(cd)
+            return out, (k, v)
+        if causal:
+            mask = causal_mask(S, S, window=window, device=x.device)
+        else:
+            mask = torch.ones((1, 1, 1, S, S), dtype=torch.bool, device=x.device)
     else:
-        mask = torch.ones((1, 1, 1, S, S), dtype=torch.bool, device=x.device)
+        q = (x @ p["wq"].to(cd)).reshape(B, S, cfg.n_heads, hd)
+        if cfg.qkv_bias and "bq" in p:
+            q = q + p["bq"].to(cd).reshape(cfg.n_heads, hd)
+        k, v = kv_override
+        mask = torch.ones((1, 1, 1, S, k.shape[1]), dtype=torch.bool, device=x.device)
     out = attend(q, k, v, mask, 1.0 / math.sqrt(hd))
-    out = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"].to(cfg.cdtype)
+    out = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"].to(cd)
     return out, (k, v)
 
 
-def gqa_attention_decode(cfg: ModelConfig, p, x, cache_kv, pos, window: int = 0, theta: float = 10_000.0):
+def gqa_attention_decode(cfg: ModelConfig, p, x, cache_kv, pos, window: int = 0, theta: float = 10_000.0,
+                         use_rope: bool = True):
     """One-token decode. x (B,1,d); cache_kv = (K,V) of (B,T,nkv,hd); pos
     (B,) absolute position of the new token. With ``window > 0`` the cache
     is a ring of ``T = min(window, max_len)`` slots: the new token goes to
@@ -223,17 +260,15 @@ def gqa_attention_decode(cfg: ModelConfig, p, x, cache_kv, pos, window: int = 0,
     passed in."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
-    q, k_new, v_new = gqa_qkv(cfg, p, x, pos[:, None], theta)
+    q, k_new, v_new = gqa_qkv(cfg, p, x, pos[:, None], theta, use_rope=use_rope)
     K, V = cache_kv
     T = K.shape[1]
     slot = pos % max(T, 1) if window > 0 else pos
     bidx = torch.arange(B, device=x.device)
     K.index_put_((bidx, slot), k_new[:, 0].to(K.dtype))
     V.index_put_((bidx, slot), v_new[:, 0].to(V.dtype))
-    mask = torch.arange(T, device=x.device)[None, :] <= pos[:, None]
-    if window > 0:
-        mask = mask | (pos[:, None] + 1 >= T)
-    out = attend(q, K.to(cfg.cdtype), V.to(cfg.cdtype), mask[:, None, None, None], 1.0 / math.sqrt(hd))
+    mask = decode_mask(T, pos, ring=window > 0)
+    out = attend(q, K.to(cfg.cdtype), V.to(cfg.cdtype), mask, 1.0 / math.sqrt(hd))
     out = out.reshape(B, 1, cfg.n_heads * hd) @ p["wo"].to(cfg.cdtype)
     return out, (K, V)
 
@@ -248,6 +283,13 @@ def swiglu(cfg: ModelConfig, p, x):
     g = F.silu(x @ p["w_gate"].to(cd))
     u = x @ p["w_up"].to(cd)
     return (g * u) @ p["w_down"].to(cd)
+
+
+def gelu_mlp(cfg: ModelConfig, p, x):
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    cd = cfg.cdtype
+    h = F.gelu(x @ p["w_in"].to(cd) + p["b_in"].to(cd), approximate="tanh")
+    return h @ p["w_out"].to(cd) + p["b_out"].to(cd)
 
 
 # ----------------------------------------------------------------------
@@ -279,17 +321,62 @@ def next_token_xent(logits, tokens, mask=None):
 # rematerialisation
 # ----------------------------------------------------------------------
 
+#: what the ``"dots"`` policy saves: products without batch dimensions, as
+#: ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` (a
+#: ``(B, S, d) @ (d, n)`` product reaches the dispatcher as ``mm``; the
+#: attention's and the experts' batched products as ``bmm`` and are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+#: the sublayer outputs the ``"save_acts"`` policy saves (``tag_act``'s names)
+_SAVED_ACTS = ("attn_out", "ffn_out")
+
+
+@torch.library.custom_op("repro_torch::tag_act", mutates_args=())
+def _tag(x: torch.Tensor, name: str) -> torch.Tensor:
+    """A copy of ``x`` that the ``"save_acts"`` policy recognises by
+    ``name``: the counterpart of ``jax.ad_checkpoint.checkpoint_name``. A
+    custom op's output may not alias its input, hence the copy."""
+    return x.clone()
+
+
+@_tag.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+_tag.register_autograd(lambda ctx, grad: (grad, None))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_acts(ctx, op, *args, **kwargs):
+    if op is torch.ops.repro_torch.tag_act.default and args[1] in _SAVED_ACTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
 
 def remat_wrap(cfg: ModelConfig, fn):
     """``fn`` under the config's remat policy (the reference's
     ``jax.checkpoint`` wrapping of each layer): ``"none"`` is ``fn``;
     ``"full"`` saves only the layer's inputs and recomputes its forward in
-    the backward pass (``torch.utils.checkpoint``, non-reentrant). The
-    reference's ``"dots"`` and ``"save_acts"`` policies are not ported."""
+    the backward pass (``torch.utils.checkpoint``, non-reentrant);
+    ``"dots"`` saves the outputs of the products without batch dimensions
+    and ``"save_acts"`` only the sublayer outputs that :func:`tag_act`
+    names ``attn_out`` and ``ffn_out``, recomputing the rest (selective
+    checkpointing)."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "full":
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
-    raise NotImplementedError(
-        f"remat policy {cfg.remat!r} is not ported to repro_torch yet (ROADMAP P12: the configs that use it)"
-    )
+    if cfg.remat in ("dots", "save_acts"):
+        policy = _save_dots if cfg.remat == "dots" else _save_acts
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=lambda: create_selective_checkpoint_contexts(policy))
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
+def tag_act(cfg: ModelConfig, x, name: str):
+    """Name the (B, S, d) sublayer output ``x`` for the ``"save_acts"``
+    policy; ``x`` itself under every other policy."""
+    return _tag(x, name) if cfg.remat == "save_acts" else x

@@ -2,14 +2,18 @@
 
 :func:`params_from_numpy` takes the JAX params pytree with every leaf
 already converted to numpy (``np.asarray``): nested dicts/lists/tuples,
-per-layer leaves stacked on axis 0 as ``repro.models.transformer.init_lm``
-and ``repro.models.rwkv6.init_rwkv`` (``jax.vmap`` over layers) build them.
-It returns a :class:`~repro_torch.models.transformer.TransformerLM`, or an
-:class:`~repro_torch.models.rwkv6.RWKVLM` for the RWKV family, holding the
-same values; a key set that differs from the port's raises. Every leaf of
-the transformer family's tree crosses: multi-position patterns
-(``groups[g][p]``), the MoE and shared-expert leaves, the MLA leaves,
-``img_proj`` and ``mtp/*``.
+per-layer leaves stacked on axis 0 as the reference's ``init_params``
+(``jax.vmap`` over layers) builds them. It returns the family's module
+(:class:`~repro_torch.models.transformer.TransformerLM`,
+:class:`~repro_torch.models.rwkv6.RWKVLM`,
+:class:`~repro_torch.models.jamba.JambaLM` or
+:class:`~repro_torch.models.whisper.WhisperLM`) holding the same values; a
+key set that differs from the port's raises. Every leaf crosses: the
+transformer's multi-position patterns (``groups[g][p]``), MoE, MLA,
+``img_proj`` and ``mtp/*``; RWKV-6's ``layers``; Jamba's per-position
+``blocks[p]`` stacked over blocks (GQA or Mamba mixer, MoE or SwiGLU);
+Whisper's ``enc_layers`` and ``dec_layers`` (layernorm ``w``/``b``, Q/K/V
+biases, ``xattn``, the GELU MLP).
 ``np.asarray`` of a JAX bfloat16 array is an ``ml_dtypes.bfloat16``
 array, which ``torch.from_numpy`` refuses, so such leaves travel as their
 16-bit pattern (``int16``) and are re-viewed as ``torch.bfloat16``.
@@ -34,9 +38,12 @@ import torch
 
 from repro_torch.checkpoint.iovec_store import StackedLeaf, map_leaves
 from repro_torch.device import resolve_device
+from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.jamba import JambaLM
 from repro_torch.models.rwkv6 import RWKVLM
 from repro_torch.models.transformer import TransformerLM, layer_groups
+from repro_torch.models.whisper import WhisperLM
 
 __all__ = ["params_from_numpy", "tensor_from_numpy", "leaf_map", "state_tree", "shardings_tree", "params_to_numpy"]
 
@@ -58,34 +65,6 @@ def _assign(dst: torch.nn.Parameter, src, what: str) -> None:
     dst.copy_(t)
 
 
-def _same_keys(mod, src, what: str) -> None:
-    if set(mod.keys()) != set(src.keys()):
-        raise ValueError(f"{what}: keys {sorted(src)} != {sorted(mod.keys())}")
-
-
-def _rwkv_from_numpy(cfg: ModelConfig, tree, device) -> RWKVLM:
-    model = RWKVLM(cfg, device)
-    _same_keys(model.embed, tree["embed"], "embed")
-    for k, p in model.embed.items():
-        _assign(p, tree["embed"][k], f"embed.{k}")
-    _same_keys(model.final_norm, tree["final_norm"], "final_norm")
-    for k, p in model.final_norm.items():
-        _assign(p, tree["final_norm"][k], f"final_norm.{k}")
-    src = tree["layers"]
-    expected = model.layers[0].leaf_names()
-    if set(src) != expected:
-        raise ValueError(f"layers: keys {sorted(src)} != {sorted(expected)}")
-    for l, layer in enumerate(model.layers):
-        for part in ("ln1", "ln2", "ln_x"):
-            mod = getattr(layer, part)
-            _same_keys(mod, src[part], f"layers.{part}")
-            for k, p in mod.items():
-                _assign(p, np.asarray(src[part][k])[l], f"layers.{part}.{k}[{l}]")
-        for k, p in layer.p.items():
-            _assign(p, np.asarray(src[k])[l], f"layers.{k}[{l}]")
-    return model
-
-
 def _flat_paths(tree, prefix: str = "") -> Dict[str, object]:
     """'/'-joined path → leaf of a nested dict/list/tuple tree."""
     if isinstance(tree, dict):
@@ -103,9 +82,7 @@ def _flat_paths(tree, prefix: str = "") -> Dict[str, object]:
 @torch.no_grad()
 def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     """The port's model holding the values of the JAX params ``tree``."""
-    if cfg.family == "ssm_rwkv":
-        return _rwkv_from_numpy(cfg, tree, resolve_device(device))
-    model = TransformerLM(cfg, resolve_device(device))
+    model = api.model_class(cfg)(cfg, resolve_device(device))
     src = _flat_paths(tree)
     names = leaf_map(cfg, model)
     if set(src) != set(names):
@@ -123,42 +100,45 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
 # ----------------------------------------------------------------------
 
 
+def _ref_leaf(model, patterns, parts) -> Tuple[str, Optional[int]]:
+    """The reference's leaf path of the port's parameter ``parts`` (its
+    name split at '.'), and the row it is of a stacked leaf (None if the
+    leaf is not stacked)."""
+    head = parts[0]
+    if isinstance(model, TransformerLM) and head == "groups":
+        r, pi = divmod(int(parts[2]), patterns[int(parts[1])])
+        return "/".join(["groups", parts[1], str(pi)] + parts[3:]), r
+    if isinstance(model, RWKVLM) and head == "layers":
+        return "/".join(["layers"] + parts[3 if parts[2] == "p" else 2:]), int(parts[1])
+    if isinstance(model, JambaLM) and head == "blocks":
+        return "/".join(["blocks"] + parts[2:]), int(parts[1])
+    if isinstance(model, WhisperLM) and head in ("enc_layers", "dec_layers"):
+        return "/".join([head] + parts[2:]), int(parts[1])
+    return "/".join(parts), None
+
+
 def leaf_map(cfg: ModelConfig, model) -> Dict[str, Tuple[bool, Tuple[str, ...]]]:
     """Reference leaf name → (stacked, the port's parameter names): one
     name for an unstacked leaf, one per layer (row) for a stacked one. A
     transformer layer's parameter ``groups.{g}.{i}.{rest}`` is row ``i //
     len(pattern)`` of the reference's ``groups/{g}/{i % len(pattern)}/{rest}``
-    (``rest`` with '/' for '.', ``ffn/shared/w_gate`` included); every other
-    parameter (``embed``, ``final_norm``, ``img_proj``, ``mtp``) is a leaf of
-    its own, its name the reference's path."""
+    (``rest`` with '/' for '.', ``ffn/shared/w_gate`` included); RWKV-6's
+    ``layers.{l}.p.{k}`` and ``layers.{l}.{ln}.{k}`` are row ``l`` of
+    ``layers/{k}`` and ``layers/{ln}/{k}``; Jamba's ``blocks.{b}.{p}.{rest}``
+    row ``b`` of ``blocks/{p}/{rest}``; Whisper's ``enc_layers.{l}.{rest}``
+    (``dec_layers``) row ``l`` of ``enc_layers/{rest}``. Every other
+    parameter (``embed``, norms, ``img_proj``, ``mtp``) is a leaf of its
+    own, its name the reference's path."""
+    patterns = [len(pattern) for pattern, _ in layer_groups(cfg)] if isinstance(model, TransformerLM) else []
     out: Dict[str, Tuple[bool, Tuple[str, ...]]] = {}
-    if isinstance(model, RWKVLM):
-        for k in model.embed.keys():
-            out[f"embed/{k}"] = (False, (f"embed.{k}",))
-        for k in model.final_norm.keys():
-            out[f"final_norm/{k}"] = (False, (f"final_norm.{k}",))
-        first = model.layers[0]
-        n = len(model.layers)
-        for part in ("ln1", "ln2", "ln_x"):
-            for k in getattr(first, part).keys():
-                out[f"layers/{part}/{k}"] = (True, tuple(f"layers.{l}.{part}.{k}" for l in range(n)))
-        for k in first.p.keys():
-            out[f"layers/{k}"] = (True, tuple(f"layers.{l}.p.{k}" for l in range(n)))
-        return out
-    patterns = [len(pattern) for pattern, _ in layer_groups(cfg)]
     rows: Dict[str, Dict[int, str]] = {}
     for name, _ in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] != "groups":
-            out["/".join(parts)] = (False, (name,))
-            continue
-        gi, li = int(parts[1]), int(parts[2])
-        r, pi = divmod(li, patterns[gi])
-        ref = "/".join(["groups", str(gi), str(pi)] + parts[3:])
-        if ref not in out:
+        ref, r = _ref_leaf(model, patterns, name.split("."))
+        if r is None:
+            out[ref] = (False, (name,))
+        else:
             out[ref] = (True, ())
-            rows[ref] = {}
-        rows[ref][r] = name
+            rows.setdefault(ref, {})[r] = name
     for ref, by_row in rows.items():
         out[ref] = (True, tuple(by_row[r] for r in range(len(by_row))))
     return out

@@ -1,0 +1,265 @@
+"""Jamba (arXiv:2403.19887): hybrid Mamba/attention with MoE, in PyTorch.
+
+Mirrors ``repro.models.jamba``. One period of ``hybrid_period`` (8)
+layers: attention at position ``hybrid_attn_pos`` (4), Mamba elsewhere;
+the MoE FFN at odd positions, a dense SwiGLU at even ones. The reference
+stacks each period position's parameters over the ``n_blocks`` periods
+and scans over them; the port holds ``blocks[b][pi]``, one
+:class:`JambaLayer` per layer, and loops (``models.convert`` maps
+``blocks.{b}.{pi}.<leaf>`` to row ``b`` of the reference's
+``blocks/{pi}/<leaf>``). The cache keeps the reference's layout: a list
+over the period positions, each ``(K, V)`` of ``(nb, B, T, nkv, hd)`` or a
+Mamba state ``{"conv": (nb, B, d_conv-1, d_inner), "ssm": (nb, B, d_inner,
+d_state)}`` — every leaf stacked per block on axis 0 with the batch on
+axis 1, so ``ServeEngine``'s splice takes it as it is. Decode writes the
+new K/V rows and Mamba states into the cache tensors in place.
+
+The attention layer takes the flash kernel on prefills of ``S % 128 ==
+0`` under ``attn_impl="flash"`` (``models.common.gqa_attention_full``);
+the Mamba layers are PyTorch ops, as the reference's are ``lax.scan``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.common import (
+    apply_norm,
+    embed,
+    gqa_attention_decode,
+    gqa_attention_full,
+    logits_out,
+    next_token_xent,
+    remat_wrap,
+    swiglu,
+)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import _norm, _params, gqa_params, init_leaves, moe_params, swiglu_params
+
+__all__ = [
+    "block_layout",
+    "n_blocks",
+    "JambaLayer",
+    "JambaLM",
+    "init_jamba",
+    "init_cache",
+    "jamba_forward",
+    "jamba_loss",
+    "jamba_prefill",
+    "jamba_decode_step",
+]
+
+
+def block_layout(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    """[(mixer, ffn)] for one period: mixer ∈ {attn, mamba}, ffn ∈ {moe, mlp}."""
+    out = []
+    for i in range(cfg.hybrid_period):
+        mixer = "attn" if i == cfg.hybrid_attn_pos else "mamba"
+        ffn = "moe" if (cfg.moe.enabled and i % cfg.hybrid_moe_every == 1) else "mlp"
+        out.append((mixer, ffn))
+    return out
+
+
+def n_blocks(cfg: ModelConfig) -> int:
+    if cfg.n_layers % cfg.hybrid_period:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple of the period {cfg.hybrid_period}")
+    return cfg.n_layers // cfg.hybrid_period
+
+
+class JambaLayer(nn.Module):
+    """One pre-norm layer: ``ln1``, ``mixer`` (GQA ``wq..wo`` or the Mamba
+    leaves), ``ln2``, ``ffn`` (SwiGLU or MoE), the reference's names."""
+
+    def __init__(self, cfg: ModelConfig, mixer: str, ffn: str, device):
+        super().__init__()
+        self.kind = (mixer, ffn)
+        self.ln1 = _norm(cfg, device, cfg.d_model)
+        self.ln2 = _norm(cfg, device, cfg.d_model)
+        self.mixer = gqa_params(cfg, device) if mixer == "attn" else mamba_mod.mamba_params(cfg, device)
+        self.ffn = moe_params(cfg, device) if ffn == "moe" else swiglu_params(cfg, device, cfg.d_ff)
+
+    def apply_full(self, cfg: ModelConfig, x, positions, state, train: bool = False):
+        """(x, aux loss, cache seed): ``(k, v)`` of the attention layer or
+        the Mamba layer's state after ``x`` (from ``state``, zeros if None)."""
+        mixer, ffn = self.kind
+        h = apply_norm(cfg, self.ln1, x)
+        if mixer == "attn":
+            a, seed = gqa_attention_full(cfg, self.mixer, h, positions, theta=cfg.rope_theta)
+        else:
+            a, seed = mamba_mod.mamba_full(cfg, self.mixer, h, state)
+        x = x + a
+        h = apply_norm(cfg, self.ln2, x)
+        if ffn == "moe":
+            f, aux = moe_mod.moe_apply(cfg, self.ffn, h, train=train)
+        else:
+            f, aux = swiglu(cfg, self.ffn, h), torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + f, aux, seed
+
+    def forward_decode(self, cfg: ModelConfig, x, cache, pos):
+        """One token; ``cache`` (this layer's ``(K, V)`` or Mamba state) is
+        written in place."""
+        mixer, ffn = self.kind
+        h = apply_norm(cfg, self.ln1, x)
+        if mixer == "attn":
+            a, _ = gqa_attention_decode(cfg, self.mixer, h, cache, pos, theta=cfg.rope_theta)
+        else:
+            a, new = mamba_mod.mamba_decode(cfg, self.mixer, h, cache)
+            for key in ("conv", "ssm"):
+                cache[key].copy_(new[key])
+        x = x + a
+        h = apply_norm(cfg, self.ln2, x)
+        f = moe_mod.moe_apply(cfg, self.ffn, h)[0] if ffn == "moe" else swiglu(cfg, self.ffn, h)
+        return x + f
+
+
+class JambaLM(nn.Module):
+    """Embedding, ``blocks[b][pi]`` (block ``b``, period position ``pi``),
+    final norm. The forward functions take the config explicitly, so one
+    set of weights serves both ``attn_impl`` settings."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d = cfg.d_model
+        emb = {"tok": (cfg.vocab, d)}
+        if not cfg.tie_embeddings:
+            emb["out"] = (d, cfg.vocab)
+        self.embed = _params(cfg, device, emb)
+        self.final_norm = _norm(cfg, device, d)
+        layout = block_layout(cfg)
+        self.blocks = nn.ModuleList(
+            nn.ModuleList(JambaLayer(cfg, m, f, device) for m, f in layout) for _ in range(n_blocks(cfg))
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm["w"].device
+
+
+def init_jamba(cfg: ModelConfig, generator: torch.Generator, device) -> JambaLM:
+    """Random init with the reference's distributions (``init_leaves``;
+    the Mamba conv at scale 0.3 and its fixed leaves)."""
+    model = init_leaves(cfg, JambaLM(cfg, device), generator, scales={"conv_w": 0.3})
+    for block in model.blocks:
+        for layer in block:
+            if layer.kind[0] == "mamba":
+                mamba_mod.init_mamba_leaves(cfg, layer.mixer)
+    return model
+
+
+# -- cache ---------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int, device):
+    """Zeros: per period position, ``(K, V)`` of ``(nb, B, max_len, nkv,
+    hd)`` or ``{"conv", "ssm"}`` stacked over the ``nb`` blocks."""
+    nb, hd = n_blocks(cfg), cfg.resolved_head_dim
+    entries = []
+    for mixer, _ in block_layout(cfg):
+        if mixer == "attn":
+            entries.append(tuple(torch.zeros((nb, B, max_len, cfg.n_kv_heads, hd), dtype=cfg.cdtype, device=device)
+                                 for _ in range(2)))
+        else:
+            one = mamba_mod.mamba_init_state(cfg, B, device)
+            entries.append({k: v.expand((nb,) + v.shape).clone() for k, v in one.items()})
+    return entries
+
+
+# -- forward ---------------------------------------------------------------
+
+
+def _tokens(model: JambaLM, tokens) -> torch.Tensor:
+    if isinstance(tokens, np.ndarray):
+        tokens = torch.from_numpy(tokens)
+    return tokens.to(device=model.device, dtype=torch.long)
+
+
+def _trunk(cfg: ModelConfig, model: JambaLM, tokens, train: bool = False):
+    """(trunk output before the final norm, summed aux loss, per-position
+    lists over blocks of cache seeds)."""
+    B, S = tokens.shape
+    x = embed(cfg, model.embed, tokens)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    seeds: List[list] = [[] for _ in block_layout(cfg)]
+
+    def block_fn(block, x):
+        out, a = [], torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in block:
+            x, a_l, seed = layer.apply_full(cfg, x, positions, None, train)
+            a = a + a_l
+            out.append(seed)
+        return x, a, out
+
+    for block in model.blocks:
+        fn = functools.partial(block_fn, block)
+        # the reference rematerialises a whole period
+        x, a, out = (remat_wrap(cfg, fn) if torch.is_grad_enabled() else fn)(x)
+        aux = aux + a
+        for pi, seed in enumerate(out):
+            seeds[pi].append(seed)
+    return x, aux, seeds
+
+
+def jamba_forward(cfg: ModelConfig, model: JambaLM, batch, train: bool = False):
+    """(logits (B,S,vocab), aux loss) of the full forward — the reference's
+    ``_forward`` without a cache."""
+    x, aux, _ = _trunk(cfg, model, _tokens(model, batch["tokens"]), train)
+    return logits_out(cfg, model.embed, apply_norm(cfg, model.final_norm, x)), aux
+
+
+def jamba_loss(cfg: ModelConfig, model: JambaLM, batch):
+    """``xent + aux`` and the reference's metrics ``xent``, ``aux``, ``loss``."""
+    logits, aux = jamba_forward(cfg, model, batch, train=True)
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = _tokens(model, mask)
+    loss = next_token_xent(logits, _tokens(model, batch["tokens"]), mask)
+    total = loss + aux
+    return total, {"xent": loss, "aux": aux, "loss": total}
+
+
+@torch.no_grad()
+def jamba_prefill(cfg: ModelConfig, model: JambaLM, batch, max_len: Optional[int] = None):
+    """(last-position logits (B,vocab), cache): the attention K/V zero-padded
+    on axis 2 to ``max_len``, the Mamba states after the prompt. Only the
+    last position's logits are computed: they equal the reference's
+    full-sequence logits taken at ``[:, -1]``."""
+    tokens = _tokens(model, batch["tokens"])
+    x, _, seeds = _trunk(cfg, model, tokens)
+    logits = logits_out(cfg, model.embed, apply_norm(cfg, model.final_norm, x[:, -1]))
+    S = tokens.shape[1]
+    max_len = max_len or S
+    cache = []
+    for (mixer, _), per_block in zip(block_layout(cfg), seeds):
+        if mixer == "attn":
+            pair = []
+            for j in (0, 1):
+                a = torch.stack([kv[j] for kv in per_block])  # (nb, B, S, nkv, hd)
+                full = a.new_zeros(a.shape[:2] + (max_len,) + a.shape[3:])
+                full[:, :, :S] = a
+                pair.append(full)
+            cache.append(tuple(pair))
+        else:
+            cache.append({k: torch.stack([st[k] for st in per_block]) for k in ("conv", "ssm")})
+    return logits, cache
+
+
+@torch.no_grad()
+def jamba_decode_step(cfg: ModelConfig, model: JambaLM, cache, tokens, pos):
+    """One-token decode. tokens (B,), pos (B,). Returns (logits (B,vocab),
+    cache) — the cache tensors are updated in place."""
+    tokens, pos = _tokens(model, tokens), _tokens(model, pos)
+    x = embed(cfg, model.embed, tokens[:, None])
+    for b, block in enumerate(model.blocks):
+        for layer, entry in zip(block, cache):
+            one = (entry[0][b], entry[1][b]) if isinstance(entry, tuple) else {k: v[b] for k, v in entry.items()}
+            x = layer.forward_decode(cfg, x, one, pos)
+    x = apply_norm(cfg, model.final_norm, x)
+    return logits_out(cfg, model.embed, x)[:, 0], cache

@@ -34,8 +34,10 @@ the gate ``g`` and the output projection. Channel-mix is
 The state keeps the reference's layout, every leaf stacked per layer on
 axis 0 with the batch on axis 1, so ``ServeEngine``'s splice holds:
 ``{"x_tm": (L,B,d), "x_cm": (L,B,d), "wkv": (L,B,H,64,64) fp32}``.
-Training waits for the port of the trainer: under autograd with inputs
-that need a gradient the kernel route raises ``NotImplementedError``.
+:func:`rwkv_loss` takes the default route, as the reference's does, so
+the trainer differentiates it; under autograd with inputs that need a
+gradient the kernel route raises ``NotImplementedError`` (K3 has no
+backward, nor has the reference's kernel).
 """
 
 from __future__ import annotations
@@ -84,7 +86,8 @@ def _n_heads(cfg: ModelConfig) -> int:
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # serving-only port: parameters never take gradients
+    # created without gradients: serving never takes them, and the trainer
+    # turns them on for the model it trains
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -323,8 +326,9 @@ def rwkv_forward(cfg: ModelConfig, model: RWKVLM, batch, state=None, use_kernel:
 
 
 def rwkv_loss(cfg: ModelConfig, model: RWKVLM, batch):
-    """Scalar next-token loss (+metrics dict)."""
-    logits, _ = rwkv_forward(cfg, model, batch)
+    """Scalar next-token loss (+metrics dict), on the default (per-token)
+    route whatever ``attn_impl`` says: the reference's ``rwkv_loss``."""
+    logits, _ = rwkv_forward(cfg, model, batch, use_kernel=False)
     tokens = _tokens(model, batch["tokens"])
     mask = batch.get("loss_mask")
     if mask is not None:

@@ -43,6 +43,7 @@ from repro_torch.models.common import (
     next_token_xent,
     remat_wrap,
     swiglu,
+    tag_act,
 )
 from repro_torch.models.config import ModelConfig
 
@@ -52,6 +53,11 @@ __all__ = [
     "DecoderLayer",
     "MTPHead",
     "TransformerLM",
+    "gqa_params",
+    "swiglu_params",
+    "gelu_mlp_params",
+    "moe_params",
+    "init_leaves",
     "init_lm",
     "lm_forward",
     "lm_loss",
@@ -75,11 +81,10 @@ class LayerSpec:
 def layer_groups(cfg: ModelConfig) -> List[Tuple[Tuple[LayerSpec, ...], int]]:
     """Return [(block_pattern, reps), ...] covering cfg.n_layers."""
     if cfg.encdec or cfg.family not in ("dense", "vlm", "moe", "mla_moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not a transformer of repro_torch (ROADMAP P12b: the model zoo)"
+        raise ValueError(
+            f"{cfg.name}: family {cfg.family!r}{' (encoder-decoder)' if cfg.encdec else ''} is not a decoder-only "
+            "transformer: models.api dispatches it to its own module"
         )
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"{cfg.name}: norm {cfg.norm!r} is not ported yet (ROADMAP P12b: the model zoo)")
     if cfg.mla is not None:
         groups = []
         kd = cfg.moe.first_k_dense
@@ -107,9 +112,11 @@ def layer_groups(cfg: ModelConfig) -> List[Tuple[Tuple[LayerSpec, ...], int]]:
 
 def check_dense_only(cfg: ModelConfig, what: str) -> None:
     """Raise for a config the sharded forward, the sharded step and the
-    pipeline do not cover yet: MoE, MLA, the VLM prefix, MTP."""
+    pipeline do not cover yet: MoE, MLA, the VLM prefix, MTP, and the
+    families other than the decoder-only transformer."""
     parts = [name for name, on in (("MoE", cfg.moe.enabled), ("MLA", cfg.mla is not None), ("the VLM prefix", cfg.vlm),
-                                   ("MTP", cfg.mtp_depth > 0)) if on]
+                                   ("MTP", cfg.mtp_depth > 0), ("an encoder-decoder", cfg.encdec),
+                                   ("RWKV-6", cfg.family == "ssm_rwkv"), ("the hybrid", cfg.family == "hybrid")) if on]
     if parts:
         raise NotImplementedError(
             f"{what} covers dense configs only; {cfg.name} has {', '.join(parts)} (ROADMAP P11c)"
@@ -126,6 +133,49 @@ def _params(cfg: ModelConfig, device, shapes: dict) -> nn.ParameterDict:
     return nn.ParameterDict({k: _param(s, cfg, device) for k, s in shapes.items()})
 
 
+def _norm(cfg: ModelConfig, device, d: int) -> nn.ParameterDict:
+    """A norm's weights: ``w`` and, for layernorm, ``b``."""
+    return _params(cfg, device, {"w": (d,), "b": (d,)} if cfg.norm == "layernorm" else {"w": (d,)})
+
+
+def gqa_params(cfg: ModelConfig, device) -> nn.ParameterDict:
+    """GQA attention weights ``wq, wk, wv, wo`` and, with ``qkv_bias``,
+    ``bq, bk, bv`` (uninitialised)."""
+    d, hd, nq, nkv = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    attn = {"wq": (d, nq * hd), "wk": (d, nkv * hd), "wv": (d, nkv * hd), "wo": (nq * hd, d)}
+    if cfg.qkv_bias:
+        attn.update(bq=(nq * hd,), bk=(nkv * hd,), bv=(nkv * hd,))
+    return _params(cfg, device, attn)
+
+
+def swiglu_params(cfg: ModelConfig, device, d_ff: int) -> nn.ParameterDict:
+    d = cfg.d_model
+    return _params(cfg, device, {"w_gate": (d, d_ff), "w_up": (d, d_ff), "w_down": (d_ff, d)})
+
+
+def gelu_mlp_params(cfg: ModelConfig, device) -> nn.ParameterDict:
+    """The GELU MLP's ``w_in, b_in, w_out, b_out`` (uninitialised)."""
+    d, f = cfg.d_model, cfg.d_ff
+    return _params(cfg, device, {"w_in": (d, f), "b_in": (f,), "w_out": (f, d), "b_out": (d,)})
+
+
+def moe_params(cfg: ModelConfig, device) -> nn.ParameterDict:
+    """The MoE FFN's ``router`` (fp32 whatever the param dtype), expert
+    stacks ``we_gate, we_up, we_down`` and, with shared experts,
+    ``shared.{w_gate, w_up, w_down}`` (uninitialised)."""
+    d, m = cfg.d_model, cfg.moe
+    E, de = m.n_experts, m.d_expert
+    ffn = nn.ParameterDict({
+        "router": _param((d, E), cfg, device, torch.float32),
+        "we_gate": _param((E, d, de), cfg, device),
+        "we_up": _param((E, d, de), cfg, device),
+        "we_down": _param((E, de, d), cfg, device),
+    })
+    if m.n_shared:
+        ffn.add_module("shared", swiglu_params(cfg, device, m.n_shared * (m.d_shared or m.d_expert)))
+    return ffn
+
+
 class DecoderLayer(nn.Module):
     """One pre-norm layer: GQA or MLA attention, then a SwiGLU or MoE FFN.
     Parameter names follow the JAX package's tree: ``ln1.w``, ``ln2.w``,
@@ -138,10 +188,9 @@ class DecoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, device):
         super().__init__()
         self.spec = spec
-        d, hd = cfg.d_model, cfg.resolved_head_dim
-        nq, nkv = cfg.n_heads, cfg.n_kv_heads
-        self.ln1 = _params(cfg, device, {"w": (d,)})
-        self.ln2 = _params(cfg, device, {"w": (d,)})
+        d, nq = cfg.d_model, cfg.n_heads
+        self.ln1 = _norm(cfg, device, d)
+        self.ln2 = _norm(cfg, device, d)
         if spec.attn == "mla":
             m = cfg.mla
             self.attn = _params(cfg, device, {
@@ -154,26 +203,8 @@ class DecoderLayer(nn.Module):
                 "wo": (nq * m.v_head_dim, d),
             })
         else:
-            attn = {"wq": (d, nq * hd), "wk": (d, nkv * hd), "wv": (d, nkv * hd), "wo": (nq * hd, d)}
-            if cfg.qkv_bias:
-                attn.update(bq=(nq * hd,), bk=(nkv * hd,), bv=(nkv * hd,))
-            self.attn = _params(cfg, device, attn)
-        if spec.moe:
-            m = cfg.moe
-            E, de = m.n_experts, m.d_expert
-            self.ffn = nn.ParameterDict({
-                "router": _param((d, E), cfg, device, torch.float32),
-                "we_gate": _param((E, d, de), cfg, device),
-                "we_up": _param((E, d, de), cfg, device),
-                "we_down": _param((E, de, d), cfg, device),
-            })
-            if m.n_shared:
-                ds = m.n_shared * (m.d_shared or m.d_expert)
-                self.ffn.add_module("shared", _params(cfg, device, {"w_gate": (d, ds), "w_up": (d, ds),
-                                                                    "w_down": (ds, d)}))
-        else:
-            d_ff = spec.d_ff or cfg.d_ff
-            self.ffn = _params(cfg, device, {"w_gate": (d, d_ff), "w_up": (d, d_ff), "w_down": (d_ff, d)})
+            self.attn = gqa_params(cfg, device)
+        self.ffn = moe_params(cfg, device) if spec.moe else swiglu_params(cfg, device, spec.d_ff or cfg.d_ff)
 
     def apply_full(self, cfg: ModelConfig, x, positions, train: bool = False):
         """(x, aux loss, cache seed) of the full-sequence layer; ``train``
@@ -184,13 +215,13 @@ class DecoderLayer(nn.Module):
             a, seed = mla_mod.mla_full(cfg, self.attn, h, positions, spec.theta)
         else:
             a, seed = gqa_attention_full(cfg, self.attn, h, positions, window=spec.window, theta=spec.theta)
-        x = x + a
+        x = x + tag_act(cfg, a, "attn_out")
         h = apply_norm(cfg, self.ln2, x)
         if spec.moe:
             f, aux = moe_mod.moe_apply(cfg, self.ffn, h, train=train)
         else:
             f, aux = swiglu(cfg, self.ffn, h), torch.zeros((), dtype=torch.float32, device=x.device)
-        return x + f, aux, seed
+        return x + tag_act(cfg, f, "ffn_out"), aux, seed
 
     def forward_full(self, cfg: ModelConfig, x, positions):
         """(x, cache seed) of the full-sequence layer at eval capacity."""
@@ -222,8 +253,8 @@ class MTPHead(nn.Module):
         super().__init__()
         d = cfg.d_model
         self.proj = _param((2 * d, d), cfg, device)
-        self.norm_h = _params(cfg, device, {"w": (d,)})
-        self.norm_e = _params(cfg, device, {"w": (d,)})
+        self.norm_h = _norm(cfg, device, d)
+        self.norm_e = _norm(cfg, device, d)
         self.layer = DecoderLayer(cfg, spec, device)
 
 
@@ -242,7 +273,7 @@ class TransformerLM(nn.Module):
         if not cfg.tie_embeddings:
             emb["out"] = (d, cfg.vocab)
         self.embed = _params(cfg, device, emb)
-        self.final_norm = _params(cfg, device, {"w": (d,)})
+        self.final_norm = _norm(cfg, device, d)
         groups = layer_groups(cfg)
         self.groups = nn.ModuleList(
             nn.ModuleList(DecoderLayer(cfg, spec, device) for _ in range(reps) for spec in pattern)
@@ -263,25 +294,39 @@ class TransformerLM(nn.Module):
 # ----------------------------------------------------------------------
 
 
+#: leaves initialised to zero: rmsnorm weights (scaled by ``1 + w``), biases,
+#: MLA's latent norms and Mamba's dt/B/C norms
+_ZERO_LEAVES = ("w", "b", "q_norm", "kv_norm", "bq", "bk", "bv", "b_in", "b_out", "conv_b", "dt_norm", "b_norm",
+                "c_norm")
+
+
 @torch.no_grad()
-def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> TransformerLM:
-    """Random init with the JAX package's scales (``dense_init``: normal ·
-    1/sqrt(shape[0]), which for an expert stack ``(E, ...)`` is 1/sqrt(E);
-    token embedding and router 0.02; norm weights and biases zero), drawn
-    in fp32 from ``generator`` (on its own device) and cast to the
-    parameter's dtype. The draws differ from ``jax.random``'s: tests carry
-    JAX weights across with :func:`repro_torch.models.convert.params_from_numpy`."""
-    model = TransformerLM(cfg, device)
+def init_leaves(cfg: ModelConfig, model: nn.Module, generator: torch.Generator, scales=None) -> nn.Module:
+    """Fill every parameter of ``model`` by its leaf name, with the JAX
+    package's init: norm weights one under layernorm, the leaves of
+    ``_ZERO_LEAVES`` zero, the others normal · ``scales[leaf]`` (default:
+    0.02 for ``tok`` and ``router``, else 1/sqrt(shape[0]), which for an
+    expert stack ``(E, ...)`` is 1/sqrt(E)), drawn in fp32 from
+    ``generator`` (on its own device) and cast to the parameter's dtype."""
+    scales = {"tok": 0.02, "router": 0.02, **(scales or {})}
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("w", "q_norm", "kv_norm", "bq", "bk", "bv"):
+        if leaf == "w" and cfg.norm == "layernorm":
+            p.fill_(1.0)
+        elif leaf in _ZERO_LEAVES:
             p.zero_()
-            continue
-        scale = 0.02 if leaf in ("tok", "router") else 1.0 / math.sqrt(p.shape[0])
-        draw = torch.randn(tuple(p.shape), generator=generator, device=generator.device, dtype=torch.float32)
-        p.copy_((draw * scale).to(p.dtype))
-        del draw
+        else:
+            draw = torch.randn(tuple(p.shape), generator=generator, device=generator.device, dtype=torch.float32)
+            p.copy_((draw * scales.get(leaf, 1.0 / math.sqrt(p.shape[0]))).to(p.dtype))
+            del draw
     return model
+
+
+def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> TransformerLM:
+    """Random init with the JAX package's scales (:func:`init_leaves`). The
+    draws differ from ``jax.random``'s: tests carry JAX weights across with
+    :func:`repro_torch.models.convert.params_from_numpy`."""
+    return init_leaves(cfg, TransformerLM(cfg, device), generator)
 
 
 # ----------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Batched serving engine: continuous batching over a slotted KV cache
-(or, for RWKV-6, a slotted recurrent state).
+(or, for RWKV-6, a slotted recurrent state; for Jamba, both).
 
 Requests are admitted into free slots; each ``step()`` decodes one token
 for every active slot (a single ``decode_step`` over the whole batch —
@@ -79,6 +79,12 @@ class ServeEngine:
         stream: MPIXStream = STREAM_NULL,
         step_schedule=False,
     ):
+        if cfg.encdec:
+            # the prefill takes the prompt alone; an encoder-decoder also
+            # needs its enc_frames (the reference's engine cannot serve it
+            # either): serve it through api.prefill / api.decode_step
+            raise ValueError(f"{cfg.name}: ServeEngine serves decoder-only models; an encoder-decoder needs "
+                             "enc_frames with each prompt — use models.api.prefill and decode_step")
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch

@@ -162,6 +162,24 @@ def test_init_params_uses_reference_scales():
     (dict(encdec=True), "encdec"),
 ])
 def test_unported_model_parts_raise(arch_kw, match):
-    _, tcfg = _configs("float32", **arch_kw)
-    with pytest.raises(NotImplementedError, match=match):
-        tapi.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    """A layernorm transformer, the hybrid (Jamba) and the encoder-decoder
+    (Whisper) initialise in the port with the reference's tree: every
+    leaf's shape and dtype, layernorm weights one and biases zero."""
+    from repro_torch.models.convert import leaf_map
+
+    arch = {"layernorm": "qwen1.5-0.5b", "jamba": "jamba-v0.1-52b", "encdec": "whisper-tiny"}[match]
+    over = dict(FP32, **arch_kw)
+    jcfg, tcfg = j_get_config(arch, smoke=True).replace(**over), t_get_config(arch, smoke=True).replace(**over)
+    model = tapi.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert tapi.family(tcfg) == {"layernorm": "transformer"}.get(match, match)
+    want = {jax.tree_util.keystr(p, simple=True, separator="/"): (tuple(a.shape), str(a.dtype)) for p, a in
+            jax.tree_util.tree_flatten_with_path(jax.eval_shape(lambda: japi.init_params(jcfg, jax.random.key(0))))[0]}
+    params = dict(model.named_parameters())
+    got = {}
+    for name, (stacked, names) in leaf_map(tcfg, model).items():
+        t = params[names[0]]
+        got[name] = (((len(names),) if stacked else ()) + tuple(t.shape), str(t.dtype).split(".")[-1])
+    assert got == want
+    if tcfg.norm == "layernorm":
+        assert all(bool((p == 1).all()) for n, p in params.items() if n.endswith("final_norm.w"))
+        assert all(float(p.abs().max()) == 0 for n, p in params.items() if n.endswith((".b", ".bq", ".b_in")))

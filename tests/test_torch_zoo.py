@@ -93,7 +93,7 @@ def _close(t, j, tol):
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
-@pytest.mark.parametrize("arch", ("qwen1.5-0.5b", "rwkv6-7b") + ARCHS)
+@pytest.mark.parametrize("arch", ("qwen1.5-0.5b", "rwkv6-7b") + ARCHS + ("jamba-v0.1-52b", "whisper-tiny"))
 def test_config_matches_reference(arch, smoke):
     """Every field of every ported architecture's config, its nested MoE
     and MLA configs included, is the reference's, at both sizes."""
