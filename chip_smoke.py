@@ -34,7 +34,12 @@ rest of the model zoo (``zoo2``: ``jamba-v0.1-52b`` cut to one period of 8
 layers, served with its Mamba states in the engine's cache and flash at
 hd 128 on its attention layer; ``whisper-tiny``'s 1500 stub frames and
 decoder prompts through the api with flash at hd 64 on the decoder; the
-``Trainer`` on whisper-tiny and on rwkv6-7b cut to 4 layers). Each
+``Trainer`` on whisper-tiny and on rwkv6-7b cut to 4 layers), and last
+checks the launch cost tooling (``cost``: the served decode step, a
+prefill and the train step counted on meta tensors beside their measured
+times and hand-derived bounds, peak memory predicted on meta against the
+card's allocator, and the ``qwen1.5-0.5b × train_4k`` dry-run cell, run in
+a process of its own from the start). Each
 phase prints one JSON line; any failure exits
 non-zero before the last line. The last lines are the per-kernel summary (each
 kernel's ``launches`` summed over the paths that run it, with each path's
@@ -49,6 +54,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -62,9 +68,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
-H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores, H100 SXM data sheet
+# the H100's data-sheet rates (HBM bytes/s, bf16 and fp32 FLOP/s), one set for the port
+from repro_torch.launch.mesh import HW  # noqa: E402
 # exp/log results: 16 per SM per clock (CUDA C++ Programming Guide,
 # arithmetic instruction throughput, cc 9.0) x 132 SMs x 1.98 GHz boost
 H100_SFU_PER_S = 16 * 132 * 1.98e9
@@ -176,6 +181,18 @@ ZOO2_RWKV_BATCH = (8, 128)
 # flash at the zoo2 paths' shapes (hd, (B, S, nq, nkv)), bf16: jamba's
 # attention layer and whisper's decoder self-attention at the longest prompt
 ZOO2_FLASH = {"jamba": (128, (1, 384, 32, 8)), "whisper": (64, (1, 384, 6, 6))}
+# the cost phase: the served decode step (slots, max_len) and prefill length
+# it counts on meta tensors beside serve's measured times; the tolerances of
+# its checks; the dry-run cell it runs, in a process of its own started
+# before the first phase (256 thread-ranks on meta tensors take minutes of
+# host time) and its longest wait for that process in the phase
+COST_DECODE = (4, 512)
+COST_PREFILL_S = 384
+COST_DECODE_TOL = 0.25
+COST_TRAIN_MAX = 1.5
+COST_MEM_TOL = 0.20
+COST_DRYRUN = ("qwen1.5-0.5b", "train_4k")
+COST_DRYRUN_WAIT_S = 45
 
 
 def emit(phase: str, **kw) -> None:
@@ -298,7 +315,7 @@ def pack_shape_rows(torch, timer, bufs, check_exact: bool) -> dict:
         a, b = torch.empty_like(out), torch.empty_like(out)
         nbytes = 2 * nseg * seg * item
         ms = timer(lambda: dp.dt_pack(buf, nseg=nseg, seg_len=seg, stride=stride, start=start))
-        bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+        bound_ms = nbytes / HW.HBM_BW * 1e3
         rows[name] = dict(
             nseg=nseg, seg_len=seg, stride=stride, start=start, dtype=str(buf.dtype).split(".")[-1],
             ms=ms, bytes=nbytes, bound_ms=bound_ms, bound_by="bytes", share_of_bound=bound_ms / ms,
@@ -360,7 +377,7 @@ def phase_kernels(torch, timer):
         lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
         nbytes = 4 * q.numel() * q.element_size()  # q, k, v read once, out written once
         flops = 4 * 16 * 64 * S * (S + 1) // 2  # QK^T and PV over the causal triangle
-        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+        t_bytes, t_ops = nbytes / HW.HBM_BW * 1e3, flops / HW.PEAK_FLOPS_BF16 * 1e3
         flash_times.append(dict(S=S, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ms_over_library=ms / lib_ms,
                                 bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                                 bound_by="bytes" if t_bytes >= t_ops else "operations"))
@@ -380,8 +397,8 @@ def phase_kernels(torch, timer):
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, k, v read once, out written once
             flops = 4 * B * nq * hd * S * (S + 1) // 2  # QK^T and PV over the causal triangle
-            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-            t_ops = flops / (H100_BF16_FLOPS if bf16 else H100_FP32_FLOPS) * 1e3
+            t_bytes = nbytes / HW.HBM_BW * 1e3
+            t_ops = flops / (HW.PEAK_FLOPS_BF16 if bf16 else HW.PEAK_FLOPS_FP32) * 1e3
             row.update(ms=timer(lambda: fa.flash_attention(q, k, v)), plain_ms=timer(lambda: fa.flash_attention_plain(q, k, v)),
                        library_ms=timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                                                enable_gqa=nq != nkv)),
@@ -401,7 +418,7 @@ def phase_kernels(torch, timer):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, k, v read once, out written once
         flops = 4 * B * nq * hd * S * (S + 1) // 2  # QK^T and PV over the causal triangle
-        t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+        t_bytes, t_ops = nbytes / HW.HBM_BW * 1e3, flops / HW.PEAK_FLOPS_BF16 * 1e3
         row.update(ms=timer(lambda: fa.flash_attention(q, k, v)), plain_ms=timer(lambda: fa.flash_attention_plain(q, k, v)),
                    library_ms=timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                                            enable_gqa=nq != nkv)),
@@ -468,7 +485,7 @@ def phase_kernels(torch, timer):
         ms=timer(lambda: dp.dt_unpack(packed, nseg=nseg, seg_len=seg, stride=stride, start=start, out_len=out_len)),
         plain_ms=timer(lambda: dp.dt_unpack_plain(packed, nseg, seg, stride, start, out_len)),
         library_ms=timer(lambda: torch.as_strided_scatter(zeros, packed.view(nseg, seg), (nseg, seg), (stride, 1), start)),
-        bytes=unpack_bytes, bound_ms=unpack_bytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+        bytes=unpack_bytes, bound_ms=unpack_bytes / HW.HBM_BW * 1e3, bound_by="bytes",
     )
     # the timer's floor: an empty kernel between the two events
     floor_ms = timer(lambda: torch.cuda._sleep(1))
@@ -498,7 +515,7 @@ def wkv6_bound(B, S, H, chunk, hs=64) -> dict:
                  + 2 * hs * hs         # e^{cw_last} ⊙ S
                  + 4 * chunk * hs)     # log-cumsum, cw_prev, r and k decays
     sfu = n * (tri * hs + 3 * chunk * hs + hs)  # exp over the triangle, log w, two decays, e^{cw_last}
-    t = dict(bytes=nbytes / H100_BYTES_PER_S * 1e3, fp32=flops / H100_FP32_FLOPS * 1e3, sfu=sfu / H100_SFU_PER_S * 1e3)
+    t = dict(bytes=nbytes / HW.HBM_BW * 1e3, fp32=flops / HW.PEAK_FLOPS_FP32 * 1e3, sfu=sfu / H100_SFU_PER_S * 1e3)
     top = max(t, key=t.get)
     return dict(bytes=nbytes, flops=flops, exp_log=sfu, bytes_ms=t["bytes"], fp32_ms=t["fp32"], exp_log_ms=t["sfu"],
                 bound_ms=t[top], bound_by="bytes" if top == "bytes" else "operations", set_by=top)
@@ -661,7 +678,7 @@ def phase_serve(torch):
     # a decode step reads every weight and the whole KV cache once
     kv_bytes = sum(t.numel() * t.element_size() for group in cache for entry in group for t in entry)
     param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    decode_bound_ms = (param_bytes + kv_bytes) / H100_BYTES_PER_S * 1e3
+    decode_bound_ms = (param_bytes + kv_bytes) / HW.HBM_BW * 1e3
     del cache
 
     emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
@@ -672,7 +689,8 @@ def phase_serve(torch):
          prefill_384_host_ms=prefill_ms, decode_step_host_ms=decode_ms, decode_step_bound_ms=decode_bound_ms,
          peak_mem_gb=peak_gb, prefill_logits_rel_err_bf16=rel_bf16, tol_bf16=tol_bf16,
          prefill_logits_rel_err_fp32=rel_fp32, tol_fp32=tol_fp32, device=torch.cuda.get_device_name(0))
-    return eng, dict(flash_launches=flash_launches)
+    return eng, dict(flash_launches=flash_launches, prefill_384_host_ms=prefill_ms, decode_step_host_ms=decode_ms,
+                     decode_step_bound_ms=decode_bound_ms)
 
 
 def phase_enqueue(torch, eng):
@@ -915,7 +933,7 @@ def phase_serve_rwkv(torch):
     # a decode step reads every weight once and reads and writes the state
     state_bytes = sum(t.numel() * t.element_size() for t in cache.values())
     param_bytes = sum(q.numel() * q.element_size() for q in model.parameters())
-    decode_bound_ms = (param_bytes + 2 * state_bytes) / H100_BYTES_PER_S * 1e3
+    decode_bound_ms = (param_bytes + 2 * state_bytes) / HW.HBM_BW * 1e3
     del cache
 
     emit("serve_rwkv", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.d_model // 64,
@@ -1101,7 +1119,7 @@ def unpack_into_rows(torch, timer, gen) -> dict:
         out = torch.zeros(out_len, dtype=torch.uint8, device="cuda")
         view = out.as_strided((nseg, seg), (stride, 1), 0)
         nbytes = 2 * nseg * seg
-        bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+        bound_ms = nbytes / HW.HBM_BW * 1e3
         ms = timer(lambda: dp.dt_unpack_into(packed, out, nseg=nseg, seg_len=seg, stride=stride))
         timings[name] = dict(
             nseg=nseg, seg_bytes=seg, stride_bytes=stride, ms=ms, bytes=nbytes, bound_ms=bound_ms,
@@ -1249,7 +1267,7 @@ def dist_allreduce(torch, n_params: int) -> dict:
         "multi_stream_4": lambda xs: col.multi_stream_all_reduce(xs, comms, axis=1)[0],
     }
     nbytes = 2 * x.numel() * 4
-    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ms = nbytes / HW.HBM_BW * 1e3
     rows = {}
     try:
         for name, schedule in schedules.items():
@@ -1334,7 +1352,7 @@ def dist_ring_sends(torch) -> dict:
                 packed_mb_per_send=packed / 2 ** 20, window=wst, k1_launches=launches, rows_one_layout=uniform,
                 issue_host_ms_median=statistics.median(issue_ms), send_ms=ms, send_host_ms=wall_ms, spin_ms=spin_ms,
                 bytes=nbytes,
-                bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes")
+                bound_ms=nbytes / HW.HBM_BW * 1e3, bound_by="bytes")
 
 
 def dist_shift(torch) -> dict:
@@ -1566,7 +1584,7 @@ def train_full_width(torch, base: Path) -> dict:
     out = dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params, steps=TRAIN_STEPS, batch=data.batch,
                seq=data.seq, grad_accum=cfg.grad_accum, remat=cfg.remat, losses=hist, wall_s=wall,
                step_host_ms=step_s * 1e3, step_host_ms_all=[s * 1e3 for s in tr.step_seconds],
-               step_flops=flops, step_bound_ms=flops / H100_BF16_FLOPS * 1e3, tokens_per_s=tokens / step_s,
+               step_flops=flops, step_bound_ms=flops / HW.PEAK_FLOPS_BF16 * 1e3, tokens_per_s=tokens / step_s,
                peak_mem_gb=peak_gb, ckpt_bytes=ckpt_bytes, saves=snaps, mid_ckpt_restored_equal=True,
                resumed_at=TRAIN_STEPS, progress=dict((k, st[k]) for k in ("completions", "polls", "parks", "wakes")),
                prefill_flash_launches=flash_launches, prefill_rel_err_bf16=rel,
@@ -1694,7 +1712,8 @@ def phase_train(torch) -> dict:
     finally:
         shutil.rmtree(base, ignore_errors=True)
     emit("train", full=full, windowed=windowed, elastic=elastic, device=torch.cuda.get_device_name(0))
-    return dict(flash_launches=full["prefill_flash_launches"])
+    return dict(flash_launches=full["prefill_flash_launches"], step_host_ms=full["step_host_ms"],
+                n_params=full["params"], batch=full["batch"], seq=full["seq"])
 
 
 # ----------------------------------------------------------------------
@@ -2341,7 +2360,7 @@ def zoo_granite(torch, smi: str) -> tuple:
     pos = torch.full((4,), 400, dtype=torch.long, device="cuda")
     decode_ms = host_ms(torch, lambda: api.decode_step(cfg, model, cache, tok, pos))
     kv_bytes = sum(t.numel() * t.element_size() for g in cache for e in g for t in e)
-    decode_bound_ms = (sizes["weight_bytes"] + kv_bytes) / H100_BYTES_PER_S * 1e3  # dropless: every expert is read
+    decode_bound_ms = (sizes["weight_bytes"] + kv_bytes) / HW.HBM_BW * 1e3  # dropless: every expert is read
     out = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, experts=cfg.moe.n_experts,
                top_k=cfg.moe.top_k, **sizes, **run["stats"], flash_launches=run["launches"], **routes,
                alone_divergences_bf16=div16, batch_routes_bf16=batch_routes, alone_divergences_fp32=div32, fp32_run=run32["stats"],
@@ -2486,7 +2505,7 @@ def zoo_deepseek(torch, smi: str) -> tuple:
                n_layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads, experts=cfg.moe.n_experts, **sizes,
                batch=B, prompt_len=S, decode_steps=steps, prefill_host_s=prefill_s, decode_vs_full_rel_bf16=dec16,
                decode_routes_vs_full_bf16=routes, decode_vs_full_rel_fp32=dec32, tol=tol, decode_step_host_ms=decode_ms,
-               decode_step_bound_ms=(sizes["weight_bytes"] + kv_bytes) / H100_BYTES_PER_S * 1e3,
+               decode_step_bound_ms=(sizes["weight_bytes"] + kv_bytes) / HW.HBM_BW * 1e3,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi)
     return out, checks
 
@@ -2597,7 +2616,7 @@ def zoo2_jamba(torch, smi: str) -> tuple:
     pos = torch.full((4,), 400, dtype=torch.long, device="cuda")
     decode_ms = host_ms(torch, lambda: api.decode_step(cfg, model, cache, tok, pos))
     state_bytes = sum(t.numel() * t.element_size() for t in cache_leaves(cache))
-    decode_bound_ms = (sizes["weight_bytes"] + state_bytes) / H100_BYTES_PER_S * 1e3  # dropless: every expert is read
+    decode_bound_ms = (sizes["weight_bytes"] + state_bytes) / HW.HBM_BW * 1e3  # dropless: every expert is read
     del cache
 
     # the same weights widened to fp32 in place, one tensor at a time
@@ -2715,7 +2734,7 @@ def zoo2_whisper(torch, smi: str) -> tuple:
                tokens_per_s=len(reqs) * ZOO2_NEW / serve_s, flash_launches=launches, decode_vs_full_rel_bf16=dvf,
                prefill_flash_vs_einsum_rel_bf16=rel16, prefill_flash_vs_einsum_rel_fp32=rel32,
                decode_step_host_ms=decode_ms,
-               decode_step_bound_ms=(sizes["weight_bytes"] + state_bytes) / H100_BYTES_PER_S * 1e3, nvidia_smi=smi)
+               decode_step_bound_ms=(sizes["weight_bytes"] + state_bytes) / HW.HBM_BW * 1e3, nvidia_smi=smi)
     return out, checks
 
 
@@ -2847,6 +2866,198 @@ def phase_timer_ab(torch) -> None:
     emit("timer_ab", flush=flush, spin=spin, pack_shapes=pack_shape_rows(torch, flushes["read"], bufs, check_exact=False))
 
 
+# ----------------------------------------------------------------------
+# the cost phase
+# ----------------------------------------------------------------------
+
+
+def start_dryrun() -> dict:
+    """Start the cost phase's dry-run cell (``python -m
+    repro_torch.launch.dryrun``) in a process of its own that sees no card:
+    it runs on meta tensors. Its row goes to a file under build/."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    out = ROOT / "build" / "cost-dryrun.json"
+    log = ROOT / "build" / "cost-dryrun.log"
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", COST_DRYRUN[0], "--shape", COST_DRYRUN[1],
+           "--out", str(out)]
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+    return dict(proc=proc, out=out, log=log, t0=time.perf_counter())
+
+
+def stop_dryrun(dry: dict) -> None:
+    if dry["proc"].poll() is None:
+        dry["proc"].kill()
+        dry["proc"].wait()
+
+
+def cost_row(rl, c, shape, cfg, measured_ms: float) -> dict:
+    """A counted step's roofline row beside its measured host ms."""
+    terms = rl.RooflineTerms(c.cost.flops, c.cost.bytes, 0.0, 1, rl.model_step_flops(cfg, shape))
+    row = terms.row()
+    row.update(bound_ms=terms.t_bound * 1e3, measured_ms=measured_ms, measured_over_bound=measured_ms / (terms.t_bound * 1e3))
+    return row
+
+
+def cost_counts(torch, serve: dict, train: dict) -> tuple:
+    """(a) The full-width qwen1.5-0.5b served decode step, a 384-token
+    prefill and the train phase's step counted on meta tensors beside
+    their measured times, held against the hand-derived bounds; returns
+    (rows, the meta train step's predicted peak bytes and args bytes)."""
+    from repro_torch.checkpoint import iovec_store as store
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.launch.train import make_serve_step, make_train_step
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg = get_config("qwen1.5-0.5b")  # einsum attention: the kernel wrappers raise on meta tensors
+    model = api.abstract_params(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == train["n_params"], f"the meta model has the trained model's {train['n_params']} params")
+    slots, max_len = COST_DECODE
+    cache = api.init_cache(cfg, slots, max_len, device="meta")
+    tok = torch.zeros(slots, dtype=torch.long, device="meta")
+    with OpCounter() as c:
+        make_serve_step(cfg)(model, cache, tok, tok)
+    decode = cost_row(rl, c, ShapeSpec("serve_decode", max_len, slots, "decode"), cfg, serve["decode_step_host_ms"])
+    hand_ms = serve["decode_step_bound_ms"]
+    ratio = decode["t_memory_s"] * 1e3 / hand_ms
+    check(abs(ratio - 1) <= COST_DECODE_TOL,
+          f"counted decode bytes bound {decode['t_memory_s'] * 1e3} ms within {COST_DECODE_TOL} of the hand-derived {hand_ms} ms")
+    decode.update(hand_bound_ms=hand_ms, counted_over_hand=ratio, by_op=c.top(6))
+
+    batch = {"tokens": torch.zeros((1, COST_PREFILL_S), dtype=torch.int32, device="meta")}
+    with OpCounter() as c:
+        api.prefill(cfg, model, batch, max_len=max_len)
+    prefill = cost_row(rl, c, ShapeSpec("serve_prefill", COST_PREFILL_S, 1, "prefill"), cfg, serve["prefill_384_host_ms"])
+    prefill.update(measured_with="flash", counted_with="einsum", by_op=c.top(6))
+
+    B, S = train["batch"], train["seq"]
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    model.requires_grad_(True)
+    opt_state = adamw_init(opt, dict(model.named_parameters()))
+    tbatch = {"tokens": torch.zeros((B, S), dtype=torch.int32, device="meta")}
+    with OpCounter(track_memory=True) as c:
+        make_train_step(cfg, opt)(model, opt_state, tbatch)
+    step = cost_row(rl, c, ShapeSpec("train_step", S, B, "train"), cfg, train["step_host_ms"])
+    hand = train_step_flops(cfg, B, S, n_params)
+    ratio = c.cost.flops / hand
+    check(1.0 <= ratio <= COST_TRAIN_MAX,
+          f"counted train FLOPs {c.cost.flops} between 1x and {COST_TRAIN_MAX}x the hand count {hand}: {ratio}")
+    # the gap by op family: the products beyond 6·N·tokens (remat recomputes
+    # each layer's forward; the embedding lookup is no product), attention
+    # beyond its causal half (einsum computes every score, recomputed too),
+    # and every other op (elementwise, reductions, AdamW), none in the hand count
+    fam = {k: v.flops for k, v in c.by_op.items()}
+    products = fam.get("mm", 0) + fam.get("addmm", 0)
+    attn_hand = train_step_flops(cfg, B, S, 0)
+    gap = {"mm+addmm beyond 6·N·tokens": products - 6.0 * n_params * B * S,
+           "bmm beyond the causal attention count": fam.get("bmm", 0) - attn_hand,
+           "every other op": c.cost.flops - products - fam.get("bmm", 0)}
+    step.update(hand_flops=hand, counted_over_hand=ratio, gap_flops=c.cost.flops - hand, gap_by_family=gap,
+                by_op=c.top(8))
+    args = sum(t.numel() * t.element_size() for t in store.tree_tensors({"params": dict(model.named_parameters()),
+                                                                         "opt": opt_state, "batch": tbatch}))
+    return dict(decode_step=decode, prefill_384=prefill, train_step=step), c.peak_bytes, args
+
+
+def cost_memory(torch, train: dict, train_temp: int, train_args: int) -> dict:
+    """(b) Peak memory predicted by the live-bytes tracker (the inputs'
+    bytes plus the peak of the storages a step creates, on meta tensors)
+    against ``torch.cuda.max_memory_allocated()`` for a real 384-token
+    prefill (einsum, as counted) and a real train step at the train phase's
+    batch, each on a fresh model; the card's allocations before the model
+    are subtracted from the peak."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    cfg = get_config("qwen1.5-0.5b")
+    meta = api.abstract_params(cfg)
+    param_bytes = sum(p.numel() * p.element_size() for p in meta.parameters())
+    with torch.no_grad(), OpCounter(track_memory=True) as c:
+        api.prefill(cfg, meta, {"tokens": torch.zeros((1, COST_PREFILL_S), dtype=torch.int32, device="meta")},
+                    max_len=COST_DECODE[1])
+    predicted = {"prefill_384": param_bytes + COST_PREFILL_S * 4 + c.peak_bytes, "train_step": train_args + train_temp}
+
+    rng = np.random.default_rng(2)
+    out = {}
+    for name in ("prefill_384", "train_step"):
+        release(torch)
+        base = torch.cuda.memory_allocated()
+        model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        if name == "prefill_384":
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, COST_PREFILL_S)), dtype=torch.int32, device="cuda")
+            run = lambda: api.prefill(cfg, model, {"tokens": toks}, max_len=COST_DECODE[1])  # noqa: E731
+        else:
+            opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+            model.requires_grad_(True)
+            state = adamw_init(opt, dict(model.named_parameters()))
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab, (train["batch"], train["seq"])), dtype=torch.int32,
+                                   device="cuda")
+            step = make_train_step(cfg, opt)
+            run = lambda: step(model, state, {"tokens": toks})  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.set_grad_enabled(name == "train_step"):
+            run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        measured = peak - base
+        ratio = measured / predicted[name]
+        check(abs(ratio - 1) <= COST_MEM_TOL,
+              f"{name}: max_memory_allocated {peak} less {base} before = {measured} within {COST_MEM_TOL} of the predicted {predicted[name]}")
+        out[name] = dict(predicted_bytes=predicted[name], max_memory_allocated=peak, allocated_before=base,
+                         measured_bytes=measured, measured_over_predicted=ratio)
+        del model, run
+    release(torch)
+    return out
+
+
+def cost_dryrun(dry: dict) -> dict:
+    """(c) The dry-run cell started before the first phase: its row and
+    seconds (waited for at most COST_DRYRUN_WAIT_S here)."""
+    proc = dry["proc"]
+    try:
+        proc.wait(timeout=COST_DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        check(False, f"the dry-run cell {COST_DRYRUN} finished within {COST_DRYRUN_WAIT_S} s of the cost phase "
+                     f"({time.perf_counter() - dry['t0']:.1f} s after it started)")
+    wall = time.perf_counter() - dry["t0"]
+    log = dry["log"].read_text()
+    check(proc.returncode == 0 and dry["out"].exists(), f"the dry-run cell exited {proc.returncode}: {log[-2000:]}")
+    row = json.loads(dry["out"].read_text())[0]
+    check("error" not in row, f"the dry-run cell raised: {row.get('error')}")
+    check(row["n_chips"] == 256 and row["collectives"] is not None and row["memory"]["temp_bytes"],
+          f"the dry-run cell counted its collectives and temp bytes on the 16x16 mesh: {row}")
+    return dict(row=row, seconds=row["lower_s"] + row["sharded_s"], wall_s_at_most=wall)
+
+
+def phase_cost(torch, smi: str, serve: dict, train: dict, dry: dict) -> None:
+    """The launch cost tooling on the card's own numbers: (a) counted
+    bounds beside measured times, (b) predicted against measured peak
+    memory, (c) one dry-run cell, (d) the card's memory beside HW."""
+    from repro_torch.launch.mesh import HW
+
+    t0 = time.perf_counter()
+    rows, train_temp, train_args = cost_counts(torch, serve, train)
+    memory = cost_memory(torch, train, train_temp, train_args)
+    dryrun = cost_dryrun(dry)
+    total = torch.cuda.get_device_properties(0).total_memory
+    emit("cost", counted=rows, peak_memory=memory, dryrun=dryrun,
+         card_memory=dict(total_memory=total, hw_hbm_bytes=HW.HBM_BYTES, ratio=total / HW.HBM_BYTES),
+         seconds=time.perf_counter() - t0, nvidia_smi=smi, device=torch.cuda.get_device_name(0))
+
+
 def zoo_launches(zoo: dict, zoo2: dict, row: dict) -> dict:
     """The zoo's K2 launches at a kernels-line row's head dim and dtype:
     the served bf16 run of the model with that head dim, or its fp32
@@ -2898,6 +3109,14 @@ def main() -> int:
     if args.timer_ab:
         phase_timer_ab(torch)
         return 0
+    dry = start_dryrun()
+    try:
+        return run_phases(torch, smi, dry)
+    finally:
+        stop_dryrun(dry)
+
+
+def run_phases(torch, smi: str, dry: dict) -> int:
     timer = Timer(torch)
     kern = phase_kernels(torch, timer)
     eng, serve = phase_serve(torch)
@@ -2915,6 +3134,7 @@ def main() -> int:
     rwkv = phase_serve_rwkv(torch)
     zoo = phase_zoo(torch, smi)
     zoo2 = phase_zoo2(torch, smi)
+    phase_cost(torch, smi, serve, train, dry)
 
     ft = kern["flash_times"][-1]  # the longest served prompt, S = 384
     ut = paged["unpack"]["timings"]["decode_step"]  # the paged path's most frequent move

@@ -39,6 +39,12 @@ op on its forward op's CUDA stream and orders the streams itself. A rank
 thread must not run a backward through a collective itself: its peers
 would accumulate into shared grads in a racy order, so the result's hook
 raises when a backward reaches it inside a region.
+
+Every op passes through :func:`_issue`, which tells the callbacks in
+:data:`observers` (``launch.roofline.count_collectives``) of it: the op's
+XLA name, the issuing rank's mesh position and its operand's bytes; the
+transpose that autograd runs for it in the caller's backward is told as
+well, when the cotangent reaches the result.
 """
 
 from __future__ import annotations
@@ -66,19 +72,50 @@ __all__ = [
 #: a dependency token: a CUDA event, a tuple of them, or None on the CPU
 Token = object
 
+#: callbacks ``fn(op, slot, nbytes)`` told of every collective issued (its
+#: XLA name, the issuing rank's mesh position, the operand's bytes) and of
+#: the transpose autograd runs for it; they must be thread-safe
+observers: List[Callable[[str, int, int], None]] = []
 
-def _issue(comm: StreamComm, x, token, compute: Callable[[List[torch.Tensor], int], torch.Tensor]):
-    """Run one collective for the calling rank without joining its current
-    stream: post ``x``, gather the group's tensors, compute this rank's
-    result on the issuing stream. Returns ``(y, done, side)``: ``done`` is
-    the event after the result on ``side`` (None on the CPU); the caller
-    joins with :func:`_join`."""
+#: the op autograd runs for each op's backward (the reference's transposes)
+_TRANSPOSE = {"all-reduce": "all-reduce", "all-gather": "reduce-scatter", "reduce-scatter": "all-gather",
+              "all-to-all": "all-to-all", "collective-permute": "collective-permute",
+              "collective-broadcast": "all-reduce"}
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else 0
+
+
+def _observe(op: str, slot: int, x, y) -> None:
+    """Tell the observers of an op and, once its cotangent arrives, of its
+    transpose (whose operand is the cotangent of ``y``)."""
+    watching = tuple(observers)
+    for fn in watching:
+        fn(op, slot, _nbytes(x))
+    if watching and isinstance(y, torch.Tensor) and y.requires_grad:
+        def transpose(grad):
+            for fn in watching:
+                fn(_TRANSPOSE[op], slot, _nbytes(grad))
+            return grad
+
+        y.register_hook(transpose)
+
+
+def _issue(comm: StreamComm, x, token, compute: Callable[[List[torch.Tensor], int], torch.Tensor], op: str):
+    """Run one collective (``op``, its XLA name) for the calling rank
+    without joining its current stream: post ``x``, gather the group's
+    tensors, compute this rank's result on the issuing stream. Returns
+    ``(y, done, side)``: ``done`` is the event after the result on ``side``
+    (None on the CPU); the caller joins with :func:`_join`."""
     region = _mesh.current_region()
     if region is None:
         raise RuntimeError("collectives are per-rank code: call them inside a shard_map region")
     if not isinstance(x, torch.Tensor) or not x.is_cuda:
         vals, me = region.exchange(comm.axes, (x, None))
-        return compute([v for v, _ in vals], me), None, None
+        y = compute([v for v, _ in vals], me)
+        _observe(op, region.slot, x, y)
+        return y, None, None
     cur = torch.cuda.current_stream(x.device)
     side = comm.stream.torch_stream(x.device) or cur
     if side is not cur:
@@ -97,6 +134,7 @@ def _issue(comm: StreamComm, x, token, compute: Callable[[List[torch.Tensor], in
         y = compute([v for v, _ in vals], me)
         done = torch.cuda.Event()
         done.record(side)
+    _observe(op, region.slot, x, y)
     return y, done, side
 
 
@@ -122,8 +160,8 @@ def _join(y, done, side, token):
     return y, (done if token is not None else None)
 
 
-def _collective(comm, x, token, compute):
-    return _join(*_issue(comm, x, token, compute), token)
+def _collective(comm, x, token, compute, op: str):
+    return _join(*_issue(comm, x, token, compute, op), token)
 
 
 def _fold_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -148,20 +186,20 @@ def _chunk(v: torch.Tensor, axis: int, i: int, n: int) -> torch.Tensor:
 
 def all_reduce(x, comm: StreamComm, token: Optional[Token] = None):
     """psum over the (flattened) comm axes. Returns (y, token')."""
-    return _collective(comm, x, token, lambda vals, me: _fold_sum(vals))
+    return _collective(comm, x, token, lambda vals, me: _fold_sum(vals), "all-reduce")
 
 
 def all_gather(x, comm: StreamComm, axis: int = 0, tiled: bool = True, token: Optional[Token] = None):
     """Every rank's ``x`` concatenated along ``axis`` (``tiled``) or stacked
     on a new ``axis``, in group-rank order."""
     join = torch.cat if tiled else torch.stack
-    return _collective(comm, x, token, lambda vals, me: join(vals, dim=axis))
+    return _collective(comm, x, token, lambda vals, me: join(vals, dim=axis), "all-gather")
 
 
 def reduce_scatter(x, comm: StreamComm, axis: int = 0, token: Optional[Token] = None):
     """psum_scatter (tiled): rank i gets chunk i along ``axis`` of the sum."""
     return _collective(
-        comm, x, token, lambda vals, me: _fold_sum([_chunk(v, axis, me, len(vals)) for v in vals])
+        comm, x, token, lambda vals, me: _fold_sum([_chunk(v, axis, me, len(vals)) for v in vals]), "reduce-scatter"
     )
 
 
@@ -171,6 +209,7 @@ def all_to_all(x, comm: StreamComm, split_axis: int, concat_axis: int, token: Op
     return _collective(
         comm, x, token,
         lambda vals, me: torch.cat([_chunk(v, split_axis, me, len(vals)) for v in vals], dim=concat_axis),
+        "all-to-all",
     )
 
 
@@ -193,12 +232,12 @@ def ppermute(x, comm: StreamComm, perm: Sequence[Tuple[int, int]], token: Option
     pair sends to receives zeros."""
     if len(comm.axes) != 1:
         raise ValueError("ppermute needs a single-axis comm; flatten first")
-    return _collective(comm, x, token, _permute(perm))
+    return _collective(comm, x, token, _permute(perm), "collective-permute")
 
 
 def broadcast(x, comm: StreamComm, root: int = 0, token: Optional[Token] = None):
     """Broadcast root's shard to all ranks of the comm."""
-    return _collective(comm, x, token, lambda vals, me: vals[root].clone())
+    return _collective(comm, x, token, lambda vals, me: vals[root].clone(), "collective-broadcast")
 
 
 def pshuffle(x, comm: StreamComm, shift: int = 1, token: Optional[Token] = None):
@@ -221,13 +260,13 @@ def _split_chunks(x, k: int, axis: int = 0):
     return torch.chunk(x, k, dim=axis)
 
 
-def _multi_stream(x, comms, tokens, axis, compute):
+def _multi_stream(x, comms, tokens, axis, compute, op: str):
     """Issue one chunk of ``x`` per comm, every chunk before any join, so
     chunks on distinct streams run concurrently; then join them all."""
     k = len(comms)
     chunks = _split_chunks(x, k, axis)
     tokens = list(tokens) if tokens is not None else [None] * k
-    issued = [_issue(comm, c, tokens[i], compute) for i, (c, comm) in enumerate(zip(chunks, comms))]
+    issued = [_issue(comm, c, tokens[i], compute, op) for i, (c, comm) in enumerate(zip(chunks, comms))]
     outs = []
     for i, it in enumerate(issued):
         y, tokens[i] = _join(*it, tokens[i])
@@ -247,7 +286,7 @@ def multi_stream_all_reduce(
     paper's global-critical-section baseline).
 
     Returns (y, tokens')."""
-    return _multi_stream(x, comms, tokens, axis, lambda vals, me: _fold_sum(vals))
+    return _multi_stream(x, comms, tokens, axis, lambda vals, me: _fold_sum(vals), "all-reduce")
 
 
 def multi_stream_all_gather(
@@ -257,7 +296,7 @@ def multi_stream_all_gather(
     axis: int = 0,
     gather_axis: int = 0,
 ):
-    return _multi_stream(x, comms, tokens, axis, lambda vals, me: torch.cat(vals, dim=gather_axis))
+    return _multi_stream(x, comms, tokens, axis, lambda vals, me: torch.cat(vals, dim=gather_axis), "all-gather")
 
 
 # ----------------------------------------------------------------------

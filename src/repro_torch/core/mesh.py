@@ -27,8 +27,8 @@ need not.
 * :func:`shard_map` — run ``f`` per position: split the inputs by
   ``in_specs``, gather the outputs by ``out_specs``. A rank that raises
   fails the region: its peers blocked in a rendezvous wake with an error
-  at once, every rendezvous wait is bounded (``RENDEZVOUS_TIMEOUT_S``),
-  and the first failure is re-raised to the caller.
+  at once, every rendezvous wait is bounded (``RENDEZVOUS_TIMEOUT_S`` with
+  no rank posting), and the first failure is re-raised to the caller.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils import _python_dispatch
 
 from repro_torch.device import resolve_device
 
@@ -57,7 +58,8 @@ __all__ = [
     "RENDEZVOUS_TIMEOUT_S",
 ]
 
-#: Bound on every rendezvous wait of a region (seconds).
+#: Bound on every rendezvous wait of a region (seconds): a rank that has
+#: waited this long with no rank of the region posting meanwhile fails it.
 RENDEZVOUS_TIMEOUT_S = 10.0
 
 
@@ -306,53 +308,84 @@ class _Rendezvous:
     value under a key and blocks, bounded, until every rank of the key's
     group has posted; all get the values in group-rank order. The entry is
     dropped once every rank has taken it, so the posted values live exactly
-    as long as some rank may still read them."""
+    as long as some rank may still read them. Each entry has its own
+    condition (on one shared lock), so a completed group wakes its own
+    ranks only: with hundreds of thread-ranks, waking every waiter at each
+    completion costs more than the region's work.
 
-    def __init__(self, timeout: float):
+    With ``turns`` (a semaphore of one) the ranks take turns: a rank holds
+    it while it runs and gives it up while it waits here, so the ranks run
+    one at a time in the order they queue. A meta-device region takes
+    turns: it has no device work to overlap, and hundreds of runnable
+    threads contending for the GIL starve some of them past the wait bound."""
+
+    def __init__(self, timeout: float, turns: Optional[threading.Semaphore] = None):
         self.timeout = timeout
-        self._cond = threading.Condition()
+        self.turns = turns
+        self._lock = threading.Lock()
+        self._posted_at = time.monotonic()  # the region's last post: a wait is bounded after it
         self._entries: Dict[tuple, list] = {}
         self.failure: Optional[BaseException] = None
 
     def fail(self, exc: BaseException) -> None:
         """Fail the region: every waiting and later exchange raises."""
-        with self._cond:
-            if self.failure is None:
-                self.failure = exc
-            self._cond.notify_all()
+        with self._lock:
+            self._fail(exc)
+
+    def _fail(self, exc: BaseException) -> None:
+        if self.failure is None:
+            self.failure = exc
+        for entry in self._entries.values():
+            entry[4].notify_all()
 
     def _check(self) -> None:
         if self.failure is not None:
             raise PeerFailed(f"region failed: {self.failure!r}")
 
+    def take_turn(self) -> None:
+        """Wait for the turn, bounded as a rendezvous wait is."""
+        while not self.turns.acquire(timeout=self.timeout):
+            if time.monotonic() - self._posted_at > self.timeout:
+                err = TimeoutError(f"waited for a turn; no rank posted for {self.timeout} s")
+                self.fail(err)
+                raise err
+
     def exchange(self, key: tuple, index: int, size: int, value) -> list:
-        deadline = time.monotonic() + self.timeout
-        with self._cond:
-            self._check()
-            entry = self._entries.setdefault(key, [[None] * size, [False] * size, 0, 0])
-            values, posted = entry[0], entry[1]
-            if posted[index]:
-                raise RuntimeError(f"rank {index} posted twice under {key}")
-            values[index], posted[index] = value, True
-            entry[2] += 1
-            if entry[2] == size:
-                self._cond.notify_all()
-            while entry[2] < size:
+        yielded = False
+        try:
+            with self._lock:
                 self._check()
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    err = TimeoutError(
-                        f"rendezvous {key}: {entry[2]} of {size} ranks arrived within {self.timeout} s"
-                    )
-                    if self.failure is None:
-                        self.failure = err
-                    self._cond.notify_all()
-                    raise err
-                self._cond.wait(remaining)
-            entry[3] += 1
-            if entry[3] == size:
-                del self._entries[key]
-            return list(values)
+                entry = self._entries.get(key)
+                if entry is None:
+                    entry = self._entries[key] = [[None] * size, [False] * size, 0, 0, threading.Condition(self._lock)]
+                values, posted = entry[0], entry[1]
+                if posted[index]:
+                    raise RuntimeError(f"rank {index} posted twice under {key}")
+                values[index], posted[index] = value, True
+                entry[2] += 1
+                self._posted_at = time.monotonic()
+                if entry[2] == size:
+                    entry[4].notify_all()
+                elif self.turns is not None:
+                    self.turns.release()  # the next rank in line runs while this one waits
+                    yielded = True
+                while entry[2] < size:
+                    self._check()
+                    remaining = self._posted_at + self.timeout - time.monotonic()
+                    if remaining <= 0:
+                        err = TimeoutError(
+                            f"rendezvous {key}: {entry[2]} of {size} ranks arrived; no rank posted for {self.timeout} s"
+                        )
+                        self._fail(err)
+                        raise err
+                    entry[4].wait(remaining)
+                entry[3] += 1
+                if entry[3] == size:
+                    del self._entries[key]
+                return list(values)
+        finally:
+            if yielded:  # outside the lock: the rank holding the turn may need it to post
+                self.take_turn()
 
 
 class _Region:
@@ -490,13 +523,15 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs):
     caller's current stream and the caller's current stream waits for all
     of it, so the result is ordered like any op on that stream.
 
-    The ranks run in the caller's grad mode; a result that autograd tracks
+    The ranks run in the caller's grad mode and under its torch dispatch
+    modes (``launch.op_cost.OpCounter`` counts them); a result that autograd tracks
     back into the ranks' work is differentiated by the caller, after the
     region (see :mod:`repro_torch.core.collectives`).
 
     If a rank raises, the region fails: peers in a rendezvous wake with
     :class:`PeerFailed` and the first failure is re-raised here. Every
-    rendezvous wait is bounded by ``RENDEZVOUS_TIMEOUT_S`` seconds."""
+    rendezvous wait is bounded by ``RENDEZVOUS_TIMEOUT_S`` seconds. On a
+    mesh of meta devices the ranks take turns (:class:`_Rendezvous`)."""
 
     def mapped(*args):
         if current_region() is not None:
@@ -510,8 +545,10 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs):
         for d, s in callers.items():
             started[d] = torch.cuda.Event()
             started[d].record(s)
-        rendezvous = _Rendezvous(RENDEZVOUS_TIMEOUT_S)
+        turns = threading.Semaphore(1) if all(d.type == "meta" for d in mesh.devices) else None
+        rendezvous = _Rendezvous(RENDEZVOUS_TIMEOUT_S, turns)
         grad = torch.is_grad_enabled()  # grad mode is per thread: the ranks take the caller's
+        modes = _python_dispatch._get_current_dispatch_mode_stack()  # per thread too
         outs: list = [None] * mesh.size
         done: list = [None] * mesh.size
         errors: list = []
@@ -519,7 +556,13 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs):
         def run(slot: int) -> None:
             stream = mesh.rank_stream(slot)
             _local.region = _Region(mesh, slot, rendezvous)
+            for mode in modes:
+                _python_dispatch._push_mode(mode)
+            turn = False
             try:
+                if turns is not None:
+                    rendezvous.take_turn()
+                    turn = True
                 with torch.set_grad_enabled(grad):
                     if stream is None:
                         outs[slot] = f(*[_split(a, s, mesh, slot) for a, s in zip(args, specs)])
@@ -531,6 +574,10 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs):
                 errors.append(e)
                 rendezvous.fail(e)
             finally:
+                if turn:
+                    turns.release()
+                for _ in modes:
+                    _python_dispatch._pop_mode()
                 _local.region = None
                 if stream is not None:  # the rank's work so far, failed or not
                     done[slot] = torch.cuda.Event()

@@ -76,10 +76,13 @@ __all__ = ["make_grad_step", "make_train_step", "make_serve_step", "make_prefill
 
 
 def _check_ported(cfg: ModelConfig) -> None:
+    """Refuse the two layout hints in the sharded step, which has no
+    layouts for them to pin yet; on one rank they change nothing, as in
+    the reference without a mesh."""
     for flag in ("seq_shard_acts", "moe_dispatch_sharding"):
         if getattr(cfg, flag):
             raise NotImplementedError(
-                f"{flag}=True is not ported to repro_torch yet (ROADMAP: tensor-parallel math of the sharded step)"
+                f"{flag}=True is not ported to the sharded step yet (ROADMAP P11c: tensor-parallel math)"
             )
 
 
@@ -231,8 +234,8 @@ def make_grad_step(cfg: ModelConfig, dp: tuple = ()):
     With ``dp=`` the step takes the sharded params (name → ShardedTensor,
     from :func:`device_put`) in place of the model and returns the grads
     laid out as the params, summed over every block's replicas."""
-    _check_ported(cfg)
     if dp:
+        _check_ported(cfg)
         check_dense_only(cfg, "the sharded step")
 
         def sharded_grad_step(params, batch):

@@ -1,6 +1,7 @@
 """Public model API of the port: the JAX package's dispatch surface.
 
     init_params(cfg, generator, device)       → the family's nn.Module
+    abstract_params(cfg)                      → the same on the meta device
     loss_fn(cfg, params, batch)               → (loss, metrics)
     init_cache(cfg, B, max_len, device)       → decode cache / recurrent state
     prefill(cfg, params, batch, max_len)      → (last_logits, cache)
@@ -27,7 +28,7 @@ from repro_torch.models import transformer as tf_mod
 from repro_torch.models import whisper as whisper_mod
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["family", "model_class", "init_params", "loss_fn", "init_cache", "prefill", "decode_step"]
+__all__ = ["family", "model_class", "init_params", "abstract_params", "loss_fn", "init_cache", "prefill", "decode_step"]
 
 
 def family(cfg: ModelConfig) -> str:
@@ -63,6 +64,12 @@ def model_class(cfg: ModelConfig):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
     return _INIT[family(cfg)](cfg, generator, resolve_device(device))
+
+
+def abstract_params(cfg: ModelConfig):
+    """The family's module on ``torch.device("meta")``: every parameter's
+    shape and dtype, no allocation (the dry-run path)."""
+    return model_class(cfg)(cfg, torch.device("meta"))
 
 
 def loss_fn(cfg: ModelConfig, params, batch):

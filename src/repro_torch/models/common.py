@@ -26,11 +26,17 @@ The flash gate of :func:`gqa_attention_full` is the reference's:
 ``attn_impl == "flash"``, causal, no sliding window, ``S % 128 == 0`` and
 no ``kv_override`` (cross-attention); it calls the flash kernel for CUDA
 tensors and its plain version for CPU tensors.
+
+On ``torch.device("meta")`` (shapes only) a per-token loop runs one step
+that stands for all of them (:func:`meta_scan`), so ``launch.op_cost`` can
+count a 32k- or 500k-token loop without running it.
 """
 
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -58,6 +64,8 @@ __all__ = [
     "embed",
     "logits_out",
     "next_token_xent",
+    "meta_scan",
+    "trip_count",
     "remat_wrap",
     "tag_act",
 ]
@@ -378,5 +386,88 @@ def remat_wrap(cfg: ModelConfig, fn):
 
 def tag_act(cfg: ModelConfig, x, name: str):
     """Name the (B, S, d) sublayer output ``x`` for the ``"save_acts"``
-    policy; ``x`` itself under every other policy."""
+    policy; ``x`` itself under every other policy. ``seq_shard_acts``, the
+    reference's sequence-parallel constraint here, has no layout to pin
+    outside the sharded step (which refuses it), so it changes nothing."""
     return _tag(x, name) if cfg.remat == "save_acts" else x
+
+
+# ----------------------------------------------------------------------
+# per-token loops on the meta device
+# ----------------------------------------------------------------------
+
+_trips = threading.local()
+
+
+def trip_count() -> int:
+    """How many loop steps each op dispatched on this thread stands for:
+    the trip count inside :func:`meta_scan`'s one step (forward, recompute
+    or backward), else 1. ``launch.op_cost`` multiplies each op's cost by it."""
+    return getattr(_trips, "n", 1)
+
+
+def _same(t):
+    return t
+
+
+@contextmanager
+def _standing_for(n: int):
+    outer = trip_count()
+    _trips.n = outer * n
+    try:
+        yield
+    finally:
+        _trips.n = outer
+
+
+class _OneStep(torch.autograd.Function):
+    """One step of a per-token loop on meta tensors, standing for ``n``:
+    the forward runs the step at position 0 under ``trip_count() == n`` and
+    keeps its graph (its saved tensors held as they are, out of reach of an
+    enclosing checkpoint's hooks); the backward runs that graph's backward
+    under the same count. The node saves its stacked output, so an
+    enclosing ``torch.utils.checkpoint`` recomputes its region (this node
+    counted again) when the backward unpacks it, before the count is
+    raised, as it recomputes a real loop."""
+
+    @staticmethod
+    def forward(ctx, step, n, nx, nc, *tensors):
+        with torch.enable_grad(), _standing_for(n), torch.autograd.graph.saved_tensors_hooks(_same, _same):
+            ins = [t.select(1, 0) if i < nx else t for i, t in enumerate(tensors)]
+            ins = [t.detach().requires_grad_(t.requires_grad) for t in ins]
+            y, carry = step(*ins)
+        ctx.n, ctx.nx, ctx.ins, ctx.outs = n, nx, ins, (y, carry)
+        ys = y.new_empty((y.shape[0], n) + tuple(y.shape[1:]))
+        ctx.save_for_backward(ys)
+        return ys, carry.detach()
+
+    @staticmethod
+    def backward(ctx, g_ys, g_carry):
+        ctx.saved_tensors  # unpacked at trip count 1: an enclosing checkpoint recomputes here
+        live = [t for t in ctx.ins if t.requires_grad]
+        outs = [o for o, g in zip(ctx.outs, (g_ys, g_carry)) if g is not None and o.requires_grad]
+        grads_out = [g.select(1, 0) if o is ctx.outs[0] else g
+                     for o, g in zip(ctx.outs, (g_ys, g_carry)) if g is not None and o.requires_grad]
+        with _standing_for(ctx.n):
+            got = iter(torch.autograd.grad(outs, live, grads_out, allow_unused=True) if outs and live else ())
+        grads = []
+        for i, t in enumerate(ctx.ins):
+            g = next(got) if t.requires_grad else None
+            if g is not None and i < ctx.nx:  # every position's gradient has step 0's shape
+                g = g.unsqueeze(1).expand((g.shape[0], ctx.n) + tuple(g.shape[1:]))
+            grads.append(g)
+        return (None, None, None, None, *grads)
+
+
+def meta_scan(step, n: int, xs, consts, carry):
+    """The meta-device stand-in of
+    ``for t in range(n): y_t, carry = step(*(x[:, t] for x in xs), *consts, carry)``
+    returning ``(ys stacked on dim 1, carry)``: one step runs, with the
+    outputs' shapes right, and ``launch.op_cost`` counts its ops (and under
+    autograd its backward's) ``n`` times, as ``repro.launch.jaxpr_cost``
+    multiplies a ``scan`` body by its length."""
+    if not torch.is_grad_enabled():
+        with _standing_for(n):
+            y, carry = step(*(x.select(1, 0) for x in xs), *consts, carry)
+        return y.new_empty((y.shape[0], n) + tuple(y.shape[1:])), carry
+    return _OneStep.apply(step, n, len(xs), len(consts), *xs, *consts, carry)

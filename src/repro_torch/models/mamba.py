@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import rms_norm
+from repro_torch.models.common import meta_scan, rms_norm
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["CHUNK", "mamba_params", "init_mamba_leaves", "mamba_init_state", "mamba_full", "mamba_decode"]
@@ -114,16 +114,23 @@ def _ssm_inputs(cfg: ModelConfig, p, xc):
     return dt, B_, C_
 
 
+def _ssm_step(dt_t, B_t, C_t, x_t, A, D, h):
+    dA = torch.exp(dt_t[..., None] * A)  # (B,di,ds)
+    dBx = (dt_t * x_t)[..., None] * B_t[:, None, :]
+    h = dA * h + dBx
+    return torch.einsum("bds,bs->bd", h, C_t) + D * x_t, h
+
+
 def _ssm_scan(dt, B_, C_, x32, A, D, h):
     """Sequential selective scan. dt/x32 (B,c,di); B_/C_ (B,c,ds); h
-    (B,di,ds). Returns y (B,c,di), h'."""
+    (B,di,ds). Returns y (B,c,di), h'. On meta tensors one step stands for
+    all (``common.meta_scan``)."""
+    if dt.is_meta:
+        return meta_scan(_ssm_step, dt.shape[1], (dt, B_, C_, x32), (A, D), h)
     ys = []
     for t in range(dt.shape[1]):
-        dt_t, x_t = dt[:, t], x32[:, t]
-        dA = torch.exp(dt_t[..., None] * A)  # (B,di,ds)
-        dBx = (dt_t * x_t)[..., None] * B_[:, t, None, :]
-        h = dA * h + dBx
-        ys.append(torch.einsum("bds,bs->bd", h, C_[:, t]) + D * x_t)
+        y, h = _ssm_step(dt[:, t], B_[:, t], C_[:, t], x32[:, t], A, D, h)
+        ys.append(y)
     return torch.stack(ys, dim=1), h
 
 

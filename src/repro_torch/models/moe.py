@@ -9,6 +9,9 @@ token-id table (sentinel ``N`` on free slots) whose gather builds the
 ``(E, C, d)`` expert batch; the expert FFN is one batched product per
 weight over the expert axis. The combine is either ``k`` gathers (the
 default) or one gate-weighted scatter-add (``moe_scatter_combine``).
+``moe_dispatch_sharding`` only pins the ``(E, C, d)`` layout on a mesh in
+the reference; with no partitioner here it changes nothing, as in the
+reference without a mesh.
 
 Where the reference scatters with ``mode="drop"`` at an out-of-range
 slot, the port's tables have one padding slot past their end: a dropped
@@ -58,10 +61,6 @@ def moe_apply(cfg: ModelConfig, p, x, train: bool = False) -> Tuple[torch.Tensor
     or an ``nn.ParameterDict``'s child module) with ``w_gate``/``w_up``/``w_down``.
     ``train`` selects the capacity regime (see :func:`moe_capacity`)."""
     m = cfg.moe
-    if cfg.moe_dispatch_sharding:
-        raise NotImplementedError(
-            "moe_dispatch_sharding=True is not ported to repro_torch yet (ROADMAP P11c: MoE in the sharded step)"
-        )
     B, S, d = x.shape
     N = B * S
     E, k = m.n_experts, m.top_k

@@ -55,6 +55,7 @@ from repro_torch.models.common import (
     embed,
     embed_params,
     logits_out,
+    meta_scan,
     next_token_xent,
     norm_params,
 )
@@ -228,14 +229,22 @@ def _time_mix_projections(p, x, x_prev_first):
     return w, r, k, v, g, x[:, -1]
 
 
+def _wkv_step(w_t, r_t, k_t, v_t, bonus, state):
+    kv = k_t[:, :, :, None] * v_t[:, :, None, :]
+    y = torch.einsum("bhi,bhij->bhj", r_t, state + bonus[None, :, :, None] * kv)
+    return y, w_t[:, :, :, None] * state + kv
+
+
 def _wkv_scan(w, r, k, v, bonus, state):
     """The per-token WKV recurrence. w/r/k/v (B,S,H,hs) fp32, state
-    (B,H,hs,hs) fp32. Returns (y (B,S,H,hs), state)."""
+    (B,H,hs,hs) fp32. Returns (y (B,S,H,hs), state). On meta tensors one
+    step stands for all (``common.meta_scan``)."""
+    if w.is_meta:
+        return meta_scan(_wkv_step, w.shape[1], (w, r, k, v), (bonus,), state)
     ys = []
     for t in range(w.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
-        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], state + bonus[None, :, :, None] * kv))
-        state = w[:, t, :, :, None] * state + kv
+        y, state = _wkv_step(w[:, t], r[:, t], k[:, t], v[:, t], bonus, state)
+        ys.append(y)
     return torch.stack(ys, dim=1), state
 
 

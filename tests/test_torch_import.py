@@ -35,7 +35,8 @@ def test_every_port_module_imports_without_jax():
     assert "repro_torch.serving.paged_kv" in mods and "repro_torch.core.threadcomm" in mods
     for sub in ("checkpoint.iovec_store", "checkpoint.manager", "data.pipeline", "optim.adamw", "optim.compression",
                 "optim.grad_overlap", "ft.heartbeat", "ft.straggler", "ft.elastic", "launch.train",
-                "parallel.pipeline", "parallel.sharding"):
+                "parallel.pipeline", "parallel.sharding", "launch.mesh", "launch.op_cost", "launch.roofline",
+                "launch.dryrun", "launch.hillclimb"):
         assert f"repro_torch.{sub}" in mods, sub
     benches = [str(p) for p in _port_bench_files()]
     assert any(b.endswith("serving_load.py") for b in benches)

@@ -6,7 +6,8 @@ Weights and tokens are drawn with numpy from a seed and handed to both
 packages. Covered: train capacity with drops (``capacity_factor`` 0.5 makes
 C smaller than the busiest expert's load), the dropless eval capacity, both
 combine modes (``k`` gathers and the gate-weighted scatter-add), shared
-experts, ``router_aux_loss`` and ``moe_capacity``.
+experts, ``router_aux_loss``, ``moe_capacity`` and the
+``moe_dispatch_sharding`` hint on one rank.
 
 Tolerances: outputs rel. 1e-4 and the aux loss rel. 1e-5 in fp32 (only the
 summation order of the products differs); the routes must be the
@@ -143,7 +144,26 @@ def test_moe_capacity_matches_reference(n_tokens):
 
 
 def test_dispatch_sharding_knob_raises():
+    """``moe_dispatch_sharding`` is a layout hint: on one rank the port's
+    single-rank grad step takes it and gives the reference's loss (which
+    treats the hint as a no-op without a mesh) within rel. 1e-5, and its
+    ``moe_apply`` output equals the knob-free one. The sharded step still
+    refuses it (``tests/test_torch_dist_train.py``)."""
+    from repro.models import api as japi
+    from repro_torch.launch.train import make_grad_step
+    from repro_torch.models.convert import params_from_numpy
+
     jcfg, tcfg = _cfgs(moe_dispatch_sharding=True)
-    p = _torch(_params(jcfg, 0))
-    with pytest.raises(NotImplementedError, match="P11c"):
-        tmoe.moe_apply(tcfg, p, torch.zeros(B, S, tcfg.d_model))
+    rng = np.random.default_rng(12)
+    shapes = jax.eval_shape(lambda: japi.init_params(jcfg, jax.random.key(0)))
+    tree = jax.tree.map(lambda a: (rng.standard_normal(a.shape) * 0.05).astype(np.float32), shapes)
+    tokens = rng.integers(0, jcfg.vocab, (B, S)).astype(np.int32)
+    want, _ = japi.loss_fn(jcfg, jax.tree.map(jnp.asarray, tree), {"tokens": jnp.asarray(tokens)})
+    model = params_from_numpy(tcfg, tree, device="cpu").requires_grad_(True)
+    _, got = make_grad_step(tcfg)(model, {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+    p, x = _torch(_params(jcfg, 0)), torch.from_numpy(_x(0, jcfg.d_model))
+    y_knob, aux_knob = tmoe.moe_apply(tcfg, p, x)
+    y, aux = tmoe.moe_apply(tcfg.replace(moe_dispatch_sharding=False), p, x)
+    assert torch.equal(y_knob, y) and torch.equal(aux_knob, aux)
