@@ -34,8 +34,12 @@ rest of the model zoo (``zoo2``: ``jamba-v0.1-52b`` cut to one period of 8
 layers, served with its Mamba states in the engine's cache and flash at
 hd 128 on its attention layer; ``whisper-tiny``'s 1500 stub frames and
 decoder prompts through the api with flash at hd 64 on the decoder; the
-``Trainer`` on whisper-tiny and on rwkv6-7b cut to 4 layers), and last
-checks the launch cost tooling (``cost``: the served decode step, a
+``Trainer`` on whisper-tiny and on rwkv6-7b cut to 4 layers), runs the
+sharded step for every family the card can hold twice against the
+single-rank step (``sharded_zoo``: granite-moe-1b-a400m whole, with MoE
+routing over the data-parallel groups, then an fp32 copy cut in depth and
+the trained model's flash prefill; phi-3-vision and rwkv6-7b cut in depth;
+whisper-tiny), and last checks the launch cost tooling (``cost``: the served decode step, a
 prefill and the train step counted on meta tensors beside their measured
 times and hand-derived bounds, peak memory predicted on meta against the
 card's allocator, and the ``qwen1.5-0.5b × train_4k`` dry-run cell, run in
@@ -181,6 +185,26 @@ ZOO2_RWKV_BATCH = (8, 128)
 # flash at the zoo2 paths' shapes (hd, (B, S, nq, nkv)), bf16: jamba's
 # attention layer and whisper's decoder self-attention at the longest prompt
 ZOO2_FLASH = {"jamba": (128, (1, 384, 32, 8)), "whisper": (64, (1, 384, 6, 6))}
+# the sharded_zoo phase: the sharded step on a (2, 2, 2) ("pod", "data",
+# "model") mesh of thread-ranks against the single-rank step, each config's
+# published training settings; each batch (B x S) is the smallest that splits
+# into grad_accum microbatches of one row per dp group (dp = 4). AdamW keeps
+# no fp32 master (bf16 moments for a bf16 model, the reference's setting for
+# its giants): where the layer count divides by dp, ZeRO-1 would shard the
+# moments on the layer-stacking dim, which the port drops (ROADMAP P11c), so
+# each moment is held 4 times over dp. Depth cuts for memory (the widths stay
+# the published ones): granite's fp32 copy, phi-3-vision and rwkv6-7b; the
+# trained granite serves one prefill of SZ_PREFILL_S tokens with flash
+SZ_MESH = ((2, 2, 2), ("pod", "data", "model"))
+SZ_LR = 1e-3
+SZ_GRANITE_BATCH = (16, 128)
+SZ_GRANITE_FP32_LAYERS = 8
+SZ_PREFILL_S = 384
+SZ_PHI_LAYERS = 8
+SZ_PHI_BATCH = (32, 128)
+SZ_RWKV_LAYERS = 2
+SZ_RWKV_BATCH = (32, 128)
+SZ_WHISPER_BATCH = (8, 128)
 # the cost phase: the served decode step (slots, max_len) and prefill length
 # it counts on meta tensors beside serve's measured times; the tolerances of
 # its checks; the dry-run cell it runs, in a process of its own started
@@ -2812,6 +2836,334 @@ def phase_zoo2(torch, smi: str) -> dict:
     return dict(flash_launches=launches)
 
 
+# ----------------------------------------------------------------------
+# the sharded_zoo phase
+# ----------------------------------------------------------------------
+
+
+class RankRoutes:
+    """Records the expert choices ``torch.topk`` makes inside a mesh
+    region, per mesh position in call order (a ``remat`` recompute runs
+    outside the region and is not recorded)."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, {}
+
+    def __enter__(self):
+        from repro_torch.core.mesh import current_region
+
+        orig = self.orig = self.torch.topk
+
+        def topk(probs, k, dim=-1):
+            v, idx = orig(probs, k, dim=dim)
+            region = current_region()
+            if region is not None:  # kept on the card: a host copy would sync the rank
+                self.calls.setdefault(region.slot, []).append(idx.detach())
+            return v, idx
+
+        self.torch.topk = topk
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.topk = self.orig
+
+
+def sz_microbatches(cfg, batch):
+    return [{k: v[i * len(v) // cfg.grad_accum:(i + 1) * len(v) // cfg.grad_accum] for k, v in batch.items()}
+            for i in range(cfg.grad_accum)]
+
+
+def sz_single_routing(torch, cfg, model, batch) -> dict:
+    """The single-rank loss's routing, microbatch by microbatch, without
+    grad (nothing recomputed): per MoE layer the choices (host), the
+    dropped choices summed over the microbatches, and the mean aux."""
+    from repro_torch.models import api, moe
+
+    drops, aux = [], []
+    moe.observers.append(lambda d: drops.append(int(d)))
+    with torch.no_grad(), MoERoutes(torch) as routes:
+        try:
+            for mb in sz_microbatches(cfg, batch):
+                aux.append(api.loss_fn(cfg, model, mb)[1]["aux"].item())
+        finally:
+            moe.observers.pop()
+    calls = [c.cpu() for c in routes.calls]
+    per_mb = len(calls) // cfg.grad_accum
+    dropped = [sum(drops[m * per_mb + l] for m in range(cfg.grad_accum)) for l in range(per_mb)]
+    return dict(calls=calls, dropped=dropped, aux=sum(aux) / len(aux))
+
+
+def sz_flips(single_calls: list, ranks: RankRoutes, mesh, n_layers: int) -> list:
+    """Per MoE layer, the (token, choice set)s of the single-rank run that
+    differ from the sharded run's, summed over the microbatches: the
+    sharded run's computing ranks' calls put back in row order."""
+    computing = sorted(s for s in ranks.calls if all(c == 0 for a, c in mesh.coords(s).items()
+                                                     if a not in ("pod", "data")))
+    flips = [0] * n_layers
+    for i, one in enumerate(single_calls):
+        got = ranks.torch.cat([ranks.calls[s][i].cpu() for s in computing])
+        flips[i % n_layers] += int((got.sort(-1).values != one.sort(-1).values).any(-1).sum())
+    return flips
+
+
+def sz_state(torch, cfg, opt_cfg, mesh, weights: dict, batch):
+    """The sharded params and AdamW state of ``weights`` (name → tensor),
+    laid out by train_shardings."""
+    from repro_torch.core.mesh import device_put
+    from repro_torch.launch.train import named, train_shardings
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import adamw_init
+
+    pspecs, ospecs, _, _ = train_shardings(cfg, opt_cfg, mesh, api.abstract_params(cfg), batch)
+    start = {n: w.to("cuda") for n, w in weights.items()}
+    params = device_put(start, named(mesh, pspecs))
+    opt = device_put(adamw_init(opt_cfg, start), named(mesh, ospecs))
+    return params, opt
+
+
+def sz_opt_cfg(cfg):
+    from repro_torch.optim.adamw import AdamWConfig
+
+    return AdamWConfig(lr=SZ_LR, warmup_steps=0, total_steps=10, master=False,
+                       moments_dtype="bfloat16" if cfg.param_dtype == "bfloat16" else "float32")
+
+
+def sz_run(torch, cfg, weights: dict, batch, routes: RankRoutes | None = None) -> dict:
+    """The single-rank train step, its results kept on the host and its
+    state released, then the sharded step from the same weights: the
+    losses, metrics, host ms, peak memory and bytes per rank of each, the
+    sharded params (left on the card) and the single-rank params (host)."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.parallel.sharding import dp_axes
+
+    opt_cfg = sz_opt_cfg(cfg)
+    out = {}
+    model = api.model_class(cfg)(cfg, torch.device("cuda"))
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(weights[n])
+    model.requires_grad_(True)
+    if cfg.moe.enabled:
+        out["single_routing"] = sz_single_routing(torch, cfg, model, batch)
+    state = adamw_init(opt_cfg, dict(model.named_parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, _, m1 = make_train_step(cfg, opt_cfg)(model, state, batch)
+    torch.cuda.synchronize()
+    out.update(single_loss=m1["loss"].item(), single_step_host_ms=(time.perf_counter() - t0) * 1e3,
+               single_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               single_params={n: p.detach().cpu() for n, p in model.named_parameters()})
+    del model, state, m1
+    release(torch)
+
+    mesh = make_mesh(*SZ_MESH)
+    params, opt = sz_state(torch, cfg, opt_cfg, mesh, weights, batch)
+    release(torch)
+    resident = [sum(st.resident_bytes(slot) for t in (params, opt["m"], opt["v"]) for st in t.values())
+                for slot in range(mesh.size)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if routes is None:
+        _, _, m = make_train_step(cfg, opt_cfg, dp=dp_axes(mesh))(params, opt, batch)
+    else:
+        with routes:
+            _, _, m = make_train_step(cfg, opt_cfg, dp=dp_axes(mesh))(params, opt, batch)
+    torch.cuda.synchronize()
+    out.update(opt=dict(moments_dtype=opt_cfg.moments_dtype, master=opt_cfg.master),
+               loss=m["loss"].item(), step_host_ms=(time.perf_counter() - t0) * 1e3,
+               step_peak_gb=torch.cuda.max_memory_allocated() / 1e9, resident_bytes_per_rank=resident,
+               metrics={k: (v.tolist() if v.dim() else v.item()) for k, v in m.items()
+                        if k in ("xent", "aux", "mtp", "moe_dropped")},
+               params=params, mesh=mesh)
+    out["loss_rel_err"] = abs(out["loss"] - out["single_loss"]) / abs(out["single_loss"])
+    del opt
+    return out
+
+
+def sz_params_beyond_a_step(torch, sharded: dict, single: dict) -> tuple:
+    """The sharded step's params against the single-rank step's, as the
+    pipeline phase's (c) holds them: (elements beyond one bf16 step, total,
+    elements beyond 2 lr plus a step)."""
+    off = total = wild = 0
+    for n, want in single.items():
+        got, want = sharded[n].gather().float(), want.to("cuda").float()
+        top = torch.clamp(torch.maximum(got.abs(), want.abs()), min=2.0 ** -126)
+        step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        diff = (got - want).abs()
+        beyond = diff > step
+        off += int(beyond.sum().item())
+        wild += int((diff[beyond] > 2 * SZ_LR + step[beyond]).sum().item())
+        total += want.numel()
+    return off, total, wild
+
+
+def sz_batch(torch, cfg, shape, seed: int) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    B, S = shape
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).cuda()}
+    if cfg.vlm:
+        batch["img_embeds"] = torch.from_numpy(
+            rng.standard_normal((B, cfg.n_img_tokens, cfg.d_model), dtype=np.float32)).cuda()
+    if cfg.encdec:
+        batch["enc_frames"] = torch.from_numpy(
+            rng.standard_normal((B, cfg.n_audio_ctx, cfg.d_model), dtype=np.float32)).cuda()
+    return batch
+
+
+def sz_weights(torch, cfg, seed: int = 0) -> dict:
+    """Random weights (the family's init, from a seed), on the host."""
+    from repro_torch.models import api
+
+    model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    weights = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model
+    release(torch)
+    return weights
+
+
+def sz_granite(torch, smi: str) -> tuple:
+    """(a) granite-moe-1b-a400m at its published width, depth and training
+    settings (bf16, grad_accum 4, remat full, capacity factor 1.25): the
+    sharded step against the single-rank step, its choice flips and drops;
+    the trained model's prefill with flash; then the exact check on an fp32
+    copy of the same weights cut to SZ_GRANITE_FP32_LAYERS layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.transformer import TransformerLM
+
+    cfg = get_config("granite-moe-1b-a400m")
+    weights = sz_weights(torch, cfg)
+    n_params = sum(w.numel() for w in weights.values())
+    batch = sz_batch(torch, cfg, SZ_GRANITE_BATCH, 11)
+    routes = RankRoutes(torch)
+    bf = sz_run(torch, cfg, weights, batch, routes)
+    sr = bf.pop("single_routing")
+    flips = sz_flips(sr["calls"], routes, bf["mesh"], cfg.n_layers)
+    checks = [(math.isfinite(bf["loss"]) and bf["loss_rel_err"] <= 5e-2,
+               f"granite bf16: sharded vs single-rank loss rel {bf['loss_rel_err']} <= 5e-2")]
+
+    # the trained, gathered params serve one prefill with flash
+    trained = TransformerLM(cfg, torch.device("cuda"))
+    with torch.no_grad():
+        for n, p in trained.named_parameters():
+            p.copy_(bf["params"][n].gather())
+    for k in ("params", "single_params", "mesh"):
+        bf.pop(k)
+    release(torch)
+    fcfg = cfg.replace(attn_impl="flash")
+    import numpy as np
+
+    pbatch = {"tokens": torch.from_numpy(np.random.default_rng(12).integers(0, cfg.vocab, (1, SZ_PREFILL_S))).cuda()}
+    fa.flash_attention.launches = 0
+    logits, _ = api.prefill(fcfg, trained, pbatch)
+    launches = fa.flash_attention.launches
+    rels = layer_attn_rels(torch, fcfg, trained, pbatch)
+    checks += [(launches == cfg.n_layers, f"granite trained prefill: flash launches {launches} == {cfg.n_layers}"),
+               (bool(torch.isfinite(logits).all()), "granite trained prefill: finite logits"),
+               (max(rels) <= 2e-2, f"granite trained prefill: every layer's attention flash vs einsum <= 2e-2: {rels}")]
+    del trained, logits
+    release(torch)
+
+    # the exact check: an fp32 copy of the same weights, cut in depth
+    c32 = cfg.replace(n_layers=SZ_GRANITE_FP32_LAYERS, param_dtype="float32", compute_dtype="float32")
+    keep = {n for n, _ in api.abstract_params(c32).named_parameters()}
+    w32 = {n: w.float() for n, w in weights.items() if n in keep}
+    del weights
+    f32 = sz_run(torch, c32, w32, batch)
+    sr32 = f32.pop("single_routing")
+    off, total, wild = sz_params_beyond_a_step(torch, f32.pop("params"), f32.pop("single_params"))
+    f32.pop("mesh")
+    release(torch)
+    drops = f32["metrics"]["moe_dropped"]
+    aux_err = abs(f32["metrics"]["aux"] - sr32["aux"])
+    checks += [(math.isfinite(f32["loss"]) and f32["loss_rel_err"] <= 1e-4,
+                f"granite fp32: sharded vs single-rank loss rel {f32['loss_rel_err']} <= 1e-4"),
+               ([int(d) for d in drops] == sr32["dropped"] and sum(sr32["dropped"]) > 0,
+                f"granite fp32: dropped choices per layer {drops} == single-rank {sr32['dropped']}, > 0"),
+               (aux_err <= 1e-6, f"granite fp32: aux {f32['metrics']['aux']} vs {sr32['aux']}: {aux_err} <= 1e-6"),
+               (off <= 0.01 * total and wild == 0,
+                f"granite fp32: params beyond one bf16 step {off} of {total} (<= 1%), {wild} beyond 2 lr")]
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params, batch=list(SZ_GRANITE_BATCH),
+               grad_accum=cfg.grad_accum, remat=cfg.remat, capacity_factor=cfg.moe.capacity_factor, bf16=bf,
+               bf16_flips_per_layer=flips, bf16_flips=sum(flips),
+               bf16_choices=sum(c.numel() for c in sr["calls"]) // cfg.moe.top_k,
+               bf16_single_dropped=sr["dropped"], bf16_single_aux=sr["aux"],
+               prefill=dict(S=SZ_PREFILL_S, flash_launches=launches, layer_attn_rels=rels),
+               fp32=dict(f32, n_layers=c32.n_layers, single_dropped=sr32["dropped"], single_aux=sr32["aux"],
+                         aux_abs_err=aux_err, params_beyond_one_bf16_step=off, params_total=total),
+               reduced=dict(fp32_n_layers=f"24 -> {c32.n_layers}"), nvidia_smi=smi)
+    return out, checks, launches
+
+
+def sz_other(torch, name: str, cfg, shape, seed: int, smi: str) -> tuple:
+    """(b) one more family: the sharded step against the single-rank step
+    (loss 1e-4), with the K2 and K3 launches of the run (none: training
+    takes the einsum and per-token routes)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as wk
+
+    weights = sz_weights(torch, cfg, seed)
+    batch = sz_batch(torch, cfg, shape, seed)
+    fa.flash_attention.launches = wk.wkv6.launches = 0
+    r = sz_run(torch, cfg, weights, batch)
+    k2, k3 = fa.flash_attention.launches, wk.wkv6.launches
+    for k in ("params", "single_params", "mesh"):
+        r.pop(k)
+    release(torch)
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, params=sum(w.numel() for w in weights.values()),
+               batch=list(shape), grad_accum=cfg.grad_accum, remat=cfg.remat, attn_impl=cfg.attn_impl, **r,
+               flash_launches=k2, wkv6_launches=k3, nvidia_smi=smi)
+    checks = [(math.isfinite(r["loss"]) and r["loss_rel_err"] <= 1e-4,
+               f"{name}: sharded vs single-rank loss rel {r['loss_rel_err']} <= 1e-4"),
+              (k2 == 0 and k3 == 0, f"{name}: no K2 or K3 launch under autograd: {k2}, {k3}")]
+    return out, checks
+
+
+def phase_sharded_zoo(torch, smi: str) -> dict:
+    """The sharded step for every family the card can hold twice: (a)
+    granite-moe-1b-a400m whole (its fp32 copy cut in depth), (b)
+    phi-3-vision, rwkv6-7b (cut in depth) and whisper-tiny. deepseek-v3
+    and jamba stay on the CPU tests (their smallest slice at published
+    width does not fit two training states). Each part's line is printed
+    before its checks are applied."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    failed = []
+
+    def done(name: str, out: dict, checks: list, t: float) -> None:
+        out["part_host_s"] = time.perf_counter() - t
+        emit("sharded_zoo", part=name, **out, checks_failed=[w for ok, w in checks if not ok])
+        failed.extend(f"{name}: {w}" for ok, w in checks if not ok)
+
+    release(torch)
+    t = time.perf_counter()
+    out, checks, launches = sz_granite(torch, smi)
+    done("granite", out, checks, t)
+    for name, arch, over, shape, seed in (("phi3", "phi-3-vision-4.2b", dict(n_layers=SZ_PHI_LAYERS), SZ_PHI_BATCH, 21),
+                                          ("rwkv6", "rwkv6-7b", dict(n_layers=SZ_RWKV_LAYERS, attn_impl="flash"),
+                                           SZ_RWKV_BATCH, 22),
+                                          ("whisper", "whisper-tiny", {}, SZ_WHISPER_BATCH, 23)):
+        release(torch)
+        t = time.perf_counter()
+        cfg = get_config(arch).replace(**over)
+        out, checks = sz_other(torch, name, cfg, shape, seed, smi)
+        if "n_layers" in over:
+            out["reduced"] = dict(n_layers=f"{get_config(arch).n_layers} -> {cfg.n_layers}")
+        done(name, out, checks, t)
+    emit("sharded_zoo", part="summary", flash_launches=launches, phase_host_s=time.perf_counter() - t0,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi)
+    check(not failed, f"sharded_zoo: {failed}")
+    return dict(flash_launches=launches)
+
 def phase_timer_ab(torch) -> None:
     """The timer's variants, each in turns so that a change of timer can be
     told from noise, and the pack's timed shapes under the default timer.
@@ -3134,6 +3486,7 @@ def run_phases(torch, smi: str, dry: dict) -> int:
     rwkv = phase_serve_rwkv(torch)
     zoo = phase_zoo(torch, smi)
     zoo2 = phase_zoo2(torch, smi)
+    sharded = phase_sharded_zoo(torch, smi)
     phase_cost(torch, smi, serve, train, dry)
 
     ft = kern["flash_times"][-1]  # the longest served prompt, S = 384
@@ -3142,11 +3495,13 @@ def run_phases(torch, smi: str, dry: dict) -> int:
         dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:75",
              launches=serve["flash_launches"] + paged["flash_launches"] + train["flash_launches"]
-             + pipe["flash_launches"] + sum(zoo["flash_launches"].values()) + sum(zoo2["flash_launches"].values()),
+             + pipe["flash_launches"] + sum(zoo["flash_launches"].values()) + sum(zoo2["flash_launches"].values())
+             + sharded["flash_launches"],
              launches_by_path=dict(serve=serve["flash_launches"], serve_paged=paged["flash_launches"],
                                    train=train["flash_launches"], pipeline=pipe["flash_launches"],
                                    **{f"zoo_{k}": n for k, n in zoo["flash_launches"].items()},
-                                   **{f"zoo_{k}": n for k, n in zoo2["flash_launches"].items()}),
+                                   **{f"zoo_{k}": n for k, n in zoo2["flash_launches"].items()},
+                                   sharded_zoo=sharded["flash_launches"]),
              max_abs_err=kern["flash_err"], ms=ft["ms"], plain_ms=ft["plain_ms"], bound_ms=ft["bound_ms"],
              bound_by=ft["bound_by"], library_ms=ft["library_ms"],
              by_head_dim=[dict({k: r[k] for k in ("hd", "dtype", "B", "S", "nq", "nkv", "max_abs_err", "ms", "plain_ms",

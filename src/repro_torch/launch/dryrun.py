@@ -24,11 +24,12 @@ here is counted:
   (the ranks share one autograd graph, whose backward runs on the caller's
   thread, so a rank's share is the region's peak over its rank count).
 
-Where the port has no sharded form — a train cell of a family the sharded
-step refuses (``models.transformer.check_dense_only``, ROADMAP P11c), and
-every prefill and decode cell (the port has no sharded serve step) —
-``collectives`` and ``temp_bytes`` are null and the row says why; its cost
-and compute and memory terms are still filled.
+Where the port has no sharded form — a train cell under the two layout
+hints the sharded step refuses (``seq_shard_acts``,
+``moe_dispatch_sharding``: ROADMAP P11c), and every prefill and decode
+cell (the port has no sharded serve step) — ``collectives`` and
+``temp_bytes`` are null and the row says why; its cost and compute and
+memory terms are still filled.
 """
 
 from __future__ import annotations
@@ -128,7 +129,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, verbose: boo
         try:
             coll, temp = _sharded_train(cfg, opt_cfg, mesh, model, opt_abs, batch, pspecs, ospecs)
             reason = None
-        except NotImplementedError as e:  # a family or knob the sharded step refuses (ROADMAP P11c)
+        except NotImplementedError as e:  # a layout hint the sharded step refuses (ROADMAP P11c)
             reason = str(e)
     elif shape.mode == "prefill":
         batch = registry.input_specs(cfg, shape)

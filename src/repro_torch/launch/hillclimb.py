@@ -3,10 +3,9 @@
 The port of ``repro.launch.hillclimb``: the same cells, tags and config
 transforms, each counted by ``launch.dryrun.lower_cell`` on the meta
 device (no card). The hypotheses say what each knob changes in the port.
-Variants whose knob the sharded step refuses (the MoE families, and
-``seq_shard_acts``/``moe_dispatch_sharding`` under ``dp=``, ROADMAP P11c)
-get a row whose collectives and temp bytes are null with the reason;
-their cost is still counted. Results append to ``--out``:
+Variants whose knob the sharded step refuses (``seq_shard_acts`` and
+``moe_dispatch_sharding``, ROADMAP P11c) get a row whose collectives and
+temp bytes are null with the reason; their cost is still counted. Results append to ``--out``:
 
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --cell llama --upto v1
 """

@@ -14,20 +14,26 @@ step functions take the sharded state that :func:`device_put` builds under
 ``opt_state_specs``, each mesh position (a thread-rank) holding only its
 blocks, and the batch split under ``batch_specs`` at step entry (each
 accumulation microbatch is the reference's: rows ``i·B/accum ...``, split
-over dp). Each layer gathers its blocks at block entry
-(``models.transformer.lm_xent_blocks``); each dp group's loss is computed
-once, by its position whose other coordinates are 0, the others only
-lending their blocks to the gathers; one ``torch.autograd.grad`` from the
-caller routes the cotangents back through the gathers to every block. The
+over dp). The loss runs as the units its family's forward enters
+(``models.api.loss_units``: an embedding, a layer, a period, the head),
+each unit's blocks gathered whole at its entry (``models.common.run_units``);
+each dp group's loss is computed once, by its position whose other
+coordinates are 0, the others only lending their blocks to the gathers.
+The groups' sums and counts are all-reduced over dp into the reference's
+global loss ``xent + aux + mtp_loss_weight · mtp``; the MoE layers route
+over the whole microbatch (``models.moe.GlobalRouting``), as the
+reference's ``moe_apply`` on the global batch does. One backward from the
+caller routes the cotangents back through the gathers to every block, and
+a hook moves each block's grad into its sum as soon as it is ready. The
 update is ZeRO-1: per leaf, the block grads are summed over the replica
 axes the moment is not sharded over (a ``reduce_scatter`` over the dp axes
 into the moment chunk, an ``all_reduce`` over the rest), AdamW runs on the
 chunk with the norm over every chunk, and an ``all_gather`` over dp puts
-the chunk back into the block. The single-rank step takes every family of
-the zoo (the transformer with MoE, MLA with MTP and the VLM prefix;
-RWKV-6 on its per-token route; Jamba; Whisper, whose batches carry
-``enc_frames``) under every remat policy; the sharded step takes the
-dense transformer configs only (ROADMAP P11c).
+the chunk back into the block. Both steps take every family of the zoo (the
+transformer with MoE, MLA with MTP and the VLM prefix; RWKV-6 on its
+per-token route; Jamba; Whisper, whose batches carry ``enc_frames``) under
+every remat policy; the sharded step refuses the two layout hints
+``seq_shard_acts`` and ``moe_dispatch_sharding`` (ROADMAP P11c).
 
 ``Trainer`` wires every substrate together the way the paper intends its
 extensions to be used: data prefetch + async checkpoints + heartbeats are
@@ -45,6 +51,7 @@ Run: PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b --ste
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import threading
@@ -65,9 +72,10 @@ from repro_torch.device import resolve_device
 from repro_torch.ft.heartbeat import HeartbeatMonitor
 from repro_torch.ft.straggler import StragglerMonitor
 from repro_torch.models import api
+from repro_torch.models.common import run_units
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.convert import state_tree
-from repro_torch.models.transformer import TransformerLM, check_dense_only, lm_xent_blocks
+from repro_torch.models.moe import GlobalRouting, router_aux_from_sums
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.parallel import sharding as shd
 
@@ -107,18 +115,47 @@ def _meta_models(cfg: ModelConfig, n: int) -> list:
     """One module tree per mesh position, on ``torch.device("meta")``:
     ``functional_call`` swaps parameters on the module it runs, so rank
     threads must not share one."""
-    return [TransformerLM(cfg, torch.device("meta")) for _ in range(n)]
+    return [api.model_class(cfg)(cfg, torch.device("meta")) for _ in range(n)]
+
+
+def _flat_sums(sums) -> torch.Tensor:
+    """One computing rank's sums (``run_units``) as one fp32 vector:
+    xent sum and count, MTP sum and count (zeros without MTP), then every
+    MoE layer's router row."""
+    xs, xc = sums["xent"]
+    ms, mc = sums.get("mtp", (torch.zeros_like(xs), torch.zeros_like(xc)))
+    return torch.cat([torch.stack([xs, xc, ms, mc]).float()] + sums.get("router", []))
+
+
+def _loss_of_sums(cfg: ModelConfig, v: torch.Tensor):
+    """The reference's loss ``xent + aux + mtp_loss_weight · mtp`` and its
+    metrics from :func:`_flat_sums` summed over the dp groups; with MoE
+    layers the metrics add ``moe_dropped``, each layer's choices past
+    capacity."""
+    xent = v[0] / torch.clamp(v[1], min=1.0)
+    total, metrics = xent, {"xent": xent}
+    if cfg.moe.enabled:
+        rows = v[4:].view(-1, 2 * cfg.moe.n_experts + 2)
+        metrics["aux"] = aux = router_aux_from_sums(cfg, rows)
+        metrics["moe_dropped"] = rows[:, 2 * cfg.moe.n_experts]
+        total = total + aux
+    if cfg.mtp_depth:
+        metrics["mtp"] = mtp = v[2] / torch.clamp(v[3], min=1.0)
+        total = total + cfg.mtp_loss_weight * mtp
+    return total, metrics
 
 
 def _partial_grads(cfg: ModelConfig, models: list, params, batch):
-    """Every position's grads of its own blocks (name → list per position)
-    and the loss. A position's block grad holds the contributions of the
-    loss terms whose forward gathered that block; their sum over the
-    block's replicas is the gradient."""
+    """Every position's grads of its own blocks (name → list per position),
+    the loss and its metrics (``_loss_of_sums``; the mean over the
+    microbatches, the dropped choices summed). A position's block grad
+    holds the contributions of the loss terms whose forward gathered that
+    block; their sum over the block's replicas is the gradient."""
     mesh = _mesh_of(params)
     specs = {n: st.sharding.spec for n, st in params.items()}
-    others = [a for a in mesh.axis_names if a not in shd.dp_axes(mesh)]
-    everyone = StreamComm(tuple(mesh.axis_names), mesh=mesh)
+    dp = shd.dp_axes(mesh)
+    others = [a for a in mesh.axis_names if a not in dp]
+    groups = StreamComm(dp, mesh=mesh)
     batch = {k: torch.as_tensor(v) for k, v in batch.items()}
     bspecs = shd.batch_specs(cfg, batch, mesh)
     keys = sorted(batch)
@@ -130,11 +167,13 @@ def _partial_grads(cfg: ModelConfig, models: list, params, batch):
         slot = current_region().slot
         blocks = {n: st.blocks[slot] for n, st in params.items()}
         counted = all(axis_index(a) == 0 for a in others)  # each dp group's loss once
-        out = lm_xent_blocks(cfg, models[slot], blocks, specs, dict(zip(keys, parts)), compute=counted)
-        if out is None:
-            out = (torch.zeros((), device=blocks[next(iter(blocks))].device),) * 2
-        total, _ = all_reduce(torch.stack(out), everyone)
-        return total[0] / torch.clamp(total[1], min=1.0)
+        route = GlobalRouting(groups) if cfg.moe.enabled and counted else None
+        sums = run_units(cfg, api.loss_units(cfg, models[slot]), blocks, specs,
+                         dict(zip(keys, parts)) if counted else None, route)
+        if sums is None:
+            return None
+        total, _ = all_reduce(_flat_sums(sums), groups)
+        return _loss_of_sums(cfg, total)
 
     region = shard_map(body, mesh, tuple(bspecs[k] for k in keys), P())
     accum = max(1, cfg.grad_accum)
@@ -143,29 +182,45 @@ def _partial_grads(cfg: ModelConfig, models: list, params, batch):
         raise ValueError(f"batch {B} does not split into {accum} microbatches")
     adt = torch_dtype(cfg.accum_dtype) if accum > 1 else None
     sums = [None] * len(leaves)
+
+    def take(j, b):
+        """Move block ``j``'s grad into its sum as soon as the backward has
+        it, so the blocks' grads never all exist beside the sums."""
+        g, b.grad = b.grad, None
+        if adt is None:
+            sums[j] = g
+        elif sums[j] is None:
+            sums[j] = g.to(adt)
+        else:
+            sums[j].add_(g.to(adt))
+
+    blocks = [b for _, _, b in leaves]
+    hooks = [b.register_post_accumulate_grad_hook(functools.partial(take, j)) for j, b in enumerate(blocks)]
     loss_sum = 0.0
-    for i in range(accum):
-        rows = slice(i * B // accum, (i + 1) * B // accum)
-        loss = region(*[batch[k][rows] for k in keys])
-        grads = torch.autograd.grad(loss, [b for _, _, b in leaves], allow_unused=True)
-        for j, ((_, _, b), g) in enumerate(zip(leaves, grads)):
-            g = torch.zeros_like(b) if g is None else g
-            if adt is None:
-                sums[j] = g
-            elif sums[j] is None:
-                sums[j] = g.to(adt)
-            else:
-                sums[j].add_(g.to(adt))
-        loss_sum = loss_sum + loss.detach()
+    metrics = {}
+    try:
+        for i in range(accum):
+            rows = slice(i * B // accum, (i + 1) * B // accum)
+            loss, m = region(*[batch[k][rows] for k in keys])
+            for k, v in m.items():
+                metrics[k] = metrics.get(k, 0.0) + v.detach()
+            torch.autograd.backward(loss, inputs=blocks)
+            loss_sum = loss_sum + loss.detach()
+    finally:
+        for h in hooks:
+            h.remove()
     out = {n: [None] * mesh.size for n in params}
-    for (n, slot, _), g in zip(leaves, sums):
-        out[n][slot] = g / accum if accum > 1 else g
-    return out, loss_sum / accum
+    for (n, slot, b), g in zip(leaves, sums):
+        if g is None:  # a block no loss term reached
+            g = torch.zeros_like(b, dtype=adt or b.dtype)
+        out[n][slot] = g.div_(accum) if accum > 1 else g  # the fp32 sums are the step's own
+    return out, loss_sum / accum, {k: v if k == "moe_dropped" else v / accum for k, v in metrics.items()}
 
 
 def _zero1_update(opt_cfg: AdamWConfig, params, opt_state, grads):
     """The ZeRO-1 update of the module docstring, in place; returns the
-    metrics of mesh position 0."""
+    metrics of mesh position 0. Consumes ``grads``: each block grad is
+    dropped once reduced, so its memory goes as its chunk comes."""
     mesh = _mesh_of(params)
     dp = shd.dp_axes(mesh)
     everyone = StreamComm(tuple(mesh.axis_names), mesh=mesh)
@@ -190,7 +245,7 @@ def _zero1_update(opt_cfg: AdamWConfig, params, opt_state, grads):
         coords = mesh.coords(slot)
         g_chunks, sq = {}, None
         for n, (rest, dp_rep, k) in plans.items():
-            g = grads[n][slot]
+            g, grads[n][slot] = grads[n][slot], None
             if rest:
                 g, _ = all_reduce(g, StreamComm(tuple(rest), mesh=mesh))
             if k is not None:
@@ -236,12 +291,11 @@ def make_grad_step(cfg: ModelConfig, dp: tuple = ()):
     laid out as the params, summed over every block's replicas."""
     if dp:
         _check_ported(cfg)
-        check_dense_only(cfg, "the sharded step")
 
         def sharded_grad_step(params, batch):
             mesh = _mesh_of(params)
             _check_dp(mesh, dp)
-            partial, loss = _partial_grads(cfg, _meta_models(cfg, mesh.size), params, batch)
+            partial, loss, _ = _partial_grads(cfg, _meta_models(cfg, mesh.size), params, batch)
             res = {n: [None] * mesh.size for n in params}
 
             def body():
@@ -283,17 +337,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, dp: tuple = ()):
     """(model, opt_state, batch) → (model, opt_state, metrics): the grad
     step followed by the in-place AdamW update. With ``dp=`` it takes the
     sharded params and optimizer state of :func:`train_shardings` (the
-    module docstring) and updates them in place, ZeRO-1."""
+    module docstring) and updates them in place, ZeRO-1; its metrics add
+    the loss's parts (``_loss_of_sums``: ``xent``, and ``aux``,
+    ``moe_dropped``, ``mtp`` where the config has them)."""
     if dp:
         _check_ported(cfg)
-        check_dense_only(cfg, "the sharded step")
 
         def sharded_train_step(params, opt_state, batch):
             mesh = _mesh_of(params)
             _check_dp(mesh, dp)
-            grads, loss = _partial_grads(cfg, _meta_models(cfg, mesh.size), params, batch)
+            grads, loss, metrics = _partial_grads(cfg, _meta_models(cfg, mesh.size), params, batch)
             om = _zero1_update(opt_cfg, params, opt_state, grads)
-            return params, opt_state, {"loss": loss, **om}
+            return params, opt_state, {"loss": loss, **metrics, **om}
 
         return sharded_train_step
     grad_step = make_grad_step(cfg)

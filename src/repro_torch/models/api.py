@@ -6,6 +6,7 @@
     init_cache(cfg, B, max_len, device)       → decode cache / recurrent state
     prefill(cfg, params, batch, max_len)      → (last_logits, cache)
     decode_step(cfg, params, cache, tok, pos) → (logits, cache)
+    loss_units(cfg, params)                   → the loss's sharded form
 
 Batches are dicts with ``tokens`` (numpy or tensor), an optional
 ``loss_mask``, ``enc_frames`` (B, n_audio_ctx, d) for the encoder-decoder
@@ -28,7 +29,8 @@ from repro_torch.models import transformer as tf_mod
 from repro_torch.models import whisper as whisper_mod
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["family", "model_class", "init_params", "abstract_params", "loss_fn", "init_cache", "prefill", "decode_step"]
+__all__ = ["family", "model_class", "init_params", "abstract_params", "loss_fn", "init_cache", "prefill", "decode_step",
+           "loss_units"]
 
 
 def family(cfg: ModelConfig) -> str:
@@ -54,6 +56,8 @@ _PREFILL = {"rwkv": rwkv_mod.rwkv_prefill, "jamba": jamba_mod.jamba_prefill, "en
             "transformer": tf_mod.prefill}
 _DECODE = {"rwkv": rwkv_mod.rwkv_decode_step, "jamba": jamba_mod.jamba_decode_step,
            "encdec": whisper_mod.whisper_decode_step, "transformer": tf_mod.decode_step}
+_UNITS = {"rwkv": rwkv_mod.loss_units, "jamba": jamba_mod.loss_units, "encdec": whisper_mod.loss_units,
+          "transformer": tf_mod.loss_units}
 
 
 def model_class(cfg: ModelConfig):
@@ -86,3 +90,9 @@ def prefill(cfg: ModelConfig, params, batch, max_len=None):
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
     return _DECODE[family(cfg)](cfg, params, cache, tokens, pos)
+
+
+def loss_units(cfg: ModelConfig, params):
+    """``loss_fn`` as the units its forward enters (``models.common.Unit``),
+    which ``models.common.run_units`` runs over a rank's parameter blocks."""
+    return _UNITS[family(cfg)](cfg, params)

@@ -17,6 +17,9 @@ new K/V rows and Mamba states into the cache tensors in place.
 The attention layer takes the flash kernel on prefills of ``S % 128 ==
 0`` under ``attn_impl="flash"`` (``models.common.gqa_attention_full``);
 the Mamba layers are PyTorch ops, as the reference's are ``lax.scan``.
+The sharded form of the loss (:func:`loss_units`) runs a period as one
+unit, under the remat policy as :func:`jamba_loss` runs it; its MoE
+layers route over the whole microbatch (``models.moe.GlobalRouting``).
 """
 
 from __future__ import annotations
@@ -31,14 +34,17 @@ from torch import nn
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (
+    Unit,
     apply_norm,
     embed,
     gqa_attention_decode,
     gqa_attention_full,
+    head_unit,
     logits_out,
     next_token_xent,
     remat_wrap,
     swiglu,
+    unit_call,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import _norm, _params, gqa_params, init_leaves, moe_params, swiglu_params
@@ -54,6 +60,7 @@ __all__ = [
     "jamba_loss",
     "jamba_prefill",
     "jamba_decode_step",
+    "loss_units",
 ]
 
 
@@ -85,9 +92,10 @@ class JambaLayer(nn.Module):
         self.mixer = gqa_params(cfg, device) if mixer == "attn" else mamba_mod.mamba_params(cfg, device)
         self.ffn = moe_params(cfg, device) if ffn == "moe" else swiglu_params(cfg, device, cfg.d_ff)
 
-    def apply_full(self, cfg: ModelConfig, x, positions, state, train: bool = False):
+    def apply_full(self, cfg: ModelConfig, x, positions, state, train: bool = False, route=None):
         """(x, aux loss, cache seed): ``(k, v)`` of the attention layer or
-        the Mamba layer's state after ``x`` (from ``state``, zeros if None)."""
+        the Mamba layer's state after ``x`` (from ``state``, zeros if None);
+        ``route`` as in ``moe.moe_apply``."""
         mixer, ffn = self.kind
         h = apply_norm(cfg, self.ln1, x)
         if mixer == "attn":
@@ -97,7 +105,7 @@ class JambaLayer(nn.Module):
         x = x + a
         h = apply_norm(cfg, self.ln2, x)
         if ffn == "moe":
-            f, aux = moe_mod.moe_apply(cfg, self.ffn, h, train=train)
+            f, aux = moe_mod.moe_apply(cfg, self.ffn, h, train=train, route=route)
         else:
             f, aux = swiglu(cfg, self.ffn, h), torch.zeros((), dtype=torch.float32, device=x.device)
         return x + f, aux, seed
@@ -180,6 +188,17 @@ def _tokens(model: JambaLM, tokens) -> torch.Tensor:
     return tokens.to(device=model.device, dtype=torch.long)
 
 
+def _period(cfg: ModelConfig, block, x, positions, train: bool, route=None):
+    """One period's layers over ``x``: (x, per-layer aux losses, per-layer
+    cache seeds)."""
+    auxes, seeds = [], []
+    for layer in block:
+        x, a, seed = layer.apply_full(cfg, x, positions, None, train, route)
+        auxes.append(a)
+        seeds.append(seed)
+    return x, auxes, seeds
+
+
 def _trunk(cfg: ModelConfig, model: JambaLM, tokens, train: bool = False):
     """(trunk output before the final norm, summed aux loss, per-position
     lists over blocks of cache seeds)."""
@@ -188,19 +207,13 @@ def _trunk(cfg: ModelConfig, model: JambaLM, tokens, train: bool = False):
     positions = torch.arange(S, device=x.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     seeds: List[list] = [[] for _ in block_layout(cfg)]
-
-    def block_fn(block, x):
-        out, a = [], torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer in block:
-            x, a_l, seed = layer.apply_full(cfg, x, positions, None, train)
-            a = a + a_l
-            out.append(seed)
-        return x, a, out
-
     for block in model.blocks:
-        fn = functools.partial(block_fn, block)
+        fn = functools.partial(_period, cfg, block, positions=positions, train=train)
         # the reference rematerialises a whole period
-        x, a, out = (remat_wrap(cfg, fn) if torch.is_grad_enabled() else fn)(x)
+        x, auxes, out = (remat_wrap(cfg, fn) if torch.is_grad_enabled() else fn)(x)
+        a = torch.zeros((), dtype=torch.float32, device=x.device)
+        for a_l in auxes:
+            a = a + a_l
         aux = aux + a
         for pi, seed in enumerate(out):
             seeds[pi].append(seed)
@@ -263,3 +276,28 @@ def jamba_decode_step(cfg: ModelConfig, model: JambaLM, cache, tokens, pos):
             x = layer.forward_decode(cfg, x, one, pos)
     x = apply_norm(cfg, model.final_norm, x)
     return logits_out(cfg, model.embed, x)[:, 0], cache
+
+
+# -- the sharded form of the loss (models.common.run_units) -------------------
+
+
+def _embed_unit(cfg: ModelConfig, params, c, route):
+    tokens = c["tokens"].long()
+    B, S = tokens.shape
+    x = embed(cfg, params[0], tokens)
+    return {**c, "tokens": tokens, "x": x, "positions": torch.arange(S, device=x.device).expand(B, S), "router": []}
+
+
+def _period_unit(cfg: ModelConfig, block, params, c, route):
+    x, auxes, _ = unit_call(block, params[0], lambda m: _period(cfg, m, c["x"], c["positions"], True, route))
+    return {**c, "x": x, "router": c["router"] + [a for layer, a in zip(block, auxes) if layer.kind[1] == "moe"]}
+
+
+def loss_units(cfg: ModelConfig, model: JambaLM) -> List[Unit]:
+    """:func:`jamba_loss` as units (``models.common.Unit``): the embedding,
+    each period ``blocks.{b}`` under the remat policy, the head; the MoE
+    layers' router sums go to ``router``."""
+    units = [Unit(("embed.",), functools.partial(_embed_unit, cfg))]
+    units += [Unit((f"blocks.{b}.",), functools.partial(_period_unit, cfg, block), remat=True)
+              for b, block in enumerate(model.blocks)]
+    return units + [head_unit(cfg)]

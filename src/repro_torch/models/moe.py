@@ -21,18 +21,38 @@ sync the host). Its ``k``-gather combine reads a dropped choice at queue
 position 0 before masking it out (JAX's gather clamps the position instead;
 either value is masked). MoE has no Pallas kernel in the reference: these
 are PyTorch ops.
+
+**Routing over the data-parallel groups.** The reference routes the
+global microbatch; in the port's sharded step each dp group's computing
+rank holds only its rows. With ``route=`` (a :class:`GlobalRouting`)
+``moe_apply`` routes as if it saw every group's tokens: the capacity comes
+from the global token count, each pass's per-expert pick counts are
+exchanged over the dp axes so a group's queue positions continue where the
+earlier groups' (in row order) stop, and the aux loss comes back as its
+sums (:func:`router_aux_from_sums` forms it after the caller's
+all-reduce). A layer recomputed by ``remat`` in the caller's backward runs
+outside the region, where no collective may be issued: it reuses the
+exchange its forward made.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.collectives import all_gather
+from repro_torch.core.streams import StreamComm
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["moe_capacity", "moe_apply", "router_aux_loss"]
+__all__ = ["moe_capacity", "moe_apply", "router_aux_loss", "router_aux_from_sums", "GlobalRouting", "observers"]
+
+#: callbacks ``fn(dropped)`` told of every routing ``moe_apply`` computes
+#: (``dropped``: the choices past their expert's capacity, an integer
+#: tensor); a remat policy's recompute is a routing too, so count under
+#: ``torch.no_grad()``, where nothing is recomputed
+observers: List[Callable[[torch.Tensor], None]] = []
 
 
 def moe_capacity(n_tokens: int, cfg: ModelConfig, train: bool = False) -> int:
@@ -54,35 +74,91 @@ def router_aux_loss(probs, topi, E: int):
     return E * torch.sum(f * probs.mean(dim=0))
 
 
-def moe_apply(cfg: ModelConfig, p, x, train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+def router_aux_from_sums(cfg: ModelConfig, sums: torch.Tensor) -> torch.Tensor:
+    """The summed aux loss of the MoE layers whose routing sums ``sums``
+    (L, 2E+2) holds, each row ``moe_apply(route=)``'s, summed over the dp
+    groups: ``router_aux_weight · E · Σ_e f_e · P_e`` per layer, ``f`` and
+    ``P`` the row's top-1 counts and summed probabilities over its token
+    count (the last entry)."""
+    E = cfg.moe.n_experts
+    n = sums[:, -1:]
+    per_layer = E * torch.sum((sums[:, :E] / n) * (sums[:, E: 2 * E] / n), dim=1)
+    return torch.sum(per_layer) * cfg.moe.router_aux_weight
+
+
+class GlobalRouting:
+    """One computing rank's view of the routing over every dp group of the
+    sharded step (the module docstring). ``comm`` is the rank's
+    :class:`StreamComm` over the dp axes (bound to the mesh), whose
+    group-rank order is the batch's row order. The caller brackets each
+    unit of its forward with :meth:`enter`; the k-th routing inside a unit
+    exchanges its pick counts on the unit's first run and reads that
+    exchange back when ``remat`` reruns the unit."""
+
+    def __init__(self, comm: StreamComm):
+        self.comm, self.n_groups = comm, comm.size()
+        self._log: dict = {}
+        self._key, self._i = None, 0
+
+    def enter(self, key) -> None:
+        self._key, self._i = key, 0
+
+    def offsets(self, counts: torch.Tensor) -> torch.Tensor:
+        """(k, E) queue offsets of this group's choices, pass by pass, from
+        ``counts`` (k, E), this group's picks per expert in each pass: every
+        group's picks in the earlier passes, then the earlier groups' in
+        this pass."""
+        log = self._log.setdefault(self._key, [])
+        if self._i == len(log):
+            every, _ = all_gather(counts, self.comm, axis=0, tiled=False)  # (G, k, E)
+            per_pass = every.sum(0)
+            log.append(torch.cumsum(per_pass, dim=0) - per_pass + every[: self.comm.rank()].sum(0))
+        self._i += 1
+        return log[self._i - 1]
+
+
+def moe_apply(cfg: ModelConfig, p, x, train: bool = False,
+              route: GlobalRouting | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) → (y (B,S,d), aux loss scalar). ``p`` holds ``router``
     (d,E) fp32, ``we_gate``/``we_up`` (E,d,de), ``we_down`` (E,de,d) and,
     with shared experts, ``shared`` (a nested mapping: a plain dict's key
     or an ``nn.ParameterDict``'s child module) with ``w_gate``/``w_up``/``w_down``.
-    ``train`` selects the capacity regime (see :func:`moe_capacity`)."""
+    ``train`` selects the capacity regime (see :func:`moe_capacity`).
+
+    With ``route`` the tokens are one dp group's rows of the microbatch
+    (the module docstring) and the aux comes back as its sums, a (2E+2,)
+    fp32 row: the top-1 counts, the summed probabilities, the dropped
+    choices and the token count."""
     m = cfg.moe
     B, S, d = x.shape
     N = B * S
     E, k = m.n_experts, m.top_k
-    C = moe_capacity(N, cfg, train=train)
+    C = moe_capacity(N * (route.n_groups if route is not None else 1), cfg, train=train)
     xf = x.reshape(N, d)
 
     # --- route (fp32) --------------------------------------------------
     probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)  # (N,E)
     topv, topi = torch.topk(probs, k, dim=-1)  # (N,k), largest first
     gates = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
-    aux = router_aux_loss(probs, topi, E) * m.router_aux_weight
 
     # --- position-in-expert: k passes, tokens in row-major B*S order ------
-    running = torch.zeros((E,), dtype=torch.long, device=x.device)
-    pos_cols = []
+    within_cols, counts = [], []
     for j in range(k):
         oh = F.one_hot(topi[:, j], E)  # (N,E)
         within = torch.cumsum(oh, dim=0) - oh  # exclusive count per expert
-        pos_cols.append(within.gather(1, topi[:, j : j + 1])[:, 0] + running[topi[:, j]])
-        running = running + oh.sum(0)
-    pos = torch.stack(pos_cols, dim=1)  # (N,k)
+        within_cols.append(within.gather(1, topi[:, j : j + 1])[:, 0])
+        counts.append(oh.sum(0))
+    counts = torch.stack(counts)  # (k,E)
+    base = route.offsets(counts) if route is not None else torch.cumsum(counts, dim=0) - counts
+    pos = torch.stack([c + base[j][topi[:, j]] for j, c in enumerate(within_cols)], dim=1)  # (N,k)
     keep = pos < C
+    for fn in observers:
+        fn(torch.sum(~keep))
+    if route is None:
+        aux = router_aux_loss(probs, topi, E) * m.router_aux_weight
+    else:
+        top1 = F.one_hot(topi[:, 0], E).sum(0).float()
+        aux = torch.cat([top1, probs.sum(0), torch.sum(~keep).float()[None], top1.new_full((1,), float(N))])
 
     # --- dispatch: token-id table (E,C), sentinel N, then gather ----------
     # flat (e, c) of every kept choice, unique by construction; a dropped

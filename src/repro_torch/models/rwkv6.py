@@ -37,12 +37,14 @@ axis 0 with the batch on axis 1, so ``ServeEngine``'s splice holds:
 :func:`rwkv_loss` takes the default route, as the reference's does, so
 the trainer differentiates it; under autograd with inputs that need a
 gradient the kernel route raises ``NotImplementedError`` (K3 has no
-backward, nor has the reference's kernel).
+backward, nor has the reference's kernel). Its sharded form
+(:func:`loss_units`) takes the same route, layer by layer.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -50,14 +52,17 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import (
+    Unit,
     apply_norm,
     dense_init,
     embed,
     embed_params,
+    head_unit,
     logits_out,
     meta_scan,
     next_token_xent,
     norm_params,
+    unit_call,
 )
 from repro_torch.models.config import ModelConfig
 
@@ -70,6 +75,7 @@ __all__ = [
     "rwkv_loss",
     "rwkv_prefill",
     "rwkv_decode_step",
+    "loss_units",
     "HEAD_SIZE",
     "KERNEL_CHUNK",
 ]
@@ -365,3 +371,31 @@ def rwkv_decode_step(cfg: ModelConfig, model: RWKVLM, state, tokens, pos):
     tokens = _tokens(model, tokens)
     x, state = _trunk(cfg, model, tokens[:, None], state, None, out=state)
     return logits_out(cfg, model.embed, x)[:, 0], state
+
+
+# ----------------------------------------------------------------------
+# the sharded form of the loss (models.common.run_units)
+# ----------------------------------------------------------------------
+
+
+def _embed_unit(cfg: ModelConfig, params, c, route):
+    tokens = c["tokens"].long()
+    return {**c, "tokens": tokens, "x": embed(cfg, params[0], tokens)}
+
+
+def _layer_unit(cfg: ModelConfig, layer: RWKVLayer, params, c, route):
+    x = c["x"]
+    H, B = _n_heads(cfg), x.shape[0]
+    zeros = {"x_tm": x.new_zeros((B, cfg.d_model)), "x_cm": x.new_zeros((B, cfg.d_model)),
+             "wkv": torch.zeros((B, H, HEAD_SIZE, HEAD_SIZE), dtype=torch.float32, device=x.device)}
+    x, _ = unit_call(layer, params[0], lambda m: _layer(cfg, m, x, zeros, False))
+    return {**c, "x": x}
+
+
+def loss_units(cfg: ModelConfig, model: RWKVLM) -> List[Unit]:
+    """:func:`rwkv_loss` as units (``models.common.Unit``): the embedding,
+    each layer ``layers.{i}`` on the per-token route from a zero state, and
+    the head. No remat, as :func:`rwkv_loss` has none."""
+    units = [Unit(("embed.",), functools.partial(_embed_unit, cfg))]
+    units += [Unit((f"layers.{i}.",), functools.partial(_layer_unit, cfg, layer)) for i, layer in enumerate(model.layers)]
+    return units + [head_unit(cfg)]

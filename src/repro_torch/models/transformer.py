@@ -15,12 +15,15 @@ per group, a tuple per pattern position of a pair, each ``(reps, B, T,
 max_len)`` on a sliding-window layer, a ring where position ``p`` lives at
 slot ``p % T``), ``(c_kv, k_rope)`` latent rows for MLA.
 
-The sharded forward (:func:`lm_xent_blocks`) covers the dense configs
-only; MoE, MLA, the VLM prefix and MTP raise there (ROADMAP P11c).
+The sharded form of the loss (:func:`loss_units`, run by
+:func:`lm_xent_blocks`) covers every config: MoE layers route over the
+whole microbatch (``models.moe.GlobalRouting``), MLA, the VLM prefix and
+MTP as in :func:`lm_loss`.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -29,21 +32,22 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.core.collectives import all_gather
-from repro_torch.core.mesh import current_region
-from repro_torch.core.streams import StreamComm
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (
+    Unit,
     apply_norm,
     embed,
     gqa_attention_decode,
     gqa_attention_full,
+    head_unit,
     logits_out,
     next_token_xent,
     remat_wrap,
+    run_units,
     swiglu,
     tag_act,
+    unit_call,
 )
 from repro_torch.models.config import ModelConfig
 
@@ -64,8 +68,8 @@ __all__ = [
     "init_cache",
     "prefill",
     "decode_step",
+    "loss_units",
     "lm_xent_blocks",
-    "check_dense_only",
 ]
 
 
@@ -108,19 +112,6 @@ def layer_groups(cfg: ModelConfig) -> List[Tuple[Tuple[LayerSpec, ...], int]]:
         groups.append(((LayerSpec("gqa", 0, cfg.rope_theta, False, cfg.moe.dense_d_ff or cfg.d_ff),), kd))
     groups.append(((LayerSpec("gqa", 0, cfg.rope_theta, cfg.moe.enabled, cfg.d_ff),), cfg.n_layers - kd))
     return groups
-
-
-def check_dense_only(cfg: ModelConfig, what: str) -> None:
-    """Raise for a config the sharded forward, the sharded step and the
-    pipeline do not cover yet: MoE, MLA, the VLM prefix, MTP, and the
-    families other than the decoder-only transformer."""
-    parts = [name for name, on in (("MoE", cfg.moe.enabled), ("MLA", cfg.mla is not None), ("the VLM prefix", cfg.vlm),
-                                   ("MTP", cfg.mtp_depth > 0), ("an encoder-decoder", cfg.encdec),
-                                   ("RWKV-6", cfg.family == "ssm_rwkv"), ("the hybrid", cfg.family == "hybrid")) if on]
-    if parts:
-        raise NotImplementedError(
-            f"{what} covers dense configs only; {cfg.name} has {', '.join(parts)} (ROADMAP P11c)"
-        )
 
 
 def _param(shape, cfg: ModelConfig, device, dtype=None) -> nn.Parameter:
@@ -206,9 +197,10 @@ class DecoderLayer(nn.Module):
             self.attn = gqa_params(cfg, device)
         self.ffn = moe_params(cfg, device) if spec.moe else swiglu_params(cfg, device, spec.d_ff or cfg.d_ff)
 
-    def apply_full(self, cfg: ModelConfig, x, positions, train: bool = False):
+    def apply_full(self, cfg: ModelConfig, x, positions, train: bool = False, route=None):
         """(x, aux loss, cache seed) of the full-sequence layer; ``train``
-        selects the MoE's train capacity."""
+        selects the MoE's train capacity, ``route`` its routing over the dp
+        groups (``moe.moe_apply``: the aux comes back as its sums)."""
         spec = self.spec
         h = apply_norm(cfg, self.ln1, x)
         if spec.attn == "mla":
@@ -218,7 +210,7 @@ class DecoderLayer(nn.Module):
         x = x + tag_act(cfg, a, "attn_out")
         h = apply_norm(cfg, self.ln2, x)
         if spec.moe:
-            f, aux = moe_mod.moe_apply(cfg, self.ffn, h, train=train)
+            f, aux = moe_mod.moe_apply(cfg, self.ffn, h, train=train, route=route)
         else:
             f, aux = swiglu(cfg, self.ffn, h), torch.zeros((), dtype=torch.float32, device=x.device)
         return x + tag_act(cfg, f, "ffn_out"), aux, seed
@@ -256,6 +248,20 @@ class MTPHead(nn.Module):
         self.norm_h = _norm(cfg, device, d)
         self.norm_e = _norm(cfg, device, d)
         self.layer = DecoderLayer(cfg, spec, device)
+
+    def loss(self, cfg: ModelConfig, emb, final_norm, h_final, tokens, route=None):
+        """Predict t+2 from the trunk state at t combined with the embedding
+        of token t+1 (the reference's ``_mtp_loss``): the mean xent, through
+        the model's ``emb`` and ``final_norm`` weights. The layer's router
+        aux is dropped, as the reference drops it."""
+        B, S, _ = h_final.shape
+        h = apply_norm(cfg, self.norm_h, h_final[:, : S - 1])
+        e = apply_norm(cfg, self.norm_e, embed(cfg, emb, tokens[:, 1:]))
+        z = torch.cat([h, e], dim=-1) @ self.proj.to(cfg.cdtype)
+        positions = torch.arange(S - 1, device=z.device).expand(B, S - 1)
+        z, _, _ = self.layer.apply_full(cfg, z, positions, train=True, route=route)
+        logits = logits_out(cfg, emb, apply_norm(cfg, final_norm, z))
+        return next_token_xent(logits, tokens[:, 1:])  # logits[t] predicts tokens[t+2]
 
 
 class TransformerLM(nn.Module):
@@ -340,19 +346,24 @@ def _tokens(model: TransformerLM, tokens) -> torch.Tensor:
     return tokens.to(device=model.device, dtype=torch.long)
 
 
-def _embed_inputs(cfg: ModelConfig, model: TransformerLM, batch):
+def _embed_x(cfg: ModelConfig, emb, img_proj, tokens, batch):
     """Token embeddings, with the projected image prefix in front when the
     config is a VLM and the batch has ``img_embeds`` (B, n_img, d).
-    Returns (x, positions, n_img, tokens); positions count the prefix."""
-    tokens = _tokens(model, batch["tokens"])
-    x = embed(cfg, model.embed, tokens)
+    Returns (x, positions, n_img); positions count the prefix."""
+    x = embed(cfg, emb, tokens)
     n_img = 0
     if cfg.vlm and "img_embeds" in batch:
         img = torch.as_tensor(batch["img_embeds"]).to(device=x.device, dtype=cfg.cdtype)
-        x = torch.cat([img @ model.img_proj.to(cfg.cdtype), x], dim=1)
+        x = torch.cat([img @ img_proj.to(cfg.cdtype), x], dim=1)
         n_img = img.shape[1]
     B, S, _ = x.shape
-    return x, torch.arange(S, device=x.device).expand(B, S), n_img, tokens
+    return x, torch.arange(S, device=x.device).expand(B, S), n_img
+
+
+def _embed_inputs(cfg: ModelConfig, model: TransformerLM, batch):
+    """:func:`_embed_x` of the model's weights: (x, positions, n_img, tokens)."""
+    tokens = _tokens(model, batch["tokens"])
+    return (*_embed_x(cfg, model.embed, getattr(model, "img_proj", None), tokens, batch), tokens)
 
 
 def _trunk(cfg: ModelConfig, model: TransformerLM, batch, collect_cache: bool, train: bool = False):
@@ -383,20 +394,6 @@ def lm_forward(cfg: ModelConfig, model: TransformerLM, batch, collect_cache: boo
     return logits, aux, (seeds if collect_cache else None), n_img, h
 
 
-def _mtp_loss(cfg: ModelConfig, model: TransformerLM, h_final, tokens):
-    """DeepSeek-V3 multi-token prediction (depth 1): predict t+2 from the
-    trunk state at t combined with the embedding of token t+1."""
-    mp = model.mtp
-    B, S, _ = h_final.shape
-    h = apply_norm(cfg, mp.norm_h, h_final[:, : S - 1])
-    e = apply_norm(cfg, mp.norm_e, embed(cfg, model.embed, tokens[:, 1:]))
-    z = torch.cat([h, e], dim=-1) @ mp.proj.to(cfg.cdtype)
-    positions = torch.arange(S - 1, device=z.device).expand(B, S - 1)
-    z, _, _ = mp.layer.apply_full(cfg, z, positions, train=True)
-    logits = logits_out(cfg, model.embed, apply_norm(cfg, model.final_norm, z))
-    return next_token_xent(logits, tokens[:, 1:])  # logits[t] predicts tokens[t+2]
-
-
 def lm_loss(cfg: ModelConfig, model: TransformerLM, batch):
     """Scalar training loss ``xent + aux + mtp_loss_weight · mtp`` and the
     reference's metrics: ``xent``, ``aux``, ``mtp`` (with MTP) and ``loss``.
@@ -410,7 +407,7 @@ def lm_loss(cfg: ModelConfig, model: TransformerLM, batch):
     metrics = {"xent": loss, "aux": aux}
     total = loss + aux
     if cfg.mtp_depth:
-        mtp = _mtp_loss(cfg, model, h[:, n_img:] if n_img else h, tokens)
+        mtp = model.mtp.loss(cfg, model.embed, model.final_norm, h[:, n_img:] if n_img else h, tokens)
         metrics["mtp"] = mtp
         total = total + cfg.mtp_loss_weight * mtp
     metrics["loss"] = total
@@ -498,62 +495,54 @@ def decode_step(cfg: ModelConfig, model: TransformerLM, cache, tokens, pos):
 
 
 # ----------------------------------------------------------------------
-# the sharded forward: per-rank code over a rank's parameter blocks
+# the sharded form of the loss (models.common.run_units)
 # ----------------------------------------------------------------------
 
 
-def _constrain_layer(cfg: ModelConfig, blocks, specs, prefix: str):
-    """The parameters under ``prefix`` (a layer's, ``"groups.0.3."``), whole,
-    gathered from this rank's blocks at block entry: each leaf all-gathered
-    over the axes its spec shards it on, dim by dim. Per-rank code, inside a
-    region. The reference re-constrains the scan-sliced layer to its TP
-    layout (``fsdp_gather_layers``) and lets GSPMD run it sharded; a thread
-    mesh has no partitioner, so the port gathers each layer's weights whole
-    (Megatron-style sharded math is ROADMAP work). Autograd reaches the
-    blocks through the gathers. Returns names relative to ``prefix``."""
-    mesh = current_region().mesh
-    out = {}
-    for name, block in blocks.items():
-        if not name.startswith(prefix):
-            continue
-        full, spec = block, specs[name]
-        for d in range(len(spec)):
-            if spec.dim_axes(d):
-                full, _ = all_gather(full, StreamComm(spec.dim_axes(d), mesh=mesh), axis=d)
-        out[name[len(prefix):]] = full
-    return out
+def _embed_unit(cfg: ModelConfig, params, c, route):
+    tokens = c["tokens"].long()
+    x, positions, n_img = _embed_x(cfg, params[0], params[1] if cfg.vlm else None, tokens, c)
+    return {**c, "tokens": tokens, "x": x, "positions": positions, "n_img": n_img, "router": []}
 
 
-def lm_xent_blocks(cfg: ModelConfig, model: TransformerLM, blocks, specs, batch, compute: bool = True):
-    """Per-rank: ``(summed next-token xent, token count)`` of this rank's
-    ``batch``, every parameter gathered from this rank's ``blocks`` (name →
-    block, laid out by ``specs``) at the entry of the layer that uses it
-    and applied with ``torch.func.functional_call`` on ``model``'s modules
-    (which may live on ``torch.device("meta")``). With ``compute=False``
-    the rank only takes part in the gathers its peers need and returns
-    ``None``. The sum and count give the reference's mean over any split
-    of the batch: ``Σ sum / Σ count``. Dense configs only (ROADMAP P11c)."""
-    check_dense_only(cfg, "lm_xent_blocks")
-    emb = _constrain_layer(cfg, blocks, specs, "embed.")
-    x = None
-    if compute:
-        tokens = batch["tokens"].long()
-        x = embed(cfg, emb, tokens)
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device).expand(B, S)
+def _layer_unit(cfg: ModelConfig, layer: DecoderLayer, params, c, route):
+    x, aux, _ = unit_call(layer, params[0], lambda m: m.apply_full(cfg, c["x"], c["positions"], True, route))
+    return {**c, "x": x, "router": c["router"] + [aux] if layer.spec.moe else c["router"]}
+
+
+def _mtp_unit(cfg: ModelConfig, head: MTPHead, params, c, route):
+    mtp, emb, norm = params
+    tokens = c["tokens"]
+    h = c["x"][:, c["n_img"]:]
+    loss = unit_call(head, mtp, lambda m: m.loss(cfg, emb, norm, h, tokens, route))
+    count = torch.tensor(float(tokens[:, 2:].numel()), device=loss.device)
+    return {**c, "mtp": (loss * count, count)}
+
+
+def loss_units(cfg: ModelConfig, model: TransformerLM) -> List[Unit]:
+    """:func:`lm_loss` as units (``models.common.Unit``): the embedding
+    (with the image projection of a VLM), each layer ``groups.{g}.{l}``
+    under the remat policy, the head and, with MTP, the MTP head. The MoE
+    layers' router sums go to ``router`` (the MTP layer's are dropped, as
+    in :func:`lm_loss`)."""
+    units = [Unit(("embed.", "img_proj") if cfg.vlm else ("embed.",), functools.partial(_embed_unit, cfg))]
     for gi, layers in enumerate(model.groups):
         for li, layer in enumerate(layers):
-            lp = _constrain_layer(cfg, blocks, specs, f"groups.{gi}.{li}.")
-            if compute:
-                def fwd(cfg_, x_, pos_, layer=layer, lp=lp):
-                    return torch.func.functional_call(layer, lp, (cfg_, x_, pos_))[0]
+            units.append(Unit((f"groups.{gi}.{li}.",), functools.partial(_layer_unit, cfg, layer), remat=True))
+    units.append(head_unit(cfg))
+    if cfg.mtp_depth:
+        units.append(Unit(("mtp.", "embed.", "final_norm."), functools.partial(_mtp_unit, cfg, model.mtp)))
+    return units
 
-                x = (remat_wrap(cfg, fwd) if torch.is_grad_enabled() else fwd)(cfg, x, positions)
-    norm = _constrain_layer(cfg, blocks, specs, "final_norm.")
-    if not compute:
-        return None
-    logits = logits_out(cfg, emb, apply_norm(cfg, norm, x))
-    mask = batch.get("loss_mask")
-    count = mask[:, 1:].float().sum() if mask is not None else torch.tensor(
-        float(tokens[:, 1:].numel()), device=logits.device)
-    return next_token_xent(logits, tokens, mask) * count, count
+
+def lm_xent_blocks(cfg: ModelConfig, model: TransformerLM, blocks, specs, batch, compute: bool = True, route=None):
+    """Per-rank: the sums of :func:`lm_loss` over this rank's ``batch``,
+    every parameter gathered from this rank's ``blocks`` (name → block,
+    laid out by ``specs``) at the entry of the unit that uses it and
+    applied with ``torch.func.functional_call`` on ``model``'s modules
+    (which may live on ``torch.device("meta")``): ``{"xent": (sum, count),
+    "router": [per MoE layer, moe_apply's sums], "mtp": (sum, count)}``
+    (``mtp`` with MTP). With ``compute=False`` the rank only takes part in
+    the gathers its peers need and returns ``None``. ``route`` is the MoE
+    layers' :class:`~repro_torch.models.moe.GlobalRouting`."""
+    return run_units(cfg, loss_units(cfg, model), blocks, specs, batch if compute else None, route)

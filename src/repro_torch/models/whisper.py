@@ -14,26 +14,32 @@ scans; the port holds one module per layer (``models.convert`` maps
 ``enc_layers.{l}.<leaf>`` to row ``l`` of ``enc_layers/<leaf>``). The
 cache keeps the reference's layout, ``{"self": (K, V), "cross": (K, V)}``,
 each ``(L, B, T, nkv, hd)``; decode writes the self-attention rows in
-place.
+place. The sharded form of the loss (:func:`loss_units`) enters the
+encoder's layers, its final norm, the decoder's embedding and layers and
+the head one after another, each layer under the remat policy.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.models.common import (
+    Unit,
     apply_norm,
     embed,
     gelu_mlp,
     gqa_attention_decode,
     gqa_attention_full,
+    head_unit,
     logits_out,
     next_token_xent,
     remat_wrap,
+    unit_call,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import _norm, _params, gelu_mlp_params, gqa_params, init_leaves
@@ -48,6 +54,7 @@ __all__ = [
     "init_cache",
     "whisper_prefill",
     "whisper_decode_step",
+    "loss_units",
 ]
 
 
@@ -125,20 +132,24 @@ def _layers(cfg: ModelConfig, layers, body, x):
     return x
 
 
+def _enc_in(cfg: ModelConfig, x):
+    """The stub frames with their sinusoids: (x, positions)."""
+    B, Se, d = x.shape
+    return x + sinusoids(Se, d, x.device).to(cfg.cdtype), torch.arange(Se, device=x.device).expand(B, Se)
+
+
+def _enc_layer(cfg: ModelConfig, lp, x, positions):
+    h = apply_norm(cfg, lp.ln1, x)
+    a, _ = gqa_attention_full(cfg, lp.attn, h, positions, causal=False, use_rope=False)
+    x = x + a
+    return x + gelu_mlp(cfg, lp.mlp, apply_norm(cfg, lp.ln2, x))
+
+
 def encode(cfg: ModelConfig, model: WhisperLM, frames):
     """frames (B, Se, d) — the stub conv output. Returns encoder states."""
-    x = _frames(cfg, model, frames)
-    B, Se, d = x.shape
-    x = x + sinusoids(Se, d, x.device).to(cfg.cdtype)
-    positions = torch.arange(Se, device=x.device).expand(B, Se)
-
-    def body(lp, x):
-        h = apply_norm(cfg, lp.ln1, x)
-        a, _ = gqa_attention_full(cfg, lp.attn, h, positions, causal=False, use_rope=False)
-        x = x + a
-        return x + gelu_mlp(cfg, lp.mlp, apply_norm(cfg, lp.ln2, x))
-
-    return apply_norm(cfg, model.enc_ln_post, _layers(cfg, model.enc_layers, body, x))
+    x, positions = _enc_in(cfg, _frames(cfg, model, frames))
+    x = _layers(cfg, model.enc_layers, lambda lp, x: _enc_layer(cfg, lp, x, positions), x)
+    return apply_norm(cfg, model.enc_ln_post, x)
 
 
 def _cross_kv(cfg: ModelConfig, lp, enc):
@@ -152,27 +163,38 @@ def _cross_kv(cfg: ModelConfig, lp, enc):
     return k, v
 
 
+def _dec_in(cfg: ModelConfig, emb, tokens):
+    """The decoder's token embeddings with their sinusoids: (x, positions)."""
+    B, S = tokens.shape
+    x = embed(cfg, emb, tokens)
+    return x + sinusoids(S, cfg.d_model, x.device).to(cfg.cdtype), torch.arange(S, device=x.device).expand(B, S)
+
+
+def _dec_layer(cfg: ModelConfig, lp, x, positions, enc):
+    """One decoder layer: (x, its self-attention (k, v), its cross (k, v))."""
+    h = apply_norm(cfg, lp.ln1, x)
+    a, kv = gqa_attention_full(cfg, lp.attn, h, positions, causal=True, use_rope=False)
+    x = x + a
+    h = apply_norm(cfg, lp.lnx, x)
+    xkv = _cross_kv(cfg, lp, enc)
+    a, _ = gqa_attention_full(cfg, lp.xattn, h, positions, kv_override=xkv)
+    x = x + a
+    return x + gelu_mlp(cfg, lp.mlp, apply_norm(cfg, lp.ln2, x)), kv, xkv
+
+
 def decode_full(cfg: ModelConfig, model: WhisperLM, tokens, enc, collect_cache: bool = False):
     """The teacher-forced decoder over ``tokens`` against the encoder
     states ``enc`` — the reference's ``_decode_full``. Returns (trunk output
     after the final norm (B, S, d), per-layer ``((k, v), (cross k, cross v))``
     seeds, or None without ``collect_cache``)."""
-    B, S = tokens.shape
-    x = embed(cfg, model.embed, tokens) + sinusoids(S, cfg.d_model, enc.device).to(cfg.cdtype)
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    x, positions = _dec_in(cfg, model.embed, tokens)
     seeds = []
 
     def body(lp, x):
-        h = apply_norm(cfg, lp.ln1, x)
-        a, kv = gqa_attention_full(cfg, lp.attn, h, positions, causal=True, use_rope=False)
-        x = x + a
-        h = apply_norm(cfg, lp.lnx, x)
-        xkv = _cross_kv(cfg, lp, enc)
-        a, _ = gqa_attention_full(cfg, lp.xattn, h, positions, kv_override=xkv)
-        x = x + a
+        x, kv, xkv = _dec_layer(cfg, lp, x, positions, enc)
         if collect_cache:
             seeds.append((kv, xkv))
-        return x + gelu_mlp(cfg, lp.mlp, apply_norm(cfg, lp.ln2, x))
+        return x
 
     x = _layers(cfg, model.dec_layers, body, x)
     return apply_norm(cfg, model.final_norm, x), (seeds if collect_cache else None)
@@ -242,3 +264,45 @@ def whisper_decode_step(cfg: ModelConfig, model: WhisperLM, cache, tokens, pos):
         x = x + gelu_mlp(cfg, lp.mlp, apply_norm(cfg, lp.ln2, x))
     x = apply_norm(cfg, model.final_norm, x)
     return logits_out(cfg, model.embed, x)[:, 0], cache
+
+
+# -- the sharded form of the loss (models.common.run_units) -------------------
+
+
+def _frames_unit(cfg: ModelConfig, params, c, route):
+    x, positions = _enc_in(cfg, c["enc_frames"].to(cfg.cdtype))
+    return {**c, "enc": x, "enc_positions": positions}
+
+
+def _enc_unit(cfg: ModelConfig, layer: EncoderLayer, params, c, route):
+    return {**c, "enc": unit_call(layer, params[0], lambda m: _enc_layer(cfg, m, c["enc"], c["enc_positions"]))}
+
+
+def _enc_post_unit(cfg: ModelConfig, params, c, route):
+    return {**c, "enc": apply_norm(cfg, params[0], c["enc"])}
+
+
+def _dec_in_unit(cfg: ModelConfig, params, c, route):
+    tokens = c["tokens"].long()
+    x, positions = _dec_in(cfg, params[0], tokens)
+    return {**c, "tokens": tokens, "x": x, "positions": positions}
+
+
+def _dec_unit(cfg: ModelConfig, layer: DecoderLayer, params, c, route):
+    x = unit_call(layer, params[0], lambda m: _dec_layer(cfg, m, c["x"], c["positions"], c["enc"])[0])
+    return {**c, "x": x}
+
+
+def loss_units(cfg: ModelConfig, model: WhisperLM) -> List[Unit]:
+    """:func:`whisper_loss` as units (``models.common.Unit``): the frames,
+    each ``enc_layers.{i}`` under the remat policy, ``enc_ln_post``, the
+    decoder's embedding, each ``dec_layers.{i}`` under the remat policy,
+    the head."""
+    units = [Unit((), functools.partial(_frames_unit, cfg))]
+    units += [Unit((f"enc_layers.{i}.",), functools.partial(_enc_unit, cfg, layer), remat=True)
+              for i, layer in enumerate(model.enc_layers)]
+    units += [Unit(("enc_ln_post.",), functools.partial(_enc_post_unit, cfg)),
+              Unit(("embed.",), functools.partial(_dec_in_unit, cfg))]
+    units += [Unit((f"dec_layers.{i}.",), functools.partial(_dec_unit, cfg, layer), remat=True)
+              for i, layer in enumerate(model.dec_layers)]
+    return units + [head_unit(cfg)]

@@ -5,8 +5,9 @@ on the meta device, against the JAX package's.
 production mesh is monkeypatched; 256 thread-ranks are the command line's
 business, not a test's): its row has the reference's keys, its argument
 bytes equal a reckoning from the port's specs, its collectives are
-counted, and a MoE train cell and a decode cell carry null collectives and
-temp bytes with their reason. ``run_cells``' skips follow the reference's
+counted, a train cell of every family counts the sharded step, and a
+serve cell, a decode cell and a train cell under a refused layout hint
+carry null collectives and temp bytes with their reason. ``run_cells``' skips follow the reference's
 applicability, and every hillclimb variant sets the same config fields on
 the port's config as on the reference's. All exact.
 """
@@ -78,7 +79,7 @@ def test_lower_cell_train_row(small):
     assert row["roofline"]["hlo_flops"] > 0 and row["roofline"]["t_collective_s"] > 0
 
 
-@pytest.mark.parametrize("arch,shape", [("granite-moe-1b-a400m", "train_4k"), ("qwen1.5-0.5b", "decode_32k")])
+@pytest.mark.parametrize("arch,shape", [("granite-moe-1b-a400m", "prefill_32k"), ("qwen1.5-0.5b", "decode_32k")])
 def test_lower_cell_null_with_reason(small, arch, shape):
     row = dryrun.lower_cell(arch, shape, verbose=False)
     assert row["collectives"] is None and row["memory"]["temp_bytes"] is None
@@ -86,8 +87,29 @@ def test_lower_cell_null_with_reason(small, arch, shape):
     assert row["roofline"]["t_collective_s"] is None and row["roofline"]["coll_bytes_per_chip"] is None
     assert row["roofline"]["hlo_flops"] > 0 and row["roofline"]["t_memory_s"] > 0
     assert row["memory"]["argument_bytes"] > 0
-    want = "MoE (ROADMAP P11c)" if shape == "train_4k" else dryrun.NO_SHARDED_SERVE
-    assert want in row["reason"]
+    assert dryrun.NO_SHARDED_SERVE in row["reason"]
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "whisper-tiny"])
+def test_lower_cell_train_row_of_every_family(small, arch):
+    """A train cell of a MoE family (and of the encoder-decoder) counts the
+    sharded step: collectives, temp bytes and the peak, no reason."""
+    row = dryrun.lower_cell(arch, "train_4k", verbose=False)
+    coll = row["collectives"]
+    assert coll is not None and coll["all-gather"] > 0 and coll["reduce-scatter"] > 0 and coll["all-reduce"] > 0
+    assert row["memory"]["temp_bytes"] > 0 and "reason" not in row
+    assert row["memory"]["peak_bytes_per_device"] == row["memory"]["argument_bytes"] + row["memory"]["temp_bytes"]
+    assert row["roofline"]["t_collective_s"] > 0
+
+
+@pytest.mark.parametrize("knob", ["seq_shard_acts", "moe_dispatch_sharding"])
+def test_lower_cell_names_a_refused_knob(small, knob):
+    """A train cell under a layout hint the sharded step refuses keeps its
+    cost and is null with the knob named (ROADMAP P11c)."""
+    row = dryrun.lower_cell("granite-moe-1b-a400m", "train_4k", verbose=False,
+                            cfg_transform=lambda c: c.replace(**{knob: True}))
+    assert row["collectives"] is None and row["memory"]["temp_bytes"] is None
+    assert knob in row["reason"] and "P11c" in row["reason"] and row["roofline"]["hlo_flops"] > 0
 
 
 def test_run_cells_skips_follow_reference(monkeypatch):

@@ -15,7 +15,10 @@ inputs and writes its results to one ``.npz``:
   (the shapes of ``tests/test_enqueue_window.py:546-568``): the outputs
   and the window's counters;
 * the gradient of ``Σ <collective(x), c>`` for ``ppermute``,
-  ``all_gather``, ``all_reduce`` and ``reduce_scatter`` on ``(2, 4)``.
+  ``all_gather``, ``all_reduce`` and ``reduce_scatter`` on ``(2, 4)``;
+* ``pipeline_loss_fn`` with a MoE ``stage_fn`` (smoke granite cut to 4
+  layers, fp32, train capacity) on ``(4, 2)``, 4 microbatches: the weights
+  it drew, the loss and every gradient.
 
 Tolerances: fp32 results to 1e-5 of their scale (the two packages sum in
 different orders; the reference's own checks allow 1e-4); the window's
@@ -47,6 +50,7 @@ def _inputs():
         "Ws1": (rng.standard_normal((1, H_L, H_D, H_D)) * 0.3).astype(np.float32),
         "xs1": rng.standard_normal((H_NM, H_MB, H_D)).astype(np.float32),
         "x": rng.standard_normal((8, W)).astype(np.float32),
+        "moe_tokens": rng.integers(0, 256, (8, 16)).astype(np.int32),
     }
     for op in OPS:
         out[f"c_{op}"] = rng.standard_normal((8, OUT_W[op])).astype(np.float32)
@@ -122,7 +126,52 @@ def _oracle_main(in_path: str, out_path: str) -> None:
 
         with mesh:
             out[f"grad_{op}"] = np.asarray(jax.grad(loss)(jnp.asarray(inp["x"]), jnp.asarray(inp[f"c_{op}"])))
+    out.update(_oracle_moe_pipeline(pmesh, inp["moe_tokens"]))
     np.savez(out_path, **out)
+
+
+def _moe_cfg(get_config):
+    return get_config("granite-moe-1b-a400m", smoke=True).replace(n_layers=4, param_dtype="float32",
+                                                                   compute_dtype="float32")
+
+
+def _oracle_moe_pipeline(pmesh, tokens) -> dict:
+    """The reference's pipeline_loss_fn over granite's MoE layers: the
+    weights, the loss and its gradient, flat under '/'-joined paths."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config
+    from repro.models import api, common as jc, transformer as jtf
+    from repro.parallel.pipeline import pipeline_loss_fn, split_stages
+
+    cfg = _moe_cfg(get_config)
+    spec = jtf.layer_groups(cfg)[0][0][0]
+    params = jax.jit(lambda: api.init_params(cfg, jax.random.key(0)))()
+    positions = jnp.broadcast_to(jnp.arange(tokens.shape[1]), (tokens.shape[0] // P_STAGES, tokens.shape[1]))
+
+    def stage_fn(sp, x):
+        y, _ = jax.lax.scan(lambda c, lp: (jtf._apply_layer_full(cfg, spec, lp, c, positions, train=True)[0], None),
+                            x, sp)
+        return y
+
+    def head_loss(head, x, toks):
+        return jc.next_token_xent(jc.logits_out(cfg, head["embed"], jc.apply_norm(cfg, head["norm"], x)), toks)
+
+    loss_fn = pipeline_loss_fn(cfg, pmesh, "pipe", P_STAGES, lambda p, t: jc.embed(cfg, p, t), stage_fn, head_loss)
+
+    def loss(p):
+        return loss_fn({"embed": p["embed"], "stages": split_stages(p["groups"][0][0], P_STAGES),
+                        "head": {"embed": p["embed"], "norm": p["final_norm"]}}, {"tokens": jnp.asarray(tokens)})
+
+    with pmesh:
+        l, g = jax.value_and_grad(loss)(params)
+
+    def flat(prefix, tree):
+        return {f"{prefix}/{jax.tree_util.keystr(p, simple=True, separator='/')}": np.asarray(v)
+                for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+    return {"moe_loss": np.asarray(l), **flat("moe_param", params), **flat("moe_grad", g)}
 
 
 @pytest.fixture(scope="module")
@@ -345,6 +394,46 @@ def test_pipeline_loss_fn_matches_lm_loss():
     assert abs(lp.item() - ls.item()) <= 1e-4 * abs(ls.item())
     for a, b in zip(gp, gs):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-12
+
+
+def test_pipeline_loss_fn_with_moe_stages_matches_reference(oracle):
+    """pipeline_loss_fn with a MoE stage_fn (granite's layers at train
+    capacity, fp32) against the reference's pipeline_loss_fn with the same
+    stage_fn on the same weights: the loss and every gradient to 1e-4 of
+    its leaf's largest. Only x passes between stages in both, so both drop
+    the router aux, and each microbatch routes over its own rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.models.common import apply_norm, embed, logits_out, next_token_xent
+    from repro_torch.models.convert import leaf_map, params_from_numpy
+    from repro_torch.parallel.pipeline import pipeline_loss_fn, split_stages
+
+    inputs, ref = oracle
+    cfg = _moe_cfg(get_config)
+    tree = {k[len("moe_param/"):]: v for k, v in ref.items() if k.startswith("moe_param/")}
+    model = params_from_numpy(cfg, tree, device="cpu").requires_grad_(True)
+    tokens = torch.from_numpy(inputs["moe_tokens"]).long()
+    positions = torch.arange(tokens.shape[1]).expand(tokens.shape[0] // P_STAGES, tokens.shape[1])
+
+    def stage_fn(layers, x):
+        for layer in layers:
+            x = layer.apply_full(cfg, x, positions, True)[0]
+        return x
+
+    def head_loss(head, x, toks):
+        return next_token_xent(logits_out(cfg, head["embed"], apply_norm(cfg, head["norm"], x)), toks)
+
+    mesh = make_mesh((4, 2), ("pipe", "dp"), device="cpu")
+    loss_fn = pipeline_loss_fn(cfg, mesh, "pipe", P_STAGES, lambda p, t: embed(cfg, p, t), stage_fn, head_loss)
+    params = {"embed": model.embed, "stages": split_stages(model.groups[0], P_STAGES),
+              "head": {"embed": model.embed, "norm": model.final_norm}}
+    names = dict(model.named_parameters())
+    loss = loss_fn(params, {"tokens": tokens})
+    grads = dict(zip(names, torch.autograd.grad(loss, list(names.values()))))
+    assert abs(loss.item() - float(ref["moe_loss"])) <= 1e-5 * abs(float(ref["moe_loss"]))
+    for name, (stacked, port) in leaf_map(cfg, model).items():
+        got = np.stack([grads[n].numpy() for n in port]) if stacked else grads[port[0]].numpy()
+        _close(got, ref[f"moe_grad/{name}"], tol=1e-4)
 
 
 def test_split_stages_of_modules_and_tensors():

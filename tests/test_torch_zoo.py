@@ -356,20 +356,39 @@ def test_train_step_gradients_match_reference(arch):
 
 
 def test_dense_only_paths_raise_for_moe():
-    """The sharded step, the sharded forward and the pipeline cover the
-    dense configs only: a MoE config raises, naming ROADMAP P11c."""
-    _, tcfg = _cfgs("granite-moe-1b-a400m")
-    with pytest.raises(NotImplementedError, match="P11c"):
-        ttrain.make_grad_step(tcfg, dp=("data",))
-    with pytest.raises(NotImplementedError, match="P11c"):
-        ttrain.make_train_step(tcfg, None, dp=("data",))
-    with pytest.raises(NotImplementedError, match="P11c"):
-        ttf.lm_xent_blocks(tcfg, None, {}, {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
-    with pytest.raises(NotImplementedError, match="P11c"):
-        pipeline_loss_fn(tcfg, None, "pipe", 1, None, None, None)
-    _, mla_cfg = _cfgs("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError, match="P11c"):
-        ttrain.make_grad_step(mla_cfg, dp=("data",))
+    """The sharded step, the sharded forward and the pipeline, once dense
+    only, take MoE and MLA (with MTP) configs; they raise only for the two
+    layout hints the sharded step still refuses, naming ROADMAP P11c. On a
+    one-position mesh ``lm_xent_blocks``' sums give ``lm_loss``'s xent, aux
+    and MTP loss."""
+    from repro_torch.core.mesh import P, make_mesh, shard_map
+    from repro_torch.core.streams import StreamComm
+    from repro_torch.models import moe
+
+    mesh = make_mesh((1,), ("data",), device="cpu")
+    comm = StreamComm(("data",), mesh=mesh)
+    for arch in ("granite-moe-1b-a400m", "deepseek-v3-671b"):
+        jcfg, tcfg, _, model, _ = _weights(arch)
+        assert callable(ttrain.make_grad_step(tcfg, dp=("data",)))
+        assert callable(ttrain.make_train_step(tcfg, None, dp=("data",)))
+        assert callable(pipeline_loss_fn(tcfg, None, "pipe", 1, None, None, None))
+        for flag in ("seq_shard_acts", "moe_dispatch_sharding"):
+            with pytest.raises(NotImplementedError, match="P11c"):
+                ttrain.make_grad_step(tcfg.replace(**{flag: True}), dp=("data",))
+        batch = {k: torch.from_numpy(v) for k, v in _batch(jcfg, 1).items()}
+        blocks = {n: p.detach() for n, p in model.named_parameters()}
+        specs = {n: P(*([None] * p.dim())) for n, p in blocks.items()}
+        sums = shard_map(lambda: ttf.lm_xent_blocks(tcfg, model, blocks, specs, batch, route=moe.GlobalRouting(comm)),
+                         mesh, (), P())()
+        with torch.no_grad():
+            _, metrics = tapi.loss_fn(tcfg, model, batch)
+        xs, xc = sums["xent"]
+        np.testing.assert_allclose(float(xs / xc), float(metrics["xent"]), rtol=1e-5)
+        np.testing.assert_allclose(float(moe.router_aux_from_sums(tcfg, torch.stack(sums["router"]))),
+                                   float(metrics["aux"]), rtol=0, atol=1e-6)
+        if tcfg.mtp_depth:
+            ms, mc = sums["mtp"]
+            np.testing.assert_allclose(float(ms / mc), float(metrics["mtp"]), rtol=1e-5)
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "phi-3-vision-4.2b"])
