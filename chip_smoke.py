@@ -39,7 +39,12 @@ sharded step for every family the card can hold twice against the
 single-rank step (``sharded_zoo``: granite-moe-1b-a400m whole, with MoE
 routing over the data-parallel groups, then an fp32 copy cut in depth and
 the trained model's flash prefill; phi-3-vision and rwkv6-7b cut in depth;
-whisper-tiny), and last checks the launch cost tooling (``cost``: the served decode step, a
+whisper-tiny), serves through the sharded prefill and decode steps
+(``sharded_serve``: qwen1.5-0.5b and granite-moe-1b-a400m at full width and
+depth on a ``(2, 4)`` mesh of thread-ranks, tensor-parallel over ``model``
+with the flash kernel on every rank's heads and the decode
+sequence-parallel over the cache, against the single-rank steps), and
+last checks the launch cost tooling (``cost``: the served decode step, a
 prefill and the train step counted on meta tensors beside their measured
 times and hand-derived bounds, peak memory predicted on meta against the
 card's allocator, and the ``qwen1.5-0.5b × train_4k`` dry-run cell, run in
@@ -55,6 +60,7 @@ repository's ``src/`` is missing. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -205,6 +211,27 @@ SZ_PHI_BATCH = (32, 128)
 SZ_RWKV_LAYERS = 2
 SZ_RWKV_BATCH = (32, 128)
 SZ_WHISPER_BATCH = (8, 128)
+# the sharded_serve phase: the sharded prefill and SS_STEPS greedy sharded
+# decode steps on a (2, 4) ("data", "model") mesh of thread-ranks against the
+# single-rank steps; SS_BATCH prompts of SS_PROMPT tokens into a cache of
+# SS_MAX_LEN slots (T / model = 128 slots a rank: the first decode step's
+# rows cross from rank 2's span into rank 3's); full width and depth
+SS_MESH = ((2, 4), ("data", "model"))
+SS_MESH_SIZE = 8
+SS_BATCH = 8
+SS_PROMPT = 384
+SS_MAX_LEN = 512
+SS_STEPS = 16
+# the largest k-th/(k+1)-th router probability gap at which an fp32 expert
+# choice may differ from the single-rank run's: the row-parallel sums'
+# order moves the router's inputs by rounding (about 1e-6 of scale), so a
+# choice flips only at such a tie; beyond it a flip is a fault
+SS_TIE_GAP = 1e-6
+# the fp32 cache's bound, of each leaf's scale: qwen's at 1e-5; granite's
+# summation-order noise (the expert-parallel combine and reduce, 24 layers
+# deep) reached its cache at 1.44e-5 and its logits at 1.5e-5 on an H100,
+# five times qwen's, so its cache is held at 5e-5
+SS_CACHE_TOL = {"qwen": 1e-5, "granite": 5e-5}
 # the cost phase: the served decode step (slots, max_len) and prefill length
 # it counts on meta tensors beside serve's measured times; the tolerances of
 # its checks; the dry-run cell it runs, in a process of its own started
@@ -3164,6 +3191,358 @@ def phase_sharded_zoo(torch, smi: str) -> dict:
     check(not failed, f"sharded_zoo: {failed}")
     return dict(flash_launches=launches)
 
+
+# ----------------------------------------------------------------------
+# the sharded_serve phase
+# ----------------------------------------------------------------------
+
+
+class ShardRoutes:
+    """The MoE routers' top-k choices inside the sharded serve step's
+    regions, held against the single-rank run's ``single`` calls (a
+    :class:`MoERoutes` run over the same rows and steps): while open,
+    ``torch.topk`` inside a region takes the rank's ``i``-th call as the
+    single-rank run's ``i``-th, cut to the rank's dp rows. Per call, the
+    (token, choice set)s that differ are counted on the ``model`` index 0
+    ranks (every ``model`` rank routes alike), with the probability gap at
+    each; with ``impose`` the rank takes the single-rank choices instead of
+    its own."""
+
+    def __init__(self, torch, mesh, B: int, single: list, impose: bool = False):
+        self.torch, self.mesh, self.B, self.single, self.impose = torch, mesh, B, single, impose
+        self.count, self.diffs, self.gaps = {}, {}, []
+
+    def __enter__(self):
+        from repro_torch.core.mesh import current_region
+        from repro_torch.parallel.sharding import dp_axes
+
+        orig = self.orig = self.torch.topk
+        dp = dp_axes(self.mesh)
+        n_dp = math.prod(self.mesh.shape[a] for a in dp)
+
+        def topk(probs, k, dim=-1):
+            region = current_region()
+            if region is None:
+                return orig(probs, k, dim=dim)
+            v, idx = orig(probs, k, dim=dim)
+            di = 0
+            for a in dp:
+                di = di * self.mesh.shape[a] + region.coords[a]
+            i = self.count.get(region.slot, 0)
+            self.count[region.slot] = i + 1
+            rows = self.B // n_dp
+            want = self.single[i].view(self.B, -1, k)[di * rows:(di + 1) * rows].reshape(-1, k)
+            if region.coords["model"] == 0:
+                flip = (idx.sort(-1).values != want.sort(-1).values).any(-1)
+                top = orig(probs, k + 1, dim=dim).values
+                self.diffs.setdefault(i, []).append(flip.sum())
+                self.gaps.append(self.torch.where(flip, top[:, k - 1] - top[:, k], self.torch.zeros_like(top[:, k])).max())
+            if self.impose:
+                return probs.gather(-1, want), want
+            return v, idx
+
+        self.torch.topk = topk
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.topk = self.orig
+
+    def flips(self) -> list:
+        """The differing (token, choice set)s per call, summed over the ranks."""
+        return [int(sum(int(d) for d in self.diffs[i])) for i in sorted(self.diffs)]
+
+    def flipped_gap_max(self) -> float:
+        """The largest gap between the k-th and (k+1)-th router probability
+        of the rank's own choices where they differ from the single-rank
+        run's (0 without a flip): how near a tie every flip was."""
+        return max([g.item() for g in self.gaps], default=0.0)
+
+
+def ss_single(torch, cfg, model, batch: dict, steps: int, routes: bool):
+    """The single-rank oracle: make_prefill_step then ``steps`` greedy
+    make_serve_step calls on ``model``; per step the logits, their top-2
+    values and the token (host), the final cache (host), host ms of the
+    prefill and the median decode step, and the routers' choices (kept on
+    the card) with ``routes``."""
+    from repro_torch.launch.train import make_prefill_step, make_serve_step
+
+    serve = make_serve_step(cfg)
+    hook = MoERoutes(torch) if routes else contextlib.nullcontext()
+    out = dict(logits=[], top2=[], tokens=[])
+    B, S = batch["tokens"].shape
+    with torch.no_grad(), hook:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = make_prefill_step(cfg)(model, batch, SS_MAX_LEN)
+        torch.cuda.synchronize()
+        out["prefill_host_ms"] = (time.perf_counter() - t) * 1e3
+        times = []
+        for i in range(steps + 1):
+            out["logits"].append(logits.float().cpu())
+            out["top2"].append(logits.float().topk(2).values.cpu())  # the method: MoERoutes wraps torch.topk
+            tok = torch.argmax(logits, -1)
+            out["tokens"].append(tok.cpu())
+            if i == steps:
+                break
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = serve(model, cache, tok, torch.full((B,), S + i, device="cuda"))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    out["decode_host_ms"] = statistics.median(times)
+    out["cache"] = [t.cpu() for g in cache for e in g for t in e]
+    out["calls"] = hook.calls if routes else None
+    return out
+
+
+def ss_weights(torch, cfg) -> dict:
+    """Random weights of ``cfg`` from seed 0, on the card (name → tensor)."""
+    from repro_torch.models import api
+
+    model = api.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def ss_model(torch, cfg, weights: dict):
+    from repro_torch.models import api
+
+    model = api.model_class(cfg)(cfg, torch.device("cuda"))
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(weights[n])
+    return model
+
+
+def ss_sharded(torch, cfg, weights: dict, batch: dict, steps: int, forced=None, routes=None) -> dict:
+    """The sharded prefill and ``steps`` sharded decode steps on the (2, 4)
+    mesh, greedy on their own tokens, or on ``forced`` (the single-rank
+    run's) when given: per step the logits and tokens (host), the K2
+    launches of the prefill and of the decode steps, host ms, the
+    collectives of one decode step by kind (busiest rank), per-rank param
+    and cache bytes, the block shapes against ``cache_specs`` and the
+    cache (the ShardedTensors)."""
+    from repro_torch.core.mesh import NamedSharding, device_put, make_mesh
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.train import make_prefill_step, make_serve_step, named
+    from repro_torch.models import api
+    from repro_torch.parallel import sharding as shd
+
+    mesh = make_mesh(*SS_MESH)
+    params = device_put(weights, named(mesh, shd.param_specs(cfg, api.abstract_params(cfg), mesh)))
+    serve = make_serve_step(cfg)
+    B, S = batch["tokens"].shape
+    out = dict(logits=[], tokens=[])
+    hook = routes if routes is not None else contextlib.nullcontext()
+    with hook:
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        t = time.perf_counter()
+        logits, cache = make_prefill_step(cfg)(params, batch, SS_MAX_LEN)
+        torch.cuda.synchronize()
+        out["prefill_host_ms"] = (time.perf_counter() - t) * 1e3
+        out["prefill_k2_launches"] = fa.flash_attention.launches
+        fa.flash_attention.launches = 0
+        times, coll = [], None
+        for i in range(steps + 1):
+            out["logits"].append(logits.float().cpu())
+            tok = torch.argmax(logits, -1)
+            out["tokens"].append(tok.cpu())
+            if i == steps:
+                break
+            feed = forced[i].cuda() if forced is not None else tok
+            pos = torch.full((B,), S + i, device="cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if i == 1:
+                with rl.count_collectives() as c:
+                    logits, cache = serve(params, cache, feed, pos)
+                coll = c.per_chip().per_op_count
+            else:
+                logits, cache = serve(params, cache, feed, pos)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        out["decode_k2_launches"] = fa.flash_attention.launches
+    leaves = [t for g in cache for e in g for t in e]
+    cspecs = shd.cache_specs(cfg, api.init_cache(cfg, B, SS_MAX_LEN, device="meta"), mesh)
+    want = [NamedSharding(mesh, s) for g in cspecs for e in g for s in e]
+    out.update(decode_host_ms=statistics.median(times), decode_collectives={k: int(v) for k, v in coll.items()},
+               param_bytes_per_rank=sum(st.resident_bytes(0) for st in params.values()),
+               cache_bytes_per_rank=sum(st.resident_bytes(0) for st in leaves),
+               block_shapes_ok=all(tuple(b.shape) == tuple(s.stop - s.start for s in ws.index(slot, st.shape))
+                                   for st, ws in zip(leaves, want) for slot, b in enumerate(st.blocks)),
+               block_shape=list(leaves[0].blocks[0].shape), cache=leaves, params=params, mesh=mesh)
+    return out
+
+
+def ss_layer_rels(torch, cfg, params, mesh, batch) -> list:
+    """Every rank's every layer, its attention on its head slice (``wo``'s
+    rows included, before the reduce) by the flash route against the
+    einsum route on a shared input: the layer inputs of one sharded einsum
+    forward. Returns the relative errors, (rank, layer) in order."""
+    from repro_torch.core.mesh import P, current_region, shard_map
+    from repro_torch.launch.train import rows_spec
+    from repro_torch.models import tp
+    from repro_torch.models.common import attend, causal_mask
+    from repro_torch.kernels.ops import gqa_flash_attention
+    from repro_torch.models.transformer import _tp_ffn, _tp_layers
+
+    ein = cfg.replace(attn_impl="einsum")
+    specs = {n: st.sharding.spec for n, st in params.items()}
+    rels = {}
+
+    def body(tokens):
+        slot = current_region().slot
+        w = tp.RankWeights({n: st.blocks[slot] for n, st in params.items()}, specs, mesh)
+        x = tp.embed(ein, w, tokens)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        mine = []
+        for _, _, _, pre, spec in _tp_layers(ein):
+            h = tp.norm(ein, w, pre + "ln1.", x)
+            q, k, v, kv_local = tp.qkv(ein, w, pre + "attn.", h, positions, spec.theta)
+            ks, vs = tp.read_heads(ein, w, k, v, kv_local)
+            wo = w.part(pre + "attn.wo", 0, cfg.n_heads).to(cfg.cdtype)
+            a_f = gqa_flash_attention(q, ks, vs, causal=True).reshape(B, S, -1) @ wo
+            a_e = attend(q, ks, vs, causal_mask(S, S, device=x.device), 1.0 / math.sqrt(q.shape[-1])).reshape(B, S, -1) @ wo
+            mine.append(rel_err(a_f, a_e))
+            x = x + tp.attention_full(ein, w, pre + "attn.", h, positions, theta=spec.theta)[0]
+            x = x + _tp_ffn(ein, w, pre, spec, tp.norm(ein, w, pre + "ln2.", x))
+        rels[slot] = mine
+
+    with torch.no_grad():
+        shard_map(body, mesh, rows_spec(mesh, batch["tokens"].shape[0]), P(), turns=True)(batch["tokens"])
+    return [r for slot in sorted(rels) for r in rels[slot]]
+
+
+def ss_compare(torch, single: dict, sharded: dict, tol: float) -> dict:
+    """Per-step relative logit errors, token equality and the first
+    argmax divergence with the single-rank top-2 margin there."""
+    rels = [rel_err(a, b) for a, b in zip(sharded["logits"], single["logits"])]
+    first = None
+    for i, (a, b) in enumerate(zip(sharded["tokens"], single["tokens"])):
+        bad = (a != b).nonzero()
+        if bad.numel():
+            r = int(bad[0, 0])
+            top = single["top2"][i][r]
+            first = dict(step=i, row=r, margin=(top[0] - top[1]).item(), bf16_step=bf16_step(top[0].item()))
+            break
+    return dict(logit_rels=rels, max_rel=max(rels), tokens_equal=first is None, first_divergence=first, tol=tol)
+
+
+def ss_collectives_predicted(cfg) -> dict:
+    """The design's count of one decode step's collectives per rank: per
+    layer, all-gathers of q, of the new K/V row and of the attention
+    partials, all-reduces of ``wo`` and of the FFN; the embedding's
+    all-reduce and the logits' all-gather once."""
+    return {"all-gather": 3 * cfg.n_layers + 1, "all-reduce": 2 * cfg.n_layers + 1}
+
+
+def ss_one(torch, name: str, cfg, smi: str) -> tuple:
+    """One model: the fp32 copy (exact checks) and the bf16 model."""
+    import numpy as np
+
+    from repro_torch.core.mesh import make_mesh
+
+    moe = cfg.moe.enabled
+    rng = np.random.default_rng(31)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (SS_BATCH, SS_PROMPT))).cuda()}
+    w16 = ss_weights(torch, cfg)
+    n_params = sum(w.numel() for w in w16.values())
+    checks, out = [], dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+                           n_kv_heads=cfg.n_kv_heads, vocab=cfg.vocab, params=n_params, mesh=list(SS_MESH[0]),
+                           batch=SS_BATCH, prompt=SS_PROMPT, max_len=SS_MAX_LEN, steps=SS_STEPS, nvidia_smi=smi)
+    launches, fp32_last = 0, None
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(param_dtype=dtype, compute_dtype=dtype, attn_impl="flash")
+        weights = {n: w.float() for n, w in w16.items()} if dtype == "float32" else w16
+        model = ss_model(torch, c, weights)
+        single = ss_single(torch, c, model, batch, SS_STEPS, routes=moe)
+        del model
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        routes = None
+        if moe:  # both dtypes: a choice at a tie flips with the sums' order (the fp32 flips are printed)
+            routes = ShardRoutes(torch, make_mesh(*SS_MESH), SS_BATCH, single["calls"], impose=True)
+        forced = single["tokens"][:-1] if dtype == "bfloat16" else None
+        sh = ss_sharded(torch, c, weights, batch, SS_STEPS, forced=forced, routes=routes)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches += sh["prefill_k2_launches"]
+        r = dict(ss_compare(torch, single, sh, 1e-4 if dtype == "float32" else 5e-2), peak_mem_gb=peak,
+                 single_prefill_host_ms=single["prefill_host_ms"], single_decode_host_ms=single["decode_host_ms"],
+                 **{k: sh[k] for k in ("prefill_host_ms", "decode_host_ms", "prefill_k2_launches", "decode_k2_launches",
+                                      "decode_collectives", "param_bytes_per_rank", "cache_bytes_per_rank",
+                                      "block_shape", "block_shapes_ok")})
+        r["decode_collectives_predicted"] = ss_collectives_predicted(c)
+        want_k2 = SS_MESH_SIZE * cfg.n_layers
+        checks += [(sh["prefill_k2_launches"] == want_k2 and sh["decode_k2_launches"] == 0,
+                    f"{name} {dtype}: K2 launches {sh['prefill_k2_launches']} == {want_k2} a prefill, "
+                    f"{sh['decode_k2_launches']} == 0 in decode"),
+                   (sh["block_shapes_ok"], f"{name} {dtype}: every rank's cache block is cache_specs' block"),
+                   (r["decode_collectives"] == r["decode_collectives_predicted"],
+                    f"{name} {dtype}: one decode step's collectives {r['decode_collectives']} == "
+                    f"{r['decode_collectives_predicted']}")]
+        if routes is not None:
+            r["choice_flips_per_call"] = routes.flips()
+            r["choice_flips"] = sum(r["choice_flips_per_call"])
+            r["choice_flipped_gap_max"] = routes.flipped_gap_max()
+            r["choices"] = sum(int(x.shape[0]) for x in single["calls"])
+        if dtype == "float32":
+            cache_err = max(rel_err(a.gather(), b.to("cuda")) for a, b in zip(sh["cache"], single["cache"]))
+            r["cache_rel_err"] = cache_err
+            checks += [(r["max_rel"] <= 1e-4, f"{name} fp32: every step's logits rel {r['max_rel']} <= 1e-4"),
+                       (r["tokens_equal"], f"{name} fp32: the {SS_STEPS} tokens of every request equal"),
+                       (cache_err <= SS_CACHE_TOL[name], f"{name} fp32: the gathered cache within "
+                                                         f"{SS_CACHE_TOL[name]} of each leaf's scale: {cache_err}")]
+            fp32_last = single["logits"][0]
+            if moe:
+                checks.append((r["choice_flipped_gap_max"] <= SS_TIE_GAP,
+                               f"{name} fp32: route choices equal the single-rank run's but at ties (gap <= "
+                               f"{SS_TIE_GAP}): {r['choice_flips']} flips, largest gap {r['choice_flipped_gap_max']}"))
+        else:
+            fd = r["first_divergence"]
+            # how far each bf16 run's last logits sit from the fp32 copy's (same weights, own routing)
+            r["single_last_vs_fp32_rel"] = rel_err(single["logits"][0], fp32_last)
+            r["sharded_last_vs_fp32_rel"] = rel_err(sh["logits"][0], fp32_last)
+            checks += [(r["logit_rels"][0] <= 5e-2, f"{name} bf16: last logits rel {r['logit_rels'][0]} <= 5e-2"),
+                       (fd is None or fd["margin"] <= fd["bf16_step"],
+                        f"{name} bf16: tokens equal or first divergence at a top-2 margin <= one bf16 step: {fd}")]
+            rels = ss_layer_rels(torch, c, sh["params"], sh["mesh"], batch)
+            r["layer_attn_rels_max"] = max(rels)
+            checks.append((max(rels) <= 2e-2 and len(rels) == want_k2,
+                           f"{name} bf16: every rank's layer flash vs einsum <= 2e-2 ({len(rels)}): {max(rels)}"))
+        out[dtype] = r
+        del sh, single, weights
+        release(torch)
+    return out, checks, launches
+
+
+def phase_sharded_serve(torch, smi: str, parts=(("qwen", "qwen1.5-0.5b"), ("granite", "granite-moe-1b-a400m"))) -> dict:
+    """The sharded serve steps (``make_prefill_step``/``make_serve_step`` on
+    params under ``param_specs`` and caches under ``cache_specs``) on a
+    (2, 4) ("data", "model") mesh of 8 thread-ranks on ``cuda:0``, against
+    the single-rank steps on the same weights (run first, results on the
+    host): qwen1.5-0.5b and granite-moe-1b-a400m at published width and
+    depth, each on an fp32 copy (exact checks) and in bf16. Each part's
+    line is printed before its checks are applied."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    failed, launches = [], 0
+    for name, arch in parts:
+        release(torch)
+        t = time.perf_counter()
+        out, checks, n = ss_one(torch, name, get_config(arch), smi)
+        launches += n
+        out["part_host_s"] = time.perf_counter() - t
+        emit("sharded_serve", part=name, **out, checks_failed=[w for ok, w in checks if not ok])
+        failed.extend(f"{name}: {w}" for ok, w in checks if not ok)
+    emit("sharded_serve", part="summary", flash_launches=launches, phase_host_s=time.perf_counter() - t0,
+         nvidia_smi=smi)
+    check(not failed, f"sharded_serve: {failed}")
+    return dict(flash_launches=launches)
+
+
 def phase_timer_ab(torch) -> None:
     """The timer's variants, each in turns so that a change of timer can be
     told from noise, and the pack's timed shapes under the default timer.
@@ -3487,6 +3866,7 @@ def run_phases(torch, smi: str, dry: dict) -> int:
     zoo = phase_zoo(torch, smi)
     zoo2 = phase_zoo2(torch, smi)
     sharded = phase_sharded_zoo(torch, smi)
+    sserve = phase_sharded_serve(torch, smi)
     phase_cost(torch, smi, serve, train, dry)
 
     ft = kern["flash_times"][-1]  # the longest served prompt, S = 384
@@ -3496,12 +3876,12 @@ def run_phases(torch, smi: str, dry: dict) -> int:
              replaces="src/repro/kernels/flash_attention.py:75",
              launches=serve["flash_launches"] + paged["flash_launches"] + train["flash_launches"]
              + pipe["flash_launches"] + sum(zoo["flash_launches"].values()) + sum(zoo2["flash_launches"].values())
-             + sharded["flash_launches"],
+             + sharded["flash_launches"] + sserve["flash_launches"],
              launches_by_path=dict(serve=serve["flash_launches"], serve_paged=paged["flash_launches"],
                                    train=train["flash_launches"], pipeline=pipe["flash_launches"],
                                    **{f"zoo_{k}": n for k, n in zoo["flash_launches"].items()},
                                    **{f"zoo_{k}": n for k, n in zoo2["flash_launches"].items()},
-                                   sharded_zoo=sharded["flash_launches"]),
+                                   sharded_zoo=sharded["flash_launches"], sharded_serve=sserve["flash_launches"]),
              max_abs_err=kern["flash_err"], ms=ft["ms"], plain_ms=ft["plain_ms"], bound_ms=ft["bound_ms"],
              bound_by=ft["bound_by"], library_ms=ft["library_ms"],
              by_head_dim=[dict({k: r[k] for k in ("hd", "dtype", "B", "S", "nq", "nkv", "max_abs_err", "ms", "plain_ms",

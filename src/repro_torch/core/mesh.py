@@ -510,7 +510,7 @@ def _tensors(tree) -> List[torch.Tensor]:
     return []
 
 
-def shard_map(f, mesh: Mesh, in_specs, out_specs):
+def shard_map(f, mesh: Mesh, in_specs, out_specs, turns: Optional[bool] = None):
     """``jax.shard_map``: returns ``mapped(*args)``, which runs ``f`` once per
     mesh position, each in its own thread with that position's region
     context (and, on the card, its own CUDA stream current), on the
@@ -531,7 +531,12 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs):
     If a rank raises, the region fails: peers in a rendezvous wake with
     :class:`PeerFailed` and the first failure is re-raised here. Every
     rendezvous wait is bounded by ``RENDEZVOUS_TIMEOUT_S`` seconds. On a
-    mesh of meta devices the ranks take turns (:class:`_Rendezvous`)."""
+    mesh of meta devices the ranks take turns (:class:`_Rendezvous`); with
+    ``turns=True`` they take turns on any mesh. Ranks that launch small
+    CUDA ops, all under one GIL, each pay several times a lone thread's
+    host time per op when they run at once; taking turns costs them no
+    device overlap (their launches stay asynchronous), but a rank must not
+    block outside a rendezvous while it holds the turn."""
 
     def mapped(*args):
         if current_region() is not None:
@@ -545,8 +550,9 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs):
         for d, s in callers.items():
             started[d] = torch.cuda.Event()
             started[d].record(s)
-        turns = threading.Semaphore(1) if all(d.type == "meta" for d in mesh.devices) else None
-        rendezvous = _Rendezvous(RENDEZVOUS_TIMEOUT_S, turns)
+        meta = all(d.type == "meta" for d in mesh.devices)
+        turn = threading.Semaphore(1) if (meta if turns is None else turns) else None
+        rendezvous = _Rendezvous(RENDEZVOUS_TIMEOUT_S, turn)
         grad = torch.is_grad_enabled()  # grad mode is per thread: the ranks take the caller's
         modes = _python_dispatch._get_current_dispatch_mode_stack()  # per thread too
         outs: list = [None] * mesh.size
@@ -558,11 +564,11 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs):
             _local.region = _Region(mesh, slot, rendezvous)
             for mode in modes:
                 _python_dispatch._push_mode(mode)
-            turn = False
+            holding = False
             try:
-                if turns is not None:
+                if turn is not None:
                     rendezvous.take_turn()
-                    turn = True
+                    holding = True
                 with torch.set_grad_enabled(grad):
                     if stream is None:
                         outs[slot] = f(*[_split(a, s, mesh, slot) for a, s in zip(args, specs)])
@@ -574,8 +580,8 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs):
                 errors.append(e)
                 rendezvous.fail(e)
             finally:
-                if turn:
-                    turns.release()
+                if holding:
+                    turn.release()
                 for _ in modes:
                     _python_dispatch._pop_mode()
                 _local.region = None

@@ -35,6 +35,7 @@ a gradient raises until a backward kernel is ported.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -140,8 +141,10 @@ def wkv6(w, r, k, v, bonus, state0, chunk: int = 64):
     )
     if rc != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: cudaError {rc}")
-    wkv6.launches += 1
+    with _launches_lock:  # thread-ranks launch concurrently; += alone can lose a count
+        wkv6.launches += 1
     return y, s_out
 
 
 wkv6.launches = 0
+_launches_lock = threading.Lock()

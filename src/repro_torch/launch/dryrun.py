@@ -16,18 +16,21 @@ here is counted:
   ``parallel/sharding``'s specs — params, the ZeRO-1 optimizer state at
   :func:`_opt_cfg`'s dtypes and the batch (train, prefill) or the cache
   and tokens (decode); ``output_bytes`` likewise for what the step returns;
-* ``collectives`` and ``memory.temp_bytes``: the sharded train step
-  (``launch.train.make_train_step(dp=)``) run once on the production mesh
-  over meta blocks, its thread-ranks' collectives counted at
-  ``core/collectives`` (``roofline.count_collectives``, the busiest rank)
-  and the peak of live meta storage over the step divided by the ranks
-  (the ranks share one autograd graph, whose backward runs on the caller's
-  thread, so a rank's share is the region's peak over its rank count).
+* ``collectives`` and ``memory.temp_bytes``: the sharded step run once on
+  the production mesh over meta blocks — the train step
+  (``launch.train.make_train_step(dp=)``), or the sharded prefill or
+  decode step (``make_prefill_step``/``make_serve_step`` on params under
+  ``param_specs`` and a cache under ``cache_specs``: tensor-parallel over
+  ``model``, the decode sequence-parallel over the cache) — its
+  thread-ranks' collectives counted at ``core/collectives``
+  (``roofline.count_collectives``, the busiest rank) and the peak of live
+  meta storage over the step divided by the ranks (the train step's ranks
+  share one autograd graph, whose backward runs on the caller's thread,
+  so a rank's share is the region's peak over its rank count).
 
-Where the port has no sharded form — a train cell under the two layout
-hints the sharded step refuses (``seq_shard_acts``,
-``moe_dispatch_sharding``: ROADMAP P11c), and every prefill and decode
-cell (the port has no sharded serve step) — ``collectives`` and
+Every family has a sharded prefill and decode step. The one null left is
+a cell under a layout hint the sharded steps refuse (``seq_shard_acts``,
+``moe_dispatch_sharding``: ROADMAP P11c): its ``collectives`` and
 ``temp_bytes`` are null and the row says why; its cost and compute and
 memory terms are still filled.
 """
@@ -47,16 +50,13 @@ from repro_torch.core.mesh import NamedSharding, P, device_put
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.op_cost import OpCounter, step_cost
-from repro_torch.launch.train import make_prefill_step, make_serve_step, make_train_step, named, train_shardings
+from repro_torch.launch.train import (make_prefill_step, make_serve_step, make_train_step, named, rows_spec,
+                                     train_shardings)
 from repro_torch.models import api
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallel import sharding as shd
 
 __all__ = ["lower_cell", "run_cells"]
-
-#: why a serve cell has no collectives or temp bytes
-NO_SHARDED_SERVE = "the port has no sharded serve step: prefill and decode run on one rank"
-
 
 def _opt_cfg(cfg) -> AdamWConfig:
     big = cfg.fsdp
@@ -95,6 +95,16 @@ def _sharded_train(cfg, opt_cfg, mesh, model, opt_abs, batch, pspecs, ospecs):
     return coll.per_chip(), mem.peak_bytes // mesh.size
 
 
+def _sharded_serve(step, mesh, model, pspecs, *args):
+    """Run a sharded serve step once on ``mesh`` over meta blocks (the
+    params laid out by ``pspecs``, ``args`` already laid out): (per-chip
+    collective stats, the region's peak live bytes per rank)."""
+    state = device_put({n: p.detach() for n, p in model.named_parameters()}, named(mesh, pspecs))
+    with rl.count_collectives() as coll, OpCounter(track_memory=True) as mem:
+        step(state, *args)
+    return coll.per_chip(), mem.peak_bytes // mesh.size
+
+
 def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, verbose: bool = True, cfg_transform=None,
                tag: str = ""):
     """Count one cell. Returns a result dict (JSON-safe) with the
@@ -112,8 +122,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, verbose: boo
     model = api.abstract_params(cfg)
     pspecs = shd.param_specs(cfg, model, mesh)
     params = dict(model.named_parameters())
-    coll = temp = None
-    reason = NO_SHARDED_SERVE
+    coll = temp = reason = None
     if shape.mode == "train":
         opt_cfg = _opt_cfg(cfg)
         batch = registry.input_specs(cfg, shape)
@@ -126,11 +135,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, verbose: boo
         global_cost = step_cost(make_train_step(cfg, opt_cfg), model, opt_abs, batch)
         t_lower = time.perf_counter() - t0
         t0 = time.perf_counter()
-        try:
-            coll, temp = _sharded_train(cfg, opt_cfg, mesh, model, opt_abs, batch, pspecs, ospecs)
-            reason = None
-        except NotImplementedError as e:  # a layout hint the sharded step refuses (ROADMAP P11c)
-            reason = str(e)
+        run = lambda: _sharded_train(cfg, opt_cfg, mesh, model, opt_abs, batch, pspecs, ospecs)  # noqa: E731
     elif shape.mode == "prefill":
         batch = registry.input_specs(cfg, shape)
         cache = api.init_cache(cfg, shape.global_batch, shape.seq_len, device="meta")
@@ -140,16 +145,13 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, verbose: boo
         global_cost = step_cost(make_prefill_step(cfg), model, batch)
         t_lower = time.perf_counter() - t0
         t0 = time.perf_counter()
+        run = lambda: _sharded_serve(make_prefill_step(cfg), mesh, model, pspecs, batch)  # noqa: E731
     else:  # decode
         io = registry.input_specs(cfg, shape)
         cache = registry.decode_cache_specs(cfg, shape)
         cspecs = shd.cache_specs(cfg, cache, mesh)
-        dp = shd.dp_axes(mesh)
-        n_dp = 1
-        for a in dp:
-            n_dp *= mesh.shape[a]
         B = shape.global_batch
-        tok = P(dp) if (B % n_dp == 0 and B >= n_dp) else P(None)
+        tok = rows_spec(mesh, B)
         cache_bytes = _tree_bytes(mesh, cache, cspecs)
         args_bytes = (_tree_bytes(mesh, params, pspecs) + cache_bytes
                       + _tree_bytes(mesh, io, {"tokens": tok, "pos": tok}))
@@ -157,6 +159,12 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, verbose: boo
         global_cost = step_cost(make_serve_step(cfg), model, cache, io["tokens"], io["pos"])
         t_lower = time.perf_counter() - t0
         t0 = time.perf_counter()
+        run = lambda: _sharded_serve(make_serve_step(cfg), mesh, model, pspecs,  # noqa: E731
+                                     device_put(cache, named(mesh, cspecs)), io["tokens"], io["pos"])
+    try:
+        coll, temp = run()
+    except NotImplementedError as e:  # a layout hint the sharded steps refuse (ROADMAP P11c)
+        reason = str(e)
     t_sharded = time.perf_counter() - t0
 
     mflops = rl.model_step_flops(cfg, shape)

@@ -35,6 +35,16 @@ per-token route; Jamba; Whisper, whose batches carry ``enc_frames``) under
 every remat policy; the sharded step refuses the two layout hints
 ``seq_shard_acts`` and ``moe_dispatch_sharding`` (ROADMAP P11c).
 
+``make_prefill_step`` and ``make_serve_step`` take the single-rank model,
+or the sharded params of ``device_put(params, named(mesh, param_specs))``
+(and a cache under ``cache_specs``, :func:`shard_cache`): then each runs
+as one region, the reference's jitted steps under those shardings, the
+batch rows over the dp axes, every layer tensor-parallel over ``model``
+and the decode attention sequence-parallel over the cache's
+``T``-over-``model`` slots (``models.tp``, ``models.api.tp_prefill`` /
+``tp_decode_step``). They refuse the two layout hints as the sharded
+train step does.
+
 ``Trainer`` wires every substrate together the way the paper intends its
 extensions to be used: data prefetch + async checkpoints + heartbeats are
 generalized requests completed by ONE progress engine; the checkpoint
@@ -64,14 +74,14 @@ import torch
 from repro_torch.checkpoint import iovec_store as store
 from repro_torch.checkpoint.manager import WRITE_TIMEOUT_S, CheckpointManager
 from repro_torch.core.collectives import all_gather, all_reduce, reduce_scatter
-from repro_torch.core.mesh import NamedSharding, P, ShardedTensor, axis_index, current_region, shard_map
+from repro_torch.core.mesh import NamedSharding, P, ShardedTensor, axis_index, current_region, device_put, shard_map
 from repro_torch.core.progress import AutotunePolicy, ProgressEngine
 from repro_torch.core.streams import StreamComm, stream_create, stream_free
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
 from repro_torch.device import resolve_device
 from repro_torch.ft.heartbeat import HeartbeatMonitor
 from repro_torch.ft.straggler import StragglerMonitor
-from repro_torch.models import api
+from repro_torch.models import api, tp
 from repro_torch.models.common import run_units
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.convert import state_tree
@@ -80,7 +90,7 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.parallel import sharding as shd
 
 __all__ = ["make_grad_step", "make_train_step", "make_serve_step", "make_prefill_step", "named",
-           "train_shardings", "Trainer"]
+           "train_shardings", "shard_cache", "rows_spec", "Trainer"]
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -104,6 +114,14 @@ def _mesh_of(params) -> object:
     if len(meshes) != 1 or not all(isinstance(st, ShardedTensor) for st in params.values()):
         raise ValueError("dp= takes params that device_put laid over one mesh")
     return next(iter(meshes.values()))
+
+
+def _turns(mesh):
+    """The sharded steps' ranks take turns on the card: they launch small
+    ops, and eight threads launching at once each pay several times a lone
+    thread's host time per op (``core.mesh.shard_map``); no rank blocks
+    outside a collective. CPU ranks compute in their ops and run at once."""
+    return True if any(d.type == "cuda" for d in mesh.devices) else None
 
 
 def _check_dp(mesh, dp) -> None:
@@ -175,7 +193,7 @@ def _partial_grads(cfg: ModelConfig, models: list, params, batch):
         total, _ = all_reduce(_flat_sums(sums), groups)
         return _loss_of_sums(cfg, total)
 
-    region = shard_map(body, mesh, tuple(bspecs[k] for k in keys), P())
+    region = shard_map(body, mesh, tuple(bspecs[k] for k in keys), P(), turns=_turns(mesh))
     accum = max(1, cfg.grad_accum)
     B = batch[keys[0]].shape[0]
     if B % accum:
@@ -277,7 +295,7 @@ def _zero1_update(opt_cfg: AdamWConfig, params, opt_state, grads):
         metrics[slot] = om
 
     with torch.no_grad():
-        shard_map(body, mesh, (), P())()
+        shard_map(body, mesh, (), P(), turns=_turns(mesh))()
     return metrics[0]
 
 
@@ -306,7 +324,7 @@ def make_grad_step(cfg: ModelConfig, dp: tuple = ()):
                     res[n][slot] = all_reduce(g, StreamComm(replica, mesh=mesh))[0] if replica else g
 
             with torch.no_grad():
-                shard_map(body, mesh, (), P())()
+                shard_map(body, mesh, (), P(), turns=_turns(mesh))()
             return {n: ShardedTensor(st.shape, st.sharding, res[n]) for n, st in params.items()}, loss
 
         return sharded_grad_step
@@ -361,16 +379,130 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, dp: tuple = ()):
     return train_step
 
 
+# ----------------------------------------------------------------------
+# the serve steps, single-rank and sharded
+# ----------------------------------------------------------------------
+
+
+def _is_sharded(params) -> bool:
+    return isinstance(params, dict) and bool(params) and all(isinstance(v, ShardedTensor) for v in params.values())
+
+
+def rows_spec(mesh, B: int) -> P:
+    """The batch rows' spec: over the dp axes where they divide the rows
+    (``cache_specs``' rule for the cache's batch dim), else replicated."""
+    dp = shd.dp_axes(mesh)
+    n_dp = 1
+    for a in dp:
+        n_dp *= mesh.shape[a]
+    return P(dp) if dp and B % n_dp == 0 and B >= n_dp else P()
+
+
+def _tree_map(fn, tree):
+    """``fn`` over a cache tree's leaves (dicts in key order, lists, tuples; a P is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        return type(tree)(_tree_map(fn, t) for t in tree)
+    return fn(tree)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def _sharded_prefill(cfg: ModelConfig, params, batch, max_len=None):
+    """The sharded prefill (``make_prefill_step``'s docstring): one region
+    over the params' mesh, each rank running ``models.api.tp_prefill`` on
+    its rows; (logits (B, vocab), the cache as ShardedTensors under
+    ``cache_specs``)."""
+    mesh = _mesh_of(params)
+    specs = {n: st.sharding.spec for n, st in params.items()}
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    keys = sorted(batch)
+    B, S = batch["tokens"].shape
+    if cfg.vlm and "img_embeds" in batch:
+        S += batch["img_embeds"].shape[1]
+    T = max_len or S
+    cache_abs = api.init_cache(cfg, B, T, device="meta")
+    cspecs = shd.cache_specs(cfg, cache_abs, mesh)
+    rows = rows_spec(mesh, B)
+    blocks = [None] * mesh.size
+
+    def body(*parts):
+        slot = current_region().slot
+        w = tp.RankWeights({n: st.blocks[slot] for n, st in params.items()}, specs, mesh)
+        logits, blocks[slot] = api.tp_prefill(cfg, w, dict(zip(keys, parts)), T, cspecs)
+        return logits
+
+    with torch.no_grad():
+        logits = shard_map(body, mesh, (rows,) * len(keys), rows, turns=_turns(mesh))(*[batch[k] for k in keys])
+    per_slot = [_leaves(b) for b in blocks]
+    flat = [ShardedTensor(a.shape, NamedSharding(mesh, s), [per_slot[slot][i] for slot in range(mesh.size)])
+            for i, (a, s) in enumerate(zip(_leaves(cache_abs), _leaves(cspecs)))]
+    it = iter(flat)
+    return logits, _tree_map(lambda _: next(it), cache_abs)
+
+
+def _sharded_decode(cfg: ModelConfig, params, cache, tokens, pos):
+    """The sharded decode step (``make_serve_step``'s docstring): one region,
+    each rank running ``models.api.tp_decode_step`` on its rows and writing
+    its cache blocks in place; (logits (B, vocab), ``cache``)."""
+    mesh = _mesh_of(params)
+    leaves = _leaves(cache)
+    if not all(isinstance(c, ShardedTensor) and c.mesh is mesh for c in leaves):
+        raise ValueError("the sharded decode step takes a cache that device_put laid over the params' mesh")
+    specs = {n: st.sharding.spec for n, st in params.items()}
+    tokens, pos = torch.as_tensor(tokens), torch.as_tensor(pos)
+    rows = rows_spec(mesh, tokens.shape[0])
+    if any(c.sharding.spec.dim_axes(1) != rows.dim_axes(0) for c in leaves):
+        raise ValueError(f"the cache's batch dim is not laid out as the rows' {rows}: {leaves[0].sharding.spec}")
+
+    def body(tok, p):
+        w = tp.RankWeights({n: st.blocks[current_region().slot] for n, st in params.items()}, specs, mesh)
+        return api.tp_decode_step(cfg, w, cache, tok, p)
+
+    with torch.no_grad():
+        logits = shard_map(body, mesh, (rows, rows), rows, turns=_turns(mesh))(tokens, pos)
+    return logits, cache
+
+
 def make_serve_step(cfg: ModelConfig):
+    """(params, cache, tokens, pos) → (logits, cache): one decode step,
+    ``models.api.decode_step``. Given the sharded params of
+    ``device_put(params, named(mesh, param_specs))`` and the cache of
+    ``device_put(cache, named(mesh, cache_specs))`` (:func:`shard_cache`)
+    it runs as one region over the mesh, the reference's jitted step under
+    those shardings: the batch rows split over the dp axes (``tokens`` and
+    ``pos`` under ``P(dp)``), the layers tensor-parallel over ``model`` and
+    the attention sequence-parallel over the cache's ``T``-over-``model``
+    slots (``models.tp``); the logits come back whole (the reference's
+    ``out_shardings=None``) and the cache blocks are written in place."""
     def serve_step(params, cache, tokens, pos):
+        if _is_sharded(params):
+            _check_ported(cfg)
+            return _sharded_decode(cfg, params, cache, tokens, pos)
         return api.decode_step(cfg, params, cache, tokens, pos)
 
     return serve_step
 
 
 def make_prefill_step(cfg: ModelConfig):
-    def prefill_step(params, batch):
-        return api.prefill(cfg, params, batch)
+    """(params, batch[, max_len]) → (last logits, cache): ``models.api.prefill``.
+    Given sharded params (as :func:`make_serve_step`) it runs as one region
+    over their mesh: each rank prefills its dp rows on its heads (the flash
+    kernel per rank where ``attn_impl="flash"``), and the cache comes back
+    as ``ShardedTensor`` s under ``cache_specs``, each K/V moved from the
+    rank's heads into its ``T`` span by one all-to-all over ``model``."""
+    def prefill_step(params, batch, max_len=None):
+        if _is_sharded(params):
+            _check_ported(cfg)
+            return _sharded_prefill(cfg, params, batch, max_len)
+        return api.prefill(cfg, params, batch, max_len)
 
     return prefill_step
 
@@ -387,6 +519,14 @@ def named(mesh, specs):
     if isinstance(specs, dict):
         return {k: named(mesh, v) for k, v in specs.items()}
     return type(specs)(named(mesh, v) for v in specs)
+
+
+def shard_cache(cfg: ModelConfig, mesh, B: int, max_len: int, device=None):
+    """A fresh (zero) decode cache laid over ``mesh`` under ``cache_specs``:
+    ``device_put(api.init_cache(...), named(mesh, cache_specs))``, on the
+    mesh's devices."""
+    cache = api.init_cache(cfg, B, max_len, device=device or mesh.devices[0])
+    return device_put(cache, named(mesh, shd.cache_specs(cfg, cache, mesh)))
 
 
 def train_shardings(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, model, batch):

@@ -7,6 +7,8 @@
     prefill(cfg, params, batch, max_len)      → (last_logits, cache)
     decode_step(cfg, params, cache, tok, pos) → (logits, cache)
     loss_units(cfg, params)                   → the loss's sharded form
+    tp_prefill(cfg, w, batch, max_len, specs) → per rank: the sharded prefill
+    tp_decode_step(cfg, w, cache, tok, pos)   → per rank: the sharded decode
 
 Batches are dicts with ``tokens`` (numpy or tensor), an optional
 ``loss_mask``, ``enc_frames`` (B, n_audio_ctx, d) for the encoder-decoder
@@ -30,7 +32,7 @@ from repro_torch.models import whisper as whisper_mod
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["family", "model_class", "init_params", "abstract_params", "loss_fn", "init_cache", "prefill", "decode_step",
-           "loss_units"]
+           "loss_units", "tp_prefill", "tp_decode_step"]
 
 
 def family(cfg: ModelConfig) -> str:
@@ -56,6 +58,11 @@ _PREFILL = {"rwkv": rwkv_mod.rwkv_prefill, "jamba": jamba_mod.jamba_prefill, "en
             "transformer": tf_mod.prefill}
 _DECODE = {"rwkv": rwkv_mod.rwkv_decode_step, "jamba": jamba_mod.jamba_decode_step,
            "encdec": whisper_mod.whisper_decode_step, "transformer": tf_mod.decode_step}
+#: the per-rank forms of the sharded serve steps (``models.tp``), by family
+_TP = {"transformer": (tf_mod.tp_prefill, tf_mod.tp_decode_step),
+       "encdec": (whisper_mod.tp_prefill, whisper_mod.tp_decode_step),
+       "rwkv": (rwkv_mod.tp_prefill, rwkv_mod.tp_decode_step),
+       "jamba": (jamba_mod.tp_prefill, jamba_mod.tp_decode_step)}
 _UNITS = {"rwkv": rwkv_mod.loss_units, "jamba": jamba_mod.loss_units, "encdec": whisper_mod.loss_units,
           "transformer": tf_mod.loss_units}
 
@@ -96,3 +103,18 @@ def loss_units(cfg: ModelConfig, params):
     """``loss_fn`` as the units its forward enters (``models.common.Unit``),
     which ``models.common.run_units`` runs over a rank's parameter blocks."""
     return _UNITS[family(cfg)](cfg, params)
+
+
+def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):
+    """Per rank, inside the sharded prefill's region (``launch.train``):
+    (this rank's last logits, its cache blocks in the cache's tree);
+    ``w`` is the rank's ``models.tp.RankWeights``, ``specs`` the cache's
+    ``cache_specs``."""
+    return _TP[family(cfg)][0](cfg, w, batch, max_len, specs)
+
+
+def tp_decode_step(cfg: ModelConfig, w, cache, tokens, pos):
+    """Per rank, inside the sharded decode step's region: this rank's
+    logits; ``cache`` is the tree of ``ShardedTensor`` s whose blocks at
+    ``w.slot`` the step writes in place."""
+    return _TP[family(cfg)][1](cfg, w, cache, tokens, pos)

@@ -33,6 +33,7 @@ from torch import nn
 
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import tp
 from repro_torch.models.common import (
     Unit,
     apply_norm,
@@ -61,6 +62,8 @@ __all__ = [
     "jamba_prefill",
     "jamba_decode_step",
     "loss_units",
+    "tp_prefill",
+    "tp_decode_step",
 ]
 
 
@@ -276,6 +279,86 @@ def jamba_decode_step(cfg: ModelConfig, model: JambaLM, cache, tokens, pos):
             x = layer.forward_decode(cfg, x, one, pos)
     x = apply_norm(cfg, model.final_norm, x)
     return logits_out(cfg, model.embed, x)[:, 0], cache
+
+
+# -- the sharded serve steps' per-rank forms (models.tp) ----------------------
+
+
+def _tp_layer(cfg: ModelConfig, w, pre: str, kind, x, positions, entry, spec, T: int, decode_pos=None):
+    """One Jamba layer on the rank. ``entry``: the attention layer's (K, V)
+    blocks at decode (None at prefill), or the Mamba layer's state blocks
+    (written in place); ``spec`` the cache leaf's spec. Returns (x, the
+    prefill's cache pair or None)."""
+    mixer, ffn = kind
+    h = tp.norm(cfg, w, pre + "ln1.", x)
+    pair = None
+    if mixer == "attn":
+        if decode_pos is None:
+            a, seed = tp.attention_full(cfg, w, pre + "mixer.", h, positions, theta=cfg.rope_theta)
+            pair = tp.cache_block(w, seed, T, spec)
+        else:
+            a = tp.attention_decode(cfg, w, pre + "mixer.", h, entry, decode_pos, T, spec, theta=cfg.rope_theta)
+    else:
+        a = mamba_mod.tp_mamba(cfg, w, pre + "mixer.", h, entry, tp.MODEL in spec.dim_axes(2))
+    x = x + a
+    h = tp.norm(cfg, w, pre + "ln2.", x)
+    f = tp.moe(cfg, w, pre + "ffn.", h) if ffn == "moe" else tp.swiglu(cfg, w, pre + "ffn.", h, cfg.d_ff)
+    return x + f, pair
+
+
+def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):
+    """Per rank: :func:`jamba_prefill` on this rank's rows with
+    tensor-parallel layers: the attention layer's heads (K2 where the flash
+    gate lets it run) and its K/V into the ``T``-over-``model`` cache, the
+    Mamba layers on the rank's ``d_inner`` share (``mamba.tp_mamba``), the
+    FFNs column/row- or expert-parallel. Returns (last logits, the rank's
+    cache blocks)."""
+    tokens = batch["tokens"].long()
+    B, S = tokens.shape
+    x = tp.embed(cfg, w, tokens)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    layout = block_layout(cfg)
+    out = [[[], []] if m == "attn" else {"conv": [], "ssm": []} for m, _ in layout]
+    for b in range(n_blocks(cfg)):
+        for pi, kind in enumerate(layout):
+            pre = f"blocks.{b}.{pi}."
+            if kind[0] == "attn":
+                x, pair = _tp_layer(cfg, w, pre, kind, x, positions, None, specs[pi][0], max_len)
+                out[pi][0].append(pair[0])
+                out[pi][1].append(pair[1])
+            else:
+                di = cfg.ssm.d_inner(cfg.d_model)
+                split = tp.MODEL in specs[pi]["ssm"].dim_axes(2)
+                one = mamba_mod.mamba_init_state(cfg, B, x.device)
+                n = di // w.size if split else di
+                st = {"conv": one["conv"][..., :n].clone(), "ssm": one["ssm"][:, :n].clone()}
+                x, _ = _tp_layer(cfg, w, pre, kind, x, positions, st, specs[pi]["ssm"], max_len)
+                for k in ("conv", "ssm"):
+                    out[pi][k].append(st[k])
+    logits = tp.logits(cfg, w, tp.norm(cfg, w, "final_norm.", x[:, -1]))
+    cache = [tuple(torch.stack(t) for t in e) if isinstance(e, list) else {k: torch.stack(v) for k, v in e.items()}
+             for e in out]
+    return logits, cache
+
+
+def tp_decode_step(cfg: ModelConfig, w, cache, tokens, pos):
+    """Per rank: :func:`jamba_decode_step` on the rank's cache blocks
+    (``cache``'s ShardedTensors at ``w.slot``), written in place; the
+    attention sequence-parallel over its ``T`` span."""
+    tokens, pos = tokens.long(), pos.long()
+    x = tp.embed(cfg, w, tokens[:, None])
+    s = w.slot
+    for b in range(n_blocks(cfg)):
+        for pi, kind in enumerate(block_layout(cfg)):
+            entry = cache[pi]
+            if kind[0] == "attn":
+                K, V = entry
+                x, _ = _tp_layer(cfg, w, f"blocks.{b}.{pi}.", kind, x, None, (K.blocks[s][b], V.blocks[s][b]),
+                                 K.sharding.spec, K.shape[2], decode_pos=pos)
+            else:
+                st = {k: entry[k].blocks[s][b] for k in ("conv", "ssm")}
+                x, _ = _tp_layer(cfg, w, f"blocks.{b}.{pi}.", kind, x, None, st, entry["ssm"].sharding.spec, 0)
+    return tp.logits(cfg, w, tp.norm(cfg, w, "final_norm.", x))[:, 0]
 
 
 # -- the sharded form of the loss (models.common.run_units) -------------------

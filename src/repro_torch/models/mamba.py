@@ -25,10 +25,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import tp
 from repro_torch.models.common import meta_scan, rms_norm
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["CHUNK", "mamba_params", "init_mamba_leaves", "mamba_init_state", "mamba_full", "mamba_decode"]
+__all__ = ["CHUNK", "mamba_params", "init_mamba_leaves", "mamba_init_state", "mamba_full", "mamba_decode", "tp_mamba"]
 
 CHUNK = 128
 
@@ -165,3 +166,36 @@ def mamba_full(cfg: ModelConfig, p, x, state=None):
 def mamba_decode(cfg: ModelConfig, p, x, state):
     """Single-token step: x (B,1,d)."""
     return mamba_full(cfg, p, x, state)
+
+
+def tp_mamba(cfg: ModelConfig, w, pre: str, x, state: dict, split: bool):
+    """:func:`mamba_full` on the rank (no grad): with ``split`` (the state's
+    ``d_inner`` over ``model``) on the rank's channel share, else on every
+    channel. ``in_proj`` is ``(None, "model")`` over the concatenated
+    ``[x | z]`` (width ``2·d_inner``), so its column blocks are not channel
+    shares (at ``model = 2`` rank 0 holds all of ``x``, rank 1 all of
+    ``z``): the leaf is gathered whole and both halves cut to the share.
+    ``x_proj`` is row-parallel (a small all-reduce of dt, B and C),
+    ``out_proj`` row-parallel. ``state`` holds the rank's ``conv`` (B,
+    d_conv-1, di_l) and ``ssm`` (B, di_l, ds) blocks, written in place."""
+    di, ds, dc, dtr = _dims(cfg)
+    c0, c1 = w.share(di) if split else (0, di)
+    ch = (lambda n, dim: w.part(pre + n, dim, di)) if split else (lambda n, dim: w.whole(pre + n))
+    xz = x @ w.whole(pre + "in_proj").to(x.dtype)
+    x_in, z = xz[..., c0:c1], xz[..., di + c0: di + c1]
+    p = {"conv_w": ch("conv_w", 1), "conv_b": ch("conv_b", 0)}
+    xc, conv_state = _causal_conv(p, x_in, state["conv"])
+    xc = _silu(xc)
+    x_dbl = tp.reduce_sum(w, xc.float() @ ch("x_proj", 0).float(), xc.dtype) if split else xc @ ch("x_proj", 0).to(
+        xc.dtype)
+    dt_r, B_, C_ = torch.split(x_dbl, [dtr, ds, ds], dim=-1)
+    dt_r = rms_norm(dt_r, w.whole(pre + "dt_norm"))
+    B_ = rms_norm(B_, w.whole(pre + "b_norm")).float()
+    C_ = rms_norm(C_, w.whole(pre + "c_norm")).float()
+    dt = F.softplus((dt_r @ ch("dt_proj", 1).to(xc.dtype)).float() + ch("dt_bias", 0).float())
+    A = -torch.exp(ch("A_log", 0).float())
+    y, h = _ssm_scan(dt, B_, C_, xc.float(), A, ch("D", 0).float(), state["ssm"])
+    state["conv"].copy_(conv_state)
+    state["ssm"].copy_(h)
+    y = y.to(x.dtype) * _silu(z)
+    return tp.row(cfg, w, y, pre + "out_proj", di) if split else y @ w.whole(pre + "out_proj").to(x.dtype)

@@ -117,8 +117,8 @@ class GlobalRouting:
         return log[self._i - 1]
 
 
-def moe_apply(cfg: ModelConfig, p, x, train: bool = False,
-              route: GlobalRouting | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(cfg: ModelConfig, p, x, train: bool = False, route: GlobalRouting | None = None,
+              experts: Tuple[int, int] | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) → (y (B,S,d), aux loss scalar). ``p`` holds ``router``
     (d,E) fp32, ``we_gate``/``we_up`` (E,d,de), ``we_down`` (E,de,d) and,
     with shared experts, ``shared`` (a nested mapping: a plain dict's key
@@ -128,7 +128,14 @@ def moe_apply(cfg: ModelConfig, p, x, train: bool = False,
     With ``route`` the tokens are one dp group's rows of the microbatch
     (the module docstring) and the aux comes back as its sums, a (2E+2,)
     fp32 row: the top-1 counts, the summed probabilities, the dropped
-    choices and the token count."""
+    choices and the token count.
+
+    With ``experts=(e0, e1)`` (expert parallelism, ``models.tp.moe``) the
+    stacks hold experts ``[e0, e1)`` of ``E`` only: the routing is the
+    same over all ``E``, but only the choices of those experts are
+    dispatched and combined, so the outputs of the ranks that hold the
+    other experts add up to the whole; this partial comes back in fp32
+    (``models.tp.reduce_sum`` rounds the sum once)."""
     m = cfg.moe
     B, S, d = x.shape
     N = B * S
@@ -167,8 +174,12 @@ def moe_apply(cfg: ModelConfig, p, x, train: bool = False,
     table = torch.full((E * C + 1,), N, dtype=torch.long, device=x.device)
     table[slot] = torch.arange(N, device=x.device)[:, None].expand(N, k).reshape(-1)
     table = table[: E * C]
+    e0, e1 = experts if experts is not None else (0, E)
+    if experts is not None:  # this rank's experts only
+        keep = keep & (topi >= e0) & (topi < e1)
+        table = table[e0 * C: e1 * C]
     x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
-    xe = x_pad[table.view(E, C)]  # (E,C,d)
+    xe = x_pad[table.view(e1 - e0, C)]  # (E,C,d)
 
     # --- grouped expert FFN ----------------------------------------------
     g = F.silu(torch.bmm(xe, p["we_gate"].to(xe.dtype)))
@@ -176,23 +187,28 @@ def moe_apply(cfg: ModelConfig, p, x, train: bool = False,
     ye = torch.bmm(g * u, p["we_down"].to(xe.dtype))  # (E,C,d)
 
     # --- combine -----------------------------------------------------------
+    odt = x.dtype if experts is None else torch.float32
     if cfg.moe_scatter_combine:
         gate_table = torch.zeros((E * C + 1,), dtype=torch.float32, device=x.device)
         gate_table[slot] = gates.reshape(-1)
-        yw = ye * gate_table[: E * C].view(E, C, 1).to(ye.dtype)
-        out = x.new_zeros((N + 1, d)).index_add_(0, table, yw.reshape(E * C, d).to(x.dtype))[:N]
+        yw = ye * gate_table[e0 * C: e1 * C].view(e1 - e0, C, 1).to(ye.dtype)
+        out = x.new_zeros((N + 1, d), dtype=odt).index_add_(0, table, yw.reshape(-1, d).to(odt))[:N]
     else:
-        out = x.new_zeros((N, d))
+        out = x.new_zeros((N, d), dtype=odt)
         cpos = torch.where(keep, pos, torch.zeros_like(pos))
+        ei = topi if experts is None else (topi - e0).clamp(0, e1 - e0 - 1)
         for j in range(k):
-            yj = ye[topi[:, j], cpos[:, j]]  # (N,d)
-            out = out + torch.where(keep[:, j, None], gates[:, j, None].to(x.dtype) * yj, torch.zeros_like(yj))
+            yj = ye[ei[:, j], cpos[:, j]].to(odt)  # (N,d)
+            out = out + torch.where(keep[:, j, None], gates[:, j, None].to(odt) * yj, torch.zeros_like(yj))
 
     # --- shared experts ----------------------------------------------------
     if m.n_shared:
         sp = p["shared"]
         sg = F.silu(xf @ sp["w_gate"].to(xf.dtype))
         su = xf @ sp["w_up"].to(xf.dtype)
-        out = out + (sg * su) @ sp["w_down"].to(xf.dtype)
+        if experts is None:
+            out = out + (sg * su) @ sp["w_down"].to(xf.dtype)
+        else:
+            out = out + (sg * su).float() @ sp["w_down"].float()
 
     return out.reshape(B, S, d), aux

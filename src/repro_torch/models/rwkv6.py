@@ -51,6 +51,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.models import tp
 from repro_torch.models.common import (
     Unit,
     apply_norm,
@@ -76,6 +77,8 @@ __all__ = [
     "rwkv_prefill",
     "rwkv_decode_step",
     "loss_units",
+    "tp_prefill",
+    "tp_decode_step",
     "HEAD_SIZE",
     "KERNEL_CHUNK",
 ]
@@ -371,6 +374,117 @@ def rwkv_decode_step(cfg: ModelConfig, model: RWKVLM, state, tokens, pos):
     tokens = _tokens(model, tokens)
     x, state = _trunk(cfg, model, tokens[:, None], state, None, out=state)
     return logits_out(cfg, model.embed, x)[:, 0], state
+
+
+# ----------------------------------------------------------------------
+# the sharded serve steps' per-rank forms (models.tp)
+# ----------------------------------------------------------------------
+
+
+def _d_span(w, spec, d: int):
+    """(first, count) of the rank's channels in a state leaf ``(L, B, d)``
+    laid out by ``spec`` (``d`` over ``model`` where it divides)."""
+    if tp.MODEL in spec.dim_axes(2):
+        return w.index * d // w.size, d // w.size
+    return 0, d
+
+
+def _tp_layer(cfg: ModelConfig, w, l: int, x, st: dict, specs: dict, use_kernel: bool):
+    """One RWKV-6 layer on the rank: the time-mix's token shift and LoRAs
+    read all of ``d`` (the rank's ``x_tm``/``x_cm`` blocks all-gathered at
+    entry), ``w[rkvg]`` and the WKV recurrence on the rank's heads (its
+    ``wkv`` block; every head where ``model`` does not divide them, the
+    state being replicated then), ``wo`` and ``wv_c`` row-parallel,
+    ``wr_c`` column-parallel with its gate all-gathered. ``st`` holds the
+    rank's blocks of this layer, written in place."""
+    pre = f"layers.{l}."
+    B, S, d = x.shape
+    H, cd = _n_heads(cfg), x.dtype
+    split = tp.MODEL in specs["wkv"].dim_axes(2)  # the rank's heads, or every head on every rank
+    h0, h1 = w.share(H) if split else (0, H)
+    c0, c1 = h0 * HEAD_SIZE, h1 * HEAD_SIZE
+    cols = (lambda n: w.part(pre + "p." + n, 1, H)) if split else (lambda n: w.whole(pre + "p." + n))
+    full = lambda n: w.whole(pre + "p." + n)  # noqa: E731
+    t0, tn = _d_span(w, specs["x_tm"], d)
+
+    def last(key):
+        prev = st[key].to(cd)
+        return w.gather(prev, axis=1) if tn != d else prev
+
+    # time-mix
+    h = tp.norm(cfg, w, pre + "ln1.", x)
+    x_prev = torch.cat([last("x_tm")[:, None], h[:, :-1]], dim=1)
+    dx = x_prev - h
+    xxx = h + dx * full("mu_x").to(cd)
+    maa = torch.tanh(xxx @ full("maa_w1").to(cd)).reshape(B, S, 5, MAA_RANK)
+    maa = torch.einsum("bsfr,frd->bsfd", maa, full("maa_w2").to(cd))
+    mu = full("mu_wkvrg").to(cd)
+    xw, xk, xv, xr, xg = [h + dx * (mu[i] + maa[:, :, i]) for i in range(5)]
+    lora = torch.tanh(xw @ full("decay_w1").to(cd)) @ full("decay_w2")[:, c0:c1].to(cd)
+    wd = torch.exp(-torch.exp(full("w0")[c0:c1].float() + lora.float()))
+    r, k, v = (a @ cols(n).to(cd) for a, n in ((xr, "wr"), (xk, "wk"), (xv, "wv")))
+    xg = xg @ cols("wg").to(cd)
+    g = xg * torch.sigmoid(xg)
+    shp = (B, S, h1 - h0, HEAD_SIZE)
+    w32, r32, k32, v32 = (a.float().reshape(shp) for a in (wd, r, k, v))
+    bonus = (w.part(pre + "p.bonus", 0, H) if split else full("bonus")).float()
+    if use_kernel:
+        yh, wkv = ops.wkv6(w32, r32, k32, v32, bonus, st["wkv"], chunk=KERNEL_CHUNK)
+    else:
+        yh, wkv = _wkv_scan(w32, r32, k32, v32, bonus, st["wkv"])
+    st["wkv"].copy_(wkv)
+    mu_, var = yh.mean(-1, keepdim=True), yh.var(-1, keepdim=True, unbiased=False)
+    yh = (yh - mu_) * torch.rsqrt(var + 64e-5)
+    ln_x = w.tree(pre + "ln_x.")
+    y = yh.reshape(B, S, -1) * ln_x["w"][c0:c1].float() + ln_x["b"][c0:c1].float()
+    y = y.to(cd) * g
+    a = tp.row(cfg, w, y, pre + "p.wo", H) if split else y @ full("wo").to(cd)
+    st["x_tm"].copy_(h[:, -1, t0:t0 + tn])
+    x = x + a
+    # channel-mix
+    h = tp.norm(cfg, w, pre + "ln2.", x)
+    x_prev = torch.cat([last("x_cm")[:, None], h[:, :-1]], dim=1)
+    dx = x_prev - h
+    xk = h + dx * full("mu_k_c").to(cd)
+    xr = h + dx * full("mu_r_c").to(cd)
+    kk = torch.square(torch.relu(tp.column(cfg, w, xk, pre + "p.wk_c", cfg.d_ff)))
+    kv = tp.row(cfg, w, kk, pre + "p.wv_c", cfg.d_ff)
+    r0, r1 = w.share(d)
+    c = torch.sigmoid(tp.column(cfg, w, xr, pre + "p.wr_c", d)) * kv[..., r0:r1]
+    st["x_cm"].copy_(h[:, -1, t0:t0 + tn])
+    return x + w.gather(c, axis=-1)
+
+
+def _tp_trunk(cfg: ModelConfig, w, tokens, state: dict, specs: dict):
+    x = tp.embed(cfg, w, tokens)
+    route = _route(cfg, x.shape[1], None)
+    for l in range(cfg.n_layers):
+        x = _tp_layer(cfg, w, l, x, {k: state[k][l] for k in STATE_KEYS}, specs, route)
+    return tp.norm(cfg, w, "final_norm.", x)
+
+
+def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):
+    """Per rank: :func:`rwkv_prefill` on this rank's rows with
+    tensor-parallel layers (:func:`_tp_layer`; the WKV-6 kernel K3 on the
+    rank's heads where ``attn_impl="flash"`` and S % 64 == 0). Returns
+    (last logits, the rank's state blocks)."""
+    tokens = batch["tokens"].long()
+    B, d, H = tokens.shape[0], cfg.d_model, _n_heads(cfg)
+    state = init_state(cfg, B, device=tokens.device)
+    t0, tn = _d_span(w, specs["x_tm"], d)
+    state["x_tm"], state["x_cm"] = state["x_tm"][..., :tn].clone(), state["x_cm"][..., :tn].clone()
+    if tp.MODEL in specs["wkv"].dim_axes(2):
+        state["wkv"] = state["wkv"][:, :, : H // w.size].clone()
+    x = _tp_trunk(cfg, w, tokens, state, {k: specs[k] for k in STATE_KEYS})
+    return tp.logits(cfg, w, x[:, -1]), state
+
+
+def tp_decode_step(cfg: ModelConfig, w, cache, tokens, pos):
+    """Per rank: :func:`rwkv_decode_step` on its state blocks (``cache``'s
+    ShardedTensors at ``w.slot``), written in place."""
+    state = {k: cache[k].blocks[w.slot] for k in STATE_KEYS}
+    x = _tp_trunk(cfg, w, tokens.long()[:, None], state, {k: cache[k].sharding.spec for k in STATE_KEYS})
+    return tp.logits(cfg, w, x)[:, 0]
 
 
 # ----------------------------------------------------------------------

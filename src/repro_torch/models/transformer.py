@@ -34,6 +34,7 @@ from torch import nn
 
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import tp
 from repro_torch.models.common import (
     Unit,
     apply_norm,
@@ -70,6 +71,8 @@ __all__ = [
     "decode_step",
     "loss_units",
     "lm_xent_blocks",
+    "tp_prefill",
+    "tp_decode_step",
 ]
 
 
@@ -546,3 +549,74 @@ def lm_xent_blocks(cfg: ModelConfig, model: TransformerLM, blocks, specs, batch,
     the gathers its peers need and returns ``None``. ``route`` is the MoE
     layers' :class:`~repro_torch.models.moe.GlobalRouting`."""
     return run_units(cfg, loss_units(cfg, model), blocks, specs, batch if compute else None, route)
+
+
+# ----------------------------------------------------------------------
+# the sharded serve steps' per-rank forms (models.tp)
+# ----------------------------------------------------------------------
+
+
+def _tp_ffn(cfg: ModelConfig, w, pre: str, spec: LayerSpec, h):
+    return tp.moe(cfg, w, pre + "ffn.", h) if spec.moe else tp.swiglu(cfg, w, pre + "ffn.", h, spec.d_ff or cfg.d_ff)
+
+
+def _tp_layers(cfg: ModelConfig):
+    """(group, pattern position, rep, prefix, spec) of every layer, in
+    execution order."""
+    for gi, (pattern, reps) in enumerate(layer_groups(cfg)):
+        for i in range(reps * len(pattern)):
+            r, pi = divmod(i, len(pattern))
+            yield gi, pi, r, f"groups.{gi}.{i}.", pattern[pi]
+
+
+def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):
+    """Per rank, inside the sharded prefill's region: :func:`prefill` on
+    this rank's rows of ``batch`` with tensor-parallel layers
+    (``models.tp``, ``w`` a :class:`~repro_torch.models.tp.RankWeights`).
+    Returns (last logits (B_l, vocab), the rank's cache blocks in the
+    cache's tree), ``specs`` being that tree's ``cache_specs``."""
+    tokens = batch["tokens"].long()
+    x = tp.embed(cfg, w, tokens)
+    if cfg.vlm and "img_embeds" in batch:
+        img = batch["img_embeds"].to(cfg.cdtype)
+        x = torch.cat([img @ w.whole("img_proj").to(cfg.cdtype), x], dim=1)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    blocks = [[[[], []] for _ in pattern] for pattern, _ in layer_groups(cfg)]
+    for gi, pi, _, pre, spec in _tp_layers(cfg):
+        h = tp.norm(cfg, w, pre + "ln1.", x)
+        T, spec0 = _cache_len(spec, max_len), specs[gi][pi][0]
+        if spec.attn == "mla":
+            a, (c_kv, k_rope) = mla_mod.tp_mla_full(cfg, w, pre + "attn.", h, positions, spec.theta)
+            pair = tp.span_block(w, c_kv, T, spec0), tp.span_block(w, k_rope, T, specs[gi][pi][1])
+        else:
+            a, seed = tp.attention_full(cfg, w, pre + "attn.", h, positions, window=spec.window, theta=spec.theta)
+            pair = tp.cache_block(w, seed, T, spec0)
+        x = x + a
+        x = x + _tp_ffn(cfg, w, pre, spec, tp.norm(cfg, w, pre + "ln2.", x))
+        for j in (0, 1):
+            blocks[gi][pi][j].append(pair[j])
+    logits = tp.logits(cfg, w, tp.norm(cfg, w, "final_norm.", x[:, -1]))
+    return logits, [tuple(tuple(torch.stack(t) for t in pair) for pair in g) for g in blocks]
+
+
+def tp_decode_step(cfg: ModelConfig, w, cache, tokens, pos):
+    """Per rank, inside the sharded decode step's region: :func:`decode_step`
+    on this rank's rows with tensor-parallel layers and the
+    sequence-parallel attention of ``models.tp``. ``cache`` is the cache's
+    tree of ``ShardedTensor`` s (their blocks at ``w.slot`` are written in
+    place). Returns the logits (B_l, vocab)."""
+    tokens, pos = tokens.long(), pos.long()
+    x = tp.embed(cfg, w, tokens[:, None])
+    for gi, pi, r, pre, spec in _tp_layers(cfg):
+        K, V = cache[gi][pi]
+        h = tp.norm(cfg, w, pre + "ln1.", x)
+        blocks = (K.blocks[w.slot][r], V.blocks[w.slot][r])
+        if spec.attn == "mla":
+            x = x + mla_mod.tp_mla_decode(cfg, w, pre + "attn.", h, blocks, pos, K.shape[2], K.sharding.spec,
+                                          spec.theta)
+        else:
+            x = x + tp.attention_decode(cfg, w, pre + "attn.", h, blocks, pos, K.shape[2], K.sharding.spec,
+                                        window=spec.window, theta=spec.theta)
+        x = x + _tp_ffn(cfg, w, pre, spec, tp.norm(cfg, w, pre + "ln2.", x))
+    return tp.logits(cfg, w, tp.norm(cfg, w, "final_norm.", x))[:, 0]

@@ -41,6 +41,7 @@ from repro_torch.models.common import (
     remat_wrap,
     unit_call,
 )
+from repro_torch.models import tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import _norm, _params, gelu_mlp_params, gqa_params, init_leaves
 
@@ -55,6 +56,8 @@ __all__ = [
     "whisper_prefill",
     "whisper_decode_step",
     "loss_units",
+    "tp_prefill",
+    "tp_decode_step",
 ]
 
 
@@ -264,6 +267,67 @@ def whisper_decode_step(cfg: ModelConfig, model: WhisperLM, cache, tokens, pos):
         x = x + gelu_mlp(cfg, lp.mlp, apply_norm(cfg, lp.ln2, x))
     x = apply_norm(cfg, model.final_norm, x)
     return logits_out(cfg, model.embed, x)[:, 0], cache
+
+
+# -- the sharded serve steps' per-rank forms (models.tp) ----------------------
+
+
+def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):
+    """Per rank: :func:`whisper_prefill` on this rank's rows with
+    tensor-parallel layers (``models.tp``): the encoder's and the decoder's
+    attention on the rank's heads, their GELU MLPs column/row-parallel with
+    ``b_out`` added once. Returns (last logits, {"self": (K, V), "cross":
+    (K, V)} blocks); the cross K/V go into their ``T_enc``-over-``model``
+    blocks as the self K/V do."""
+    frames = batch["enc_frames"].to(cfg.cdtype)
+    x, positions = _enc_in(cfg, frames)
+    for l in range(cfg.n_enc_layers):
+        pre = f"enc_layers.{l}."
+        a, _ = tp.attention_full(cfg, w, pre + "attn.", tp.norm(cfg, w, pre + "ln1.", x), positions, causal=False,
+                                 use_rope=False)
+        x = x + a
+        x = x + tp.gelu_mlp(cfg, w, pre + "mlp.", tp.norm(cfg, w, pre + "ln2.", x))
+    enc = tp.norm(cfg, w, "enc_ln_post.", x)
+    tokens = batch["tokens"].long()
+    B, S = tokens.shape
+    x = tp.embed(cfg, w, tokens) + sinusoids(S, cfg.d_model, tokens.device).to(cfg.cdtype)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    (sk, _), (xk, _) = specs["self"], specs["cross"]
+    out = {"self": ([], []), "cross": ([], [])}
+    for l in range(cfg.n_layers):
+        pre = f"dec_layers.{l}."
+        a, seed = tp.attention_full(cfg, w, pre + "attn.", tp.norm(cfg, w, pre + "ln1.", x), positions,
+                                    use_rope=False)
+        x = x + a
+        a, xseed = tp.attention_full(cfg, w, pre + "xattn.", tp.norm(cfg, w, pre + "lnx.", x), positions, kv_x=enc)
+        x = x + a
+        x = x + tp.gelu_mlp(cfg, w, pre + "mlp.", tp.norm(cfg, w, pre + "ln2.", x))
+        for key, sd, T, spec in (("self", seed, max_len, sk), ("cross", xseed, cfg.n_audio_ctx, xk)):
+            for j, t in enumerate(tp.cache_block(w, sd, T, spec)):
+                out[key][j].append(t)
+    logits = tp.logits(cfg, w, tp.norm(cfg, w, "final_norm.", x[:, -1]))
+    return logits, {k: tuple(torch.stack(t) for t in pair) for k, pair in out.items()}
+
+
+def tp_decode_step(cfg: ModelConfig, w, cache, tokens, pos):
+    """Per rank: :func:`whisper_decode_step` with the self-attention
+    sequence-parallel over its written cache and the cross-attention over
+    the encoder's (``models.tp``)."""
+    tokens, pos = tokens.long(), pos.long()
+    x = tp.embed(cfg, w, tokens[:, None])
+    ang = pos[:, None].float() * _inv_timescales(cfg.d_model, x.device)[None, :]
+    x = x + torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, None, :].to(cfg.cdtype)
+    (ks, vs), (kx, vx) = cache["self"], cache["cross"]
+    s = w.slot
+    for l in range(cfg.n_layers):
+        pre = f"dec_layers.{l}."
+        x = x + tp.attention_decode(cfg, w, pre + "attn.", tp.norm(cfg, w, pre + "ln1.", x),
+                                    (ks.blocks[s][l], vs.blocks[s][l]), pos, ks.shape[2], ks.sharding.spec,
+                                    use_rope=False)
+        x = x + tp.attention_cached(cfg, w, pre + "xattn.", tp.norm(cfg, w, pre + "lnx.", x),
+                                    (kx.blocks[s][l], vx.blocks[s][l]), kx.shape[2], kx.sharding.spec)
+        x = x + tp.gelu_mlp(cfg, w, pre + "mlp.", tp.norm(cfg, w, pre + "ln2.", x))
+    return tp.logits(cfg, w, tp.norm(cfg, w, "final_norm.", x))[:, 0]
 
 
 # -- the sharded form of the loss (models.common.run_units) -------------------

@@ -5,9 +5,10 @@ on the meta device, against the JAX package's.
 production mesh is monkeypatched; 256 thread-ranks are the command line's
 business, not a test's): its row has the reference's keys, its argument
 bytes equal a reckoning from the port's specs, its collectives are
-counted, a train cell of every family counts the sharded step, and a
-serve cell, a decode cell and a train cell under a refused layout hint
-carry null collectives and temp bytes with their reason. ``run_cells``' skips follow the reference's
+counted, a train cell of every family counts the sharded step, a prefill
+and a decode cell count the sharded serve steps, and only a train cell
+under a refused layout hint carries null collectives and temp bytes, with
+its reason. ``run_cells``' skips follow the reference's
 applicability, and every hillclimb variant sets the same config fields on
 the port's config as on the reference's. All exact.
 """
@@ -79,15 +80,32 @@ def test_lower_cell_train_row(small):
     assert row["roofline"]["hlo_flops"] > 0 and row["roofline"]["t_collective_s"] > 0
 
 
-@pytest.mark.parametrize("arch,shape", [("granite-moe-1b-a400m", "prefill_32k"), ("qwen1.5-0.5b", "decode_32k")])
+@pytest.mark.parametrize("arch,shape", [("granite-moe-1b-a400m", "prefill_32k"), ("qwen1.5-0.5b", "decode_32k"),
+                                        ("granite-moe-1b-a400m", "train_4k")])
 def test_lower_cell_null_with_reason(small, arch, shape):
-    row = dryrun.lower_cell(arch, shape, verbose=False)
-    assert row["collectives"] is None and row["memory"]["temp_bytes"] is None
-    assert row["memory"]["peak_bytes_per_device"] is None
-    assert row["roofline"]["t_collective_s"] is None and row["roofline"]["coll_bytes_per_chip"] is None
+    """Only a cell under a layout hint the sharded steps refuse is null
+    (with its reason): a serve cell counts its sharded prefill or decode
+    step's collectives and temp bytes; the train cell here is run under
+    ``moe_dispatch_sharding``."""
+    hint = shape == "train_4k"
+    row = dryrun.lower_cell(arch, shape, verbose=False,
+                            cfg_transform=(lambda c: c.replace(moe_dispatch_sharding=True)) if hint else None)
     assert row["roofline"]["hlo_flops"] > 0 and row["roofline"]["t_memory_s"] > 0
     assert row["memory"]["argument_bytes"] > 0
-    assert dryrun.NO_SHARDED_SERVE in row["reason"]
+    if hint:
+        assert row["collectives"] is None and row["memory"]["temp_bytes"] is None
+        assert row["memory"]["peak_bytes_per_device"] is None
+        assert row["roofline"]["t_collective_s"] is None and row["roofline"]["coll_bytes_per_chip"] is None
+        assert "moe_dispatch_sharding" in row["reason"] and "P11c" in row["reason"]
+        return
+    coll = row["collectives"]
+    assert coll is not None and coll["all-reduce"] > 0 and "reason" not in row
+    if shape.startswith("decode"):
+        assert coll["all-gather"] > 0  # q, the new K/V row and the attention partials
+    else:
+        assert coll["all-to-all"] > 0  # the prefill's K/V into the T-over-model cache
+    assert row["memory"]["temp_bytes"] > 0 and row["roofline"]["t_collective_s"] > 0
+    assert row["memory"]["peak_bytes_per_device"] == row["memory"]["argument_bytes"] + row["memory"]["temp_bytes"]
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "whisper-tiny"])
