@@ -159,6 +159,14 @@ PIPE_DEPTH = 2
 PIPE_LOSS_BATCH = (4, 128)
 SHARDED_BATCH = (8, 128)
 SHARDED_LR = 1e-3
+# (c) in bf16 the tensor-parallel step adds its partial sums in another
+# order than one rank, which flips the first AdamW step's sign on
+# near-zero gradients: the share of params beyond one bf16 step of the
+# single-rank step's is bounded from the card's readings, and the sharded
+# step's params may lie no farther from the fp32 step's than this many
+# times the single-rank bf16 step's (PERF.md section 6, PR 24)
+SHARDED_BF16_SHARE = 0.025
+SHARDED_BF16_CONTROL = 1.5
 # the zoo phase: (b) gemma3-4b's prompts (multiples of 128; 1152 > its
 # 1024-token window, so its local rings wrap) and its engine's max_len;
 # (c) phi-3-vision's text tokens after its 576 image rows and its decode
@@ -191,16 +199,19 @@ ZOO2_RWKV_BATCH = (8, 128)
 # flash at the zoo2 paths' shapes (hd, (B, S, nq, nkv)), bf16: jamba's
 # attention layer and whisper's decoder self-attention at the longest prompt
 ZOO2_FLASH = {"jamba": (128, (1, 384, 32, 8)), "whisper": (64, (1, 384, 6, 6))}
-# the sharded_zoo phase: the sharded step on a (2, 2, 2) ("pod", "data",
-# "model") mesh of thread-ranks against the single-rank step, each config's
-# published training settings; each batch (B x S) is the smallest that splits
-# into grad_accum microbatches of one row per dp group (dp = 4). AdamW keeps
-# no fp32 master (bf16 moments for a bf16 model, the reference's setting for
-# its giants): where the layer count divides by dp, ZeRO-1 would shard the
-# moments on the layer-stacking dim, which the port drops (ROADMAP P11c), so
-# each moment is held 4 times over dp. Depth cuts for memory (the widths stay
-# the published ones): granite's fp32 copy, phi-3-vision and rwkv6-7b; the
-# trained granite serves one prefill of SZ_PREFILL_S tokens with flash
+# the sharded_zoo phase: the tensor-parallel sharded step on a (2, 2, 2)
+# ("pod", "data", "model") mesh of thread-ranks against the single-rank step,
+# each config's published training settings; each batch (B x S) is the
+# smallest that splits into grad_accum microbatches of one row per dp group
+# (dp = 4). Moments in bf16 for a bf16 model; granite keeps AdamW's fp32
+# master (the reference's default), which ZeRO-1 on the layer-stacking dim
+# makes fit (24 layers over dp 4: each dp rank holds 6 layers' moments and
+# master). Depth cuts for memory (the widths stay the published ones):
+# granite's fp32 copy (run hint-free and under each layout hint), phi-3-vision
+# and rwkv6-7b; the trained granite serves one prefill of SZ_PREFILL_S tokens
+# with flash. PR 23's host ms of each part's sharded step on the gathered
+# route (every layer's weights gathered whole, one rank per dp group
+# computing), H100 80GB HBM3 at 700 W, stand beside this run's
 SZ_MESH = ((2, 2, 2), ("pod", "data", "model"))
 SZ_LR = 1e-3
 SZ_GRANITE_BATCH = (16, 128)
@@ -211,6 +222,11 @@ SZ_PHI_BATCH = (32, 128)
 SZ_RWKV_LAYERS = 2
 SZ_RWKV_BATCH = (32, 128)
 SZ_WHISPER_BATCH = (8, 128)
+SZ_GATHERED_MS_PR23 = {"granite": 21020, "phi3": 6613, "rwkv6": 12341, "whisper": 2607}
+# the peak PR 23 measured for granite's bf16 sharded step with its moments
+# held 4 times over dp and no master, and the reckoning for this layout:
+# 12 B a parameter of moments saved, 4 B a parameter of fp32 master added
+SZ_GRANITE_PEAK_GB_PR23 = 72.26
 # the sharded_serve phase: the sharded prefill and SS_STEPS greedy sharded
 # decode steps on a (2, 4) ("data", "model") mesh of thread-ranks against the
 # single-rank steps; SS_BATCH prompts of SS_PROMPT tokens into a cache of
@@ -1913,9 +1929,19 @@ def pipeline_loss(torch) -> dict:
 
 def sharded_step(torch, base: Path) -> dict:
     """(c) the sharded step (params under param_specs, moments under
-    opt_state_specs, ZeRO-1) against the single-rank make_train_step; a
-    checkpoint of the sharded state against the unsharded one's files; a
-    restore with shardings= read block by block."""
+    opt_state_specs, ZeRO-1: on the layer-stacking dim, 24 layers over dp
+    4) against the single-rank make_train_step; a checkpoint of the
+    sharded state against the unsharded one's files; a restore with
+    shardings= read block by block. The loss is held in bf16. The updated
+    params are held on an fp32 copy of the same weights (within one bf16
+    step of one rank's but 1%) and in bf16: the step is tensor-parallel,
+    and in bf16 its other summation order flips the first AdamW step's
+    sign on near-zero gradients, so there every element stays within 2 lr
+    plus a step, the share beyond one step is bounded
+    (``SHARDED_BF16_SHARE``), and the sharded step's params lie no farther
+    from the fp32 step's than one rank's bf16 params do, up to
+    ``SHARDED_BF16_CONTROL``. Each bf16 step runs twice from the same state
+    and the repeats are compared bit for bit."""
     import numpy as np
 
     from repro_torch.checkpoint import iovec_store as store
@@ -1966,23 +1992,26 @@ def sharded_step(torch, base: Path) -> dict:
     step_ms = (time.perf_counter() - t0) * 1e3
     step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     grad_ms = host_ms(torch, lambda: make_grad_step(cfg, dp=dp_axes(mesh))(params, batch), reps=1)
+    tp_bf16 = {n: st.gather() for n, st in params.items()}
+    # the same step again from the same state, bit for bit
+    p2, o2 = device_put(start, named(mesh, pspecs)), device_put(opt0, named(mesh, ospecs))
+    make_train_step(cfg, opt_cfg, dp=dp_axes(mesh))(p2, o2, batch)
+    tp_repeat_equal = all(torch.equal(p2[n].gather(), w) for n, w in tp_bf16.items())
+    del p2, o2
     single = model.requires_grad_(True)
     _, _, m1 = make_train_step(cfg, opt_cfg)(single, adamw_init(opt_cfg, dict(single.named_parameters())), batch)
-    loss_rel = abs(m["loss"].item() - m1["loss"].item()) / abs(m1["loss"].item())
+    loss_single = m1["loss"].item()
+    loss_rel = abs(m["loss"].item() - loss_single) / abs(loss_single)
     check(math.isfinite(m["loss"].item()) and loss_rel <= 1e-4, f"sharded vs single-rank loss: rel {loss_rel} <= 1e-4")
-    off = total = 0
-    worst = 0.0
-    for n, p in single.named_parameters():
-        got, want = params[n].gather().float(), p.detach().float()
-        top = torch.clamp(torch.maximum(got.abs(), want.abs()), min=2.0 ** -126)
-        step = torch.exp2(torch.floor(torch.log2(top)) - 7)
-        diff = (got - want).abs()
-        beyond = diff > step
-        worst = max(worst, (diff - step).max().item())
-        off += int(beyond.sum().item())
-        total += want.numel()
-        check(bool((diff[beyond] <= 2 * SHARDED_LR + step[beyond]).all()), f"{n}: an element moved by more than 2 lr")
-    check(off <= 0.01 * total, f"params beyond one bf16 step of the single-rank step's: {off} of {total} (<= 1%)")
+    one_bf16 = {n: p.detach().clone() for n, p in single.named_parameters()}
+    again = api.model_class(cfg)(cfg, torch.device("cuda"))
+    with torch.no_grad():
+        for n, q in again.named_parameters():
+            q.copy_(start[n])
+    again.requires_grad_(True)
+    make_train_step(cfg, opt_cfg)(again, adamw_init(opt_cfg, dict(again.named_parameters())), batch)
+    single_repeat_equal = all(torch.equal(q.detach(), one_bf16[n]) for n, q in again.named_parameters())
+    del again
 
     shardings = {"params": shardings_tree(cfg, meta, {n: st.sharding for n, st in params.items()}),
                  "opt": {**{k: shardings_tree(cfg, meta, {n: st.sharding for n, st in opt[k].items()})
@@ -1998,13 +2027,53 @@ def sharded_step(torch, base: Path) -> dict:
         for r, g in zip(rows, full):
             check(isinstance(r, ShardedTensor), f"{name} restored sharded")
             for slot, b in enumerate(r.blocks):
-                check(bytes_equal(torch, b, g[r.index(slot)]), f"{name}: position {slot}'s restored block")
-                blocks += 1
+                check((b is None) != r.sharding.holds(slot), f"{name}: position {slot} holds a block as its spec says")
+                if b is not None:
+                    check(bytes_equal(torch, b, g[r.index(slot)]), f"{name}: position {slot}'s restored block")
+                    blocks += 1
     check(step_read == 0, "restored step 0")
+    del loaded, single, model, params, opt, opt0, m1
+    release(torch)
+
+    # the same weights widened to fp32: the step's math without bf16's roundings
+    c32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    w32 = {n: w.float() for n, w in start.items()}
+    del start
+    p32, o32 = device_put(w32, named(mesh, pspecs)), device_put(adamw_init(opt_cfg, w32), named(mesh, ospecs))
+    make_train_step(c32, opt_cfg, dp=dp_axes(mesh))(p32, o32, batch)
+    del o32
+    single = api.model_class(c32)(c32, torch.device("cuda"))
+    with torch.no_grad():
+        for n, q in single.named_parameters():
+            q.copy_(w32[n])
+    del w32
+    single.requires_grad_(True)
+    make_train_step(c32, opt_cfg)(single, adamw_init(opt_cfg, dict(single.named_parameters())), batch)
+    one32 = dict(single.named_parameters())
+    off32, total, wild32 = beyond_a_step(torch, ((p32[n].gather(), p.detach()) for n, p in one32.items()), SHARDED_LR)
+    # bf16: the TP step against one rank's, and each against the fp32 step
+    # (one rank's own distance from it is the control)
+    off, _, wild = beyond_a_step(torch, ((tp_bf16[n], one_bf16[n]) for n in one_bf16), SHARDED_LR)
+    off_tp32, _, wild_tp32 = beyond_a_step(torch, ((tp_bf16[n], p.detach()) for n, p in one32.items()), SHARDED_LR)
+    off_one32, _, wild_one32 = beyond_a_step(torch, ((one_bf16[n], p.detach()) for n, p in one32.items()),
+                                             SHARDED_LR)
+    del single, one32, p32, tp_bf16, one_bf16
+    release(torch)
+    check(off32 <= 0.01 * total and wild32 == 0,
+          f"fp32 copy: params beyond one bf16 step of the single-rank step's: {off32} of {total} (<= 1%), "
+          f"{wild32} beyond 2 lr")
+    check(off <= SHARDED_BF16_SHARE * total and wild == 0,
+          f"bf16: params beyond one bf16 step of the single-rank step's: {off} of {total} "
+          f"(<= {SHARDED_BF16_SHARE}), {wild} beyond 2 lr")
+    check(off_tp32 <= SHARDED_BF16_CONTROL * off_one32 and wild_tp32 == 0 and wild_one32 == 0,
+          f"bf16 against the fp32 step: the sharded step's params beyond one bf16 step {off_tp32}, the single-rank "
+          f"step's {off_one32} (<= {SHARDED_BF16_CONTROL}x), {wild_tp32} / {wild_one32} beyond 2 lr")
     return dict(mesh=mesh.shape, batch=[B, S], grad_accum=cfg.grad_accum, loss=m["loss"].item(),
-                loss_single=m1["loss"].item(), loss_rel_err=loss_rel, params_beyond_one_bf16_step=off,
-                params_total=total, step_host_ms=step_ms, grad_step_alone_host_ms=grad_ms,
-                step_peak_mem_gb=step_peak_gb,
+                loss_single=loss_single, loss_rel_err=loss_rel, params_total=total,
+                params_beyond_one_bf16_step_fp32_copy=off32, params_beyond_one_bf16_step_bf16=off,
+                bf16_vs_fp32_step_beyond=dict(sharded=off_tp32, single=off_one32),
+                repeat_bit_equal=dict(sharded=tp_repeat_equal, single=single_repeat_equal),
+                step_host_ms=step_ms, grad_step_alone_host_ms=grad_ms, step_peak_mem_gb=step_peak_gb,
                 ckpt_byte_equal=ckpt_equal, ckpt_bytes=unsharded_bytes, restore_s=restore_s, restored_blocks=blocks,
                 resident_bytes_per_rank=resident, unsharded_state_bytes=unsharded_bytes)
 
@@ -2040,6 +2109,24 @@ def bf16_step(x: float) -> float:
 def rel_err(a, b) -> float:
     """max |a - b| over max |b|: a relative error at the tensor's scale."""
     return max_err(a, b) / b.float().abs().max().item()
+
+
+def beyond_a_step(torch, pairs, lr: float) -> tuple:
+    """Two steps' params, leaf by leaf over ``(got, want)`` pairs: (elements
+    more than one bf16 step apart at the larger magnitude, total, elements
+    more than 2 lr plus that step apart). AdamW's first step moves an
+    element by at most lr, so even a flipped sign stays within 2 lr."""
+    off = total = wild = 0
+    for got, want in pairs:
+        got, want = got.to("cuda").float(), want.to("cuda").float()
+        top = torch.clamp(torch.maximum(got.abs(), want.abs()), min=2.0 ** -126)
+        step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        diff = (got - want).abs()
+        beyond = diff > step
+        off += int(beyond.sum().item())
+        wild += int((diff[beyond] > 2 * lr + step[beyond]).sum().item())
+        total += want.numel()
+    return off, total, wild
 
 
 def release(torch) -> None:
@@ -2895,6 +2982,41 @@ class RankRoutes:
         self.torch.topk = self.orig
 
 
+class LogBytes:
+    """While open, tallies the bytes of the collective results that the
+    remat policy's logs keep alive for the recompute (``models.tp.remat``):
+    each layer's log, summed over the ranks and the microbatches. The
+    reference's ``"full"`` policy re-runs its collectives instead."""
+
+    def __init__(self):
+        self.total, self._lock = 0, threading.Lock()
+
+    def __enter__(self):
+        from repro_torch.core.collectives import CollectiveLog
+        from repro_torch.core.mesh import current_region
+        from repro_torch.models import tp
+
+        tally = self
+
+        class Tallied(CollectiveLog):
+            @contextlib.contextmanager
+            def scope(self):
+                recording = current_region() is not None
+                with super().scope():
+                    yield self
+                if recording:
+                    n = sum(r.numel() * r.element_size() for r in self.results)
+                    with tally._lock:
+                        tally.total += n
+
+        self.tp, self.orig = tp, tp.CollectiveLog
+        tp.CollectiveLog = Tallied
+        return self
+
+    def __exit__(self, *exc):
+        self.tp.CollectiveLog = self.orig
+
+
 def sz_microbatches(cfg, batch):
     return [{k: v[i * len(v) // cfg.grad_accum:(i + 1) * len(v) // cfg.grad_accum] for k, v in batch.items()}
             for i in range(cfg.grad_accum)]
@@ -2948,25 +3070,22 @@ def sz_state(torch, cfg, opt_cfg, mesh, weights: dict, batch):
     return params, opt
 
 
-def sz_opt_cfg(cfg):
+def sz_opt_cfg(cfg, master: bool = False):
     from repro_torch.optim.adamw import AdamWConfig
 
-    return AdamWConfig(lr=SZ_LR, warmup_steps=0, total_steps=10, master=False,
+    return AdamWConfig(lr=SZ_LR, warmup_steps=0, total_steps=10, master=master,
                        moments_dtype="bfloat16" if cfg.param_dtype == "bfloat16" else "float32")
 
 
-def sz_run(torch, cfg, weights: dict, batch, routes: RankRoutes | None = None) -> dict:
-    """The single-rank train step, its results kept on the host and its
-    state released, then the sharded step from the same weights: the
-    losses, metrics, host ms, peak memory and bytes per rank of each, the
-    sharded params (left on the card) and the single-rank params (host)."""
-    from repro_torch.core.mesh import make_mesh
+def sz_single(torch, cfg, weights: dict, batch, master: bool = False) -> dict:
+    """The single-rank train step (and, with MoE, its routing), its results
+    kept on the host and its state released: the loss, host ms, peak and
+    the updated params."""
     from repro_torch.launch.train import make_train_step
     from repro_torch.models import api
     from repro_torch.optim.adamw import adamw_init
-    from repro_torch.parallel.sharding import dp_axes
 
-    opt_cfg = sz_opt_cfg(cfg)
+    opt_cfg = sz_opt_cfg(cfg, master)
     out = {}
     model = api.model_class(cfg)(cfg, torch.device("cuda"))
     with torch.no_grad():
@@ -2986,47 +3105,94 @@ def sz_run(torch, cfg, weights: dict, batch, routes: RankRoutes | None = None) -
                single_params={n: p.detach().cpu() for n, p in model.named_parameters()})
     del model, state, m1
     release(torch)
+    return out
 
+
+def sz_collectives(by_axes: dict) -> dict:
+    """A step's collectives of mesh position 0 by kind and comm axes."""
+    return {f"{op}@{','.join(axes)}": n for (op, axes), n in sorted(by_axes.items())}
+
+
+def sz_predicted(cfg, pspecs: dict, counts_dispatch: bool) -> dict:
+    """The design's count of the step's collectives over ``model`` (and
+    ``moe_dispatch_sharding``'s over ``data``) at mesh position 0, per
+    microbatch from the loss and its transposes (``models.tp``: each
+    layer's attention and FFN outputs all-reduced, or under
+    ``seq_shard_acts`` reduce-scattered with their inputs and the trunk's
+    output all-gathered along S; the embedding's and the cross-entropy's
+    all-reduces; the cross-entropy's maxima gathered; two all-to-alls a MoE
+    layer under the dispatch hint, each with its transpose), plus the
+    update's all-reduce of each leaf replicated over ``model``."""
+    L, mb = cfg.n_layers, max(1, cfg.grad_accum)
+    seq = cfg.seq_shard_acts
+    per = ({"all-gather": 4 * L + 2, "reduce-scatter": 4 * L + 1, "all-reduce": 4} if seq
+           else {"all-gather": 1, "all-reduce": 4 * L + 4})
+    out = {f"{k}@model": mb * v for k, v in per.items()}
+    out["all-reduce@model"] += sum(1 for spec in pspecs.values() if "model" not in spec.axes)
+    if counts_dispatch:
+        out["all-to-all@data"] = mb * 4 * (L if cfg.moe.enabled else 0)
+    return out
+
+
+def sz_sharded(torch, cfg, weights: dict, batch, routes: RankRoutes | None = None, master: bool = False,
+               count: bool = False) -> dict:
+    """The sharded step from ``weights``: the loss, metrics, host ms, peak
+    memory, bytes per rank (params, and moments with master) and, with
+    ``count``, its collectives by kind and axes; the sharded params left
+    on the card."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.parallel.sharding import dp_axes
+
+    opt_cfg = sz_opt_cfg(cfg, master)
     mesh = make_mesh(*SZ_MESH)
     params, opt = sz_state(torch, cfg, opt_cfg, mesh, weights, batch)
     release(torch)
-    resident = [sum(st.resident_bytes(slot) for t in (params, opt["m"], opt["v"]) for st in t.values())
-                for slot in range(mesh.size)]
+    keys = [k for k in ("m", "v", "master") if k in opt]
+    resident = [sum(st.resident_bytes(slot) for st in params.values()) for slot in range(mesh.size)]
+    moments = [sum(st.resident_bytes(slot) for k in keys for st in opt[k].values()) for slot in range(mesh.size)]
+    # the moments' bytes a rank had their stacking-dim layers been held by every dp rank (PR 22-23's layout)
+    dropped = sum(next(b.numel() * b.element_size() for b in st.blocks if b is not None)
+                  for k in keys for st in opt[k].values())
+    step = make_train_step(cfg, opt_cfg, dp=dp_axes(mesh))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    if routes is None:
-        _, _, m = make_train_step(cfg, opt_cfg, dp=dp_axes(mesh))(params, opt, batch)
-    else:
-        with routes:
-            _, _, m = make_train_step(cfg, opt_cfg, dp=dp_axes(mesh))(params, opt, batch)
-    torch.cuda.synchronize()
-    out.update(opt=dict(moments_dtype=opt_cfg.moments_dtype, master=opt_cfg.master),
+    with contextlib.ExitStack() as stack:
+        if routes is not None:
+            stack.enter_context(routes)
+        coll = stack.enter_context(rl.count_collectives()) if count else None
+        logs = stack.enter_context(LogBytes())
+        _, _, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+    out = dict(opt=dict(moments_dtype=opt_cfg.moments_dtype, master=opt_cfg.master),
                loss=m["loss"].item(), step_host_ms=(time.perf_counter() - t0) * 1e3,
-               step_peak_gb=torch.cuda.max_memory_allocated() / 1e9, resident_bytes_per_rank=resident,
+               step_peak_gb=torch.cuda.max_memory_allocated() / 1e9, param_bytes_per_rank=resident,
+               moment_bytes_per_rank=moments, moment_bytes_per_rank_if_every_dp_rank_held_every_layer=dropped,
+               remat_log_bytes_per_microbatch=logs.total // max(1, cfg.grad_accum),
                metrics={k: (v.tolist() if v.dim() else v.item()) for k, v in m.items()
                         if k in ("xent", "aux", "mtp", "moe_dropped")},
                params=params, mesh=mesh)
-    out["loss_rel_err"] = abs(out["loss"] - out["single_loss"]) / abs(out["single_loss"])
+    if coll is not None:
+        out["collectives"] = sz_collectives(coll.by_axes.get(0, {}))
     del opt
+    return out
+
+
+def sz_run(torch, cfg, weights: dict, batch, routes: RankRoutes | None = None, master: bool = False) -> dict:
+    """The single-rank step, then the sharded step from the same weights
+    (:func:`sz_single`, :func:`sz_sharded`), and the losses' gap."""
+    out = sz_single(torch, cfg, weights, batch, master)
+    out.update(sz_sharded(torch, cfg, weights, batch, routes, master))
+    out["loss_rel_err"] = abs(out["loss"] - out["single_loss"]) / abs(out["single_loss"])
     return out
 
 
 def sz_params_beyond_a_step(torch, sharded: dict, single: dict) -> tuple:
     """The sharded step's params against the single-rank step's, as the
-    pipeline phase's (c) holds them: (elements beyond one bf16 step, total,
-    elements beyond 2 lr plus a step)."""
-    off = total = wild = 0
-    for n, want in single.items():
-        got, want = sharded[n].gather().float(), want.to("cuda").float()
-        top = torch.clamp(torch.maximum(got.abs(), want.abs()), min=2.0 ** -126)
-        step = torch.exp2(torch.floor(torch.log2(top)) - 7)
-        diff = (got - want).abs()
-        beyond = diff > step
-        off += int(beyond.sum().item())
-        wild += int((diff[beyond] > 2 * SZ_LR + step[beyond]).sum().item())
-        total += want.numel()
-    return off, total, wild
+    pipeline phase's (c) holds them (:func:`beyond_a_step`)."""
+    return beyond_a_step(torch, ((sharded[n].gather(), w) for n, w in single.items()), SZ_LR)
 
 
 def sz_batch(torch, cfg, shape, seed: int) -> dict:
@@ -3057,23 +3223,39 @@ def sz_weights(torch, cfg, seed: int = 0) -> dict:
 
 def sz_granite(torch, smi: str) -> tuple:
     """(a) granite-moe-1b-a400m at its published width, depth and training
-    settings (bf16, grad_accum 4, remat full, capacity factor 1.25): the
-    sharded step against the single-rank step, its choice flips and drops;
-    the trained model's prefill with flash; then the exact check on an fp32
-    copy of the same weights cut to SZ_GRANITE_FP32_LAYERS layers."""
+    settings (bf16, grad_accum 4, remat full, capacity factor 1.25), AdamW
+    with its fp32 master: the tensor-parallel sharded step against the
+    single-rank step, its choice flips and drops, its peak beside the
+    reckoning and its moments' bytes a rank beside the layout that held
+    every layer's moments on every dp rank; the trained model's prefill
+    with flash; then (a') the exact check on an fp32 copy of the same
+    weights cut to SZ_GRANITE_FP32_LAYERS layers, run hint-free and under
+    each layout hint, with one step's collectives by kind and axes beside
+    the design's count."""
     from repro_torch.configs import get_config
+    from repro_torch.core.mesh import make_mesh
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import api
     from repro_torch.models.transformer import TransformerLM
+    from repro_torch.parallel.sharding import param_specs
 
     cfg = get_config("granite-moe-1b-a400m")
     weights = sz_weights(torch, cfg)
     n_params = sum(w.numel() for w in weights.values())
     batch = sz_batch(torch, cfg, SZ_GRANITE_BATCH, 11)
     routes = RankRoutes(torch)
-    bf = sz_run(torch, cfg, weights, batch, routes)
+    bf = sz_run(torch, cfg, weights, batch, routes, master=True)
     sr = bf.pop("single_routing")
     flips = sz_flips(sr["calls"], routes, bf["mesh"], cfg.n_layers)
+    bf_off, bf_total, _ = sz_params_beyond_a_step(torch, bf["params"], bf.pop("single_params"))
+    gb = 1e9
+    reckoning = dict(pr23_peak_gb=SZ_GRANITE_PEAK_GB_PR23, moments_saved_gb=12 * n_params / gb,
+                     master_added_gb=4 * n_params / gb,
+                     expected_peak_gb=SZ_GRANITE_PEAK_GB_PR23 - 12 * n_params / gb + 4 * n_params / gb)
+    # bf16: the loss only; the params' gap is printed, not held (a random
+    # router's bf16 choices flip and the flips cascade, PERF.md §6, so half
+    # the choice sets differ and the first AdamW step's signs with them);
+    # the params are held on the fp32 copy below
     checks = [(math.isfinite(bf["loss"]) and bf["loss_rel_err"] <= 5e-2,
                f"granite bf16: sharded vs single-rank loss rel {bf['loss_rel_err']} <= 5e-2")]
 
@@ -3082,7 +3264,7 @@ def sz_granite(torch, smi: str) -> tuple:
     with torch.no_grad():
         for n, p in trained.named_parameters():
             p.copy_(bf["params"][n].gather())
-    for k in ("params", "single_params", "mesh"):
+    for k in ("params", "mesh"):
         bf.pop(k)
     release(torch)
     fcfg = cfg.replace(attn_impl="flash")
@@ -3099,43 +3281,69 @@ def sz_granite(torch, smi: str) -> tuple:
     del trained, logits
     release(torch)
 
-    # the exact check: an fp32 copy of the same weights, cut in depth
+    # (a') the exact check: an fp32 copy of the same weights, cut in depth,
+    # hint-free and under each layout hint
     c32 = cfg.replace(n_layers=SZ_GRANITE_FP32_LAYERS, param_dtype="float32", compute_dtype="float32")
     keep = {n for n, _ in api.abstract_params(c32).named_parameters()}
     w32 = {n: w.float() for n, w in weights.items() if n in keep}
     del weights
-    f32 = sz_run(torch, c32, w32, batch)
-    sr32 = f32.pop("single_routing")
-    off, total, wild = sz_params_beyond_a_step(torch, f32.pop("params"), f32.pop("single_params"))
-    f32.pop("mesh")
-    release(torch)
-    drops = f32["metrics"]["moe_dropped"]
-    aux_err = abs(f32["metrics"]["aux"] - sr32["aux"])
-    checks += [(math.isfinite(f32["loss"]) and f32["loss_rel_err"] <= 1e-4,
-                f"granite fp32: sharded vs single-rank loss rel {f32['loss_rel_err']} <= 1e-4"),
-               ([int(d) for d in drops] == sr32["dropped"] and sum(sr32["dropped"]) > 0,
-                f"granite fp32: dropped choices per layer {drops} == single-rank {sr32['dropped']}, > 0"),
-               (aux_err <= 1e-6, f"granite fp32: aux {f32['metrics']['aux']} vs {sr32['aux']}: {aux_err} <= 1e-6"),
-               (off <= 0.01 * total and wild == 0,
+    single = sz_single(torch, c32, w32, batch)
+    sr32 = single.pop("single_routing")
+    pspecs = param_specs(c32, api.abstract_params(c32), make_mesh(*SZ_MESH))
+    runs = {}
+    for hint in ("none", "seq_shard_acts", "moe_dispatch_sharding"):
+        c = c32 if hint == "none" else c32.replace(**{hint: True})
+        r = sz_sharded(torch, c, w32, batch, count=True)
+        if hint == "none":
+            off, total, wild = sz_params_beyond_a_step(torch, r["params"], single["single_params"])
+        r.pop("params")
+        r.pop("mesh")
+        release(torch)
+        r["loss_rel_err"] = abs(r["loss"] - single["single_loss"]) / abs(single["single_loss"])
+        r["predicted_collectives"] = sz_predicted(c, pspecs, hint == "moe_dispatch_sharding")
+        runs[hint] = r
+    single.pop("single_params")
+    base = runs["none"]["loss"]
+    for hint, r in runs.items():
+        drops = r["metrics"]["moe_dropped"]
+        aux_err = abs(r["metrics"]["aux"] - sr32["aux"])
+        checks += [(math.isfinite(r["loss"]) and r["loss_rel_err"] <= 1e-4,
+                    f"granite fp32 {hint}: sharded vs single-rank loss rel {r['loss_rel_err']} <= 1e-4"),
+                   ([int(d) for d in drops] == sr32["dropped"] and sum(sr32["dropped"]) > 0,
+                    f"granite fp32 {hint}: dropped choices per layer {drops} == single-rank {sr32['dropped']}, > 0"),
+                   (aux_err <= 1e-6,
+                    f"granite fp32 {hint}: aux {r['metrics']['aux']} vs {sr32['aux']}: {aux_err} <= 1e-6"),
+                   (all(r["collectives"].get(k, 0) == v for k, v in r["predicted_collectives"].items()),
+                    f"granite fp32 {hint}: collectives {r['collectives']} hold the design's "
+                    f"{r['predicted_collectives']}")]
+        if hint != "none":
+            rel = abs(r["loss"] - base) / abs(base)
+            r["loss_rel_to_hint_free"] = rel
+            checks.append((rel <= 1e-6, f"granite fp32 {hint}: loss rel {rel} to the hint-free TP step <= 1e-6"))
+    checks += [(off <= 0.01 * total and wild == 0,
                 f"granite fp32: params beyond one bf16 step {off} of {total} (<= 1%), {wild} beyond 2 lr")]
     out = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params, batch=list(SZ_GRANITE_BATCH),
-               grad_accum=cfg.grad_accum, remat=cfg.remat, capacity_factor=cfg.moe.capacity_factor, bf16=bf,
-               bf16_flips_per_layer=flips, bf16_flips=sum(flips),
+               grad_accum=cfg.grad_accum, remat=cfg.remat, capacity_factor=cfg.moe.capacity_factor, route="tp",
+               bf16=dict(bf, params_beyond_one_bf16_step=bf_off, params_total=bf_total,
+                         gathered_route_step_host_ms_pr23=SZ_GATHERED_MS_PR23["granite"]),
+               reckoning=reckoning, bf16_flips_per_layer=flips, bf16_flips=sum(flips),
                bf16_choices=sum(c.numel() for c in sr["calls"]) // cfg.moe.top_k,
                bf16_single_dropped=sr["dropped"], bf16_single_aux=sr["aux"],
                prefill=dict(S=SZ_PREFILL_S, flash_launches=launches, layer_attn_rels=rels),
-               fp32=dict(f32, n_layers=c32.n_layers, single_dropped=sr32["dropped"], single_aux=sr32["aux"],
-                         aux_abs_err=aux_err, params_beyond_one_bf16_step=off, params_total=total),
+               fp32=dict(single, n_layers=c32.n_layers, single_dropped=sr32["dropped"], single_aux=sr32["aux"],
+                         runs=runs, params_beyond_one_bf16_step=off, params_total=total),
                reduced=dict(fp32_n_layers=f"24 -> {c32.n_layers}"), nvidia_smi=smi)
     return out, checks, launches
 
 
 def sz_other(torch, name: str, cfg, shape, seed: int, smi: str) -> tuple:
-    """(b) one more family: the sharded step against the single-rank step
-    (loss 1e-4), with the K2 and K3 launches of the run (none: training
-    takes the einsum and per-token routes)."""
+    """(b) one more family: the sharded step (tensor-parallel, or for
+    Whisper the gathered route) against the single-rank step (loss 1e-4),
+    with the K2 and K3 launches of the run (none: training takes the einsum
+    and per-token routes)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv6_scan as wk
+    from repro_torch.models import api
 
     weights = sz_weights(torch, cfg, seed)
     batch = sz_batch(torch, cfg, shape, seed)
@@ -3146,8 +3354,10 @@ def sz_other(torch, name: str, cfg, shape, seed: int, smi: str) -> tuple:
         r.pop(k)
     release(torch)
     out = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, params=sum(w.numel() for w in weights.values()),
-               batch=list(shape), grad_accum=cfg.grad_accum, remat=cfg.remat, attn_impl=cfg.attn_impl, **r,
-               flash_launches=k2, wkv6_launches=k3, nvidia_smi=smi)
+               batch=list(shape), grad_accum=cfg.grad_accum, remat=cfg.remat, attn_impl=cfg.attn_impl,
+               route="gathered" if api.gathered(cfg) else "tp", **r,
+               gathered_route_step_host_ms_pr23=SZ_GATHERED_MS_PR23[name], flash_launches=k2, wkv6_launches=k3,
+               nvidia_smi=smi)
     checks = [(math.isfinite(r["loss"]) and r["loss_rel_err"] <= 1e-4,
                f"{name}: sharded vs single-rank loss rel {r['loss_rel_err']} <= 1e-4"),
               (k2 == 0 and k3 == 0, f"{name}: no K2 or K3 launch under autograd: {k2}, {k3}")]
@@ -3155,12 +3365,13 @@ def sz_other(torch, name: str, cfg, shape, seed: int, smi: str) -> tuple:
 
 
 def phase_sharded_zoo(torch, smi: str) -> dict:
-    """The sharded step for every family the card can hold twice: (a)
-    granite-moe-1b-a400m whole (its fp32 copy cut in depth), (b)
-    phi-3-vision, rwkv6-7b (cut in depth) and whisper-tiny. deepseek-v3
-    and jamba stay on the CPU tests (their smallest slice at published
-    width does not fit two training states). Each part's line is printed
-    before its checks are applied."""
+    """The tensor-parallel sharded step for every family the card can hold
+    twice: (a) granite-moe-1b-a400m whole with its fp32 master (its fp32
+    copy cut in depth, hint-free and under each layout hint), (b)
+    phi-3-vision, rwkv6-7b (cut in depth) and whisper-tiny (its loss
+    gathered). deepseek-v3 and jamba stay on the CPU tests (their smallest
+    slice at published width does not fit two training states). Each
+    part's line is printed before its checks are applied."""
     from repro_torch.configs import get_config
 
     t0 = time.perf_counter()

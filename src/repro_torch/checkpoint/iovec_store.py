@@ -43,6 +43,7 @@ from repro_torch.core import datatype as dt
 
 __all__ = [
     "StackedLeaf",
+    "RowShardings",
     "save_pytree",
     "load_pytree",
     "leaf_names",
@@ -84,6 +85,15 @@ class StackedLeaf:
             row = (slice(l, l + 1),)
             out += [(row + idx, b) for idx, b in _shards(r)]
         return out
+
+
+class RowShardings:
+    """The ``shardings=`` leaf of a :class:`StackedLeaf` whose rows are laid
+    out apart: ``rows[l]`` is row ``l``'s sharding (ZeRO-1's moments of one
+    layer each, held by one dp rank: ``core.mesh.StackRow``)."""
+
+    def __init__(self, rows):
+        self.rows = list(rows)
 
 
 def dtype_name(dtype) -> str:
@@ -262,7 +272,7 @@ def _load_sharded(path: str, meta: dict, sharding, row: Optional[int]):
     """A :class:`~repro_torch.core.mesh.ShardedTensor` of the file's leaf
     (or of its row ``row``) under ``sharding``: each distinct block read
     once through its ``shard_subarray``, then copied to every position that
-    holds it."""
+    holds it (``sharding.holds``)."""
     from repro_torch.core.mesh import ShardedTensor
 
     storage = _storage(meta["dtype"])
@@ -274,6 +284,9 @@ def _load_sharded(path: str, meta: dict, sharding, row: Optional[int]):
     fd = os.open(path, os.O_RDONLY)
     try:
         for slot in range(mesh.size):
+            if not sharding.holds(slot):
+                blocks.append(None)
+                continue
             idx = sharding.index(slot, shape)
             key = tuple((s.start, s.stop) for s in idx)
             if key not in read:
@@ -324,7 +337,8 @@ def load_pytree(ckpt_dir: str, template, shardings=None):
         if flat_shardings is not None:
             sh = flat_shardings[name]
             if isinstance(leaf, StackedLeaf):
-                out[name] = StackedLeaf([_load_sharded(path, meta, sh, l) for l in range(leaf.shape[0])])
+                rows = sh.rows if isinstance(sh, RowShardings) else [sh] * leaf.shape[0]
+                out[name] = StackedLeaf([_load_sharded(path, meta, r, l) for l, r in enumerate(rows)])
             else:
                 out[name] = _load_sharded(path, meta, sh, None)
             continue

@@ -42,13 +42,24 @@ raises when a backward reaches it inside a region.
 
 Every op passes through :func:`_issue`, which tells the callbacks in
 :data:`observers` (``launch.roofline.count_collectives``) of it: the op's
-XLA name, the issuing rank's mesh position and its operand's bytes; the
+XLA name, the issuing rank's mesh position, its operand's bytes and the
+comm's mesh axes; the
 transpose that autograd runs for it in the caller's backward is told as
 well, when the cotangent reaches the result.
+
+**Recomputation.** A layer that ``torch.utils.checkpoint`` recomputes runs
+again in the caller's backward, outside the region, where no op may be
+issued. Its forward runs under :meth:`CollectiveLog.scope` and keeps
+every result it gets; the recompute runs under the same scope and reads
+them back in order instead of issuing. Non-reentrant checkpointing keeps
+the forward's graph, so the cotangents still cross the ranks through the
+forward's ops: the recompute only has to reproduce the saved values.
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -60,6 +71,7 @@ __all__ = [
     "all_reduce",
     "all_gather",
     "reduce_scatter",
+    "reduce",
     "all_to_all",
     "ppermute",
     "broadcast",
@@ -67,36 +79,38 @@ __all__ = [
     "multi_stream_all_reduce",
     "multi_stream_all_gather",
     "stream_send_recv",
+    "CollectiveLog",
 ]
 
 #: a dependency token: a CUDA event, a tuple of them, or None on the CPU
 Token = object
 
-#: callbacks ``fn(op, slot, nbytes)`` told of every collective issued (its
-#: XLA name, the issuing rank's mesh position, the operand's bytes) and of
-#: the transpose autograd runs for it; they must be thread-safe
-observers: List[Callable[[str, int, int], None]] = []
+#: callbacks ``fn(op, slot, nbytes, axes)`` told of every collective issued
+#: (its XLA name, the issuing rank's mesh position, the operand's bytes, the
+#: comm's axes) and of the transpose autograd runs for it; they must be
+#: thread-safe
+observers: List[Callable[[str, int, int, Tuple[str, ...]], None]] = []
 
 #: the op autograd runs for each op's backward (the reference's transposes)
 _TRANSPOSE = {"all-reduce": "all-reduce", "all-gather": "reduce-scatter", "reduce-scatter": "all-gather",
               "all-to-all": "all-to-all", "collective-permute": "collective-permute",
-              "collective-broadcast": "all-reduce"}
+              "collective-broadcast": "all-reduce", "reduce": "collective-broadcast"}
 
 
 def _nbytes(x) -> int:
     return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else 0
 
 
-def _observe(op: str, slot: int, x, y) -> None:
+def _observe(op: str, slot: int, x, y, axes: Tuple[str, ...]) -> None:
     """Tell the observers of an op and, once its cotangent arrives, of its
     transpose (whose operand is the cotangent of ``y``)."""
     watching = tuple(observers)
     for fn in watching:
-        fn(op, slot, _nbytes(x))
+        fn(op, slot, _nbytes(x), axes)
     if watching and isinstance(y, torch.Tensor) and y.requires_grad:
         def transpose(grad):
             for fn in watching:
-                fn(_TRANSPOSE[op], slot, _nbytes(grad))
+                fn(_TRANSPOSE[op], slot, _nbytes(grad), axes)
             return grad
 
         y.register_hook(transpose)
@@ -114,7 +128,7 @@ def _issue(comm: StreamComm, x, token, compute: Callable[[List[torch.Tensor], in
     if not isinstance(x, torch.Tensor) or not x.is_cuda:
         vals, me = region.exchange(comm.axes, (x, None))
         y = compute([v for v, _ in vals], me)
-        _observe(op, region.slot, x, y)
+        _observe(op, region.slot, x, y, tuple(comm.axes))
         return y, None, None
     cur = torch.cuda.current_stream(x.device)
     side = comm.stream.torch_stream(x.device) or cur
@@ -134,7 +148,7 @@ def _issue(comm: StreamComm, x, token, compute: Callable[[List[torch.Tensor], in
         y = compute([v for v, _ in vals], me)
         done = torch.cuda.Event()
         done.record(side)
-    _observe(op, region.slot, x, y)
+    _observe(op, region.slot, x, y, tuple(comm.axes))
     return y, done, side
 
 
@@ -160,8 +174,46 @@ def _join(y, done, side, token):
     return y, (done if token is not None else None)
 
 
+_logs = threading.local()
+
+
+class CollectiveLog:
+    """One rank's collective results inside one recomputed unit (the module
+    docstring): inside a region :meth:`scope` records each result; outside
+    one it replays them, in issue order, as leaves of the forward's
+    ``requires_grad`` (autograd saves the same tensors for them)."""
+
+    def __init__(self):
+        self.results: List[torch.Tensor] = []
+        self._next: Optional[int] = None
+
+    @contextmanager
+    def scope(self):
+        replay = _mesh.current_region() is None
+        outer, _logs.log = getattr(_logs, "log", None), self
+        self._next = 0 if replay else None
+        try:
+            yield self
+        finally:
+            _logs.log, self._next = outer, None
+
+    def take(self) -> torch.Tensor:
+        if self._next >= len(self.results):
+            raise RuntimeError(f"the recompute issues collective {self._next + 1}; its forward issued "
+                               f"{len(self.results)}")
+        y = self.results[self._next]
+        self._next += 1
+        return y.detach().requires_grad_(y.requires_grad)
+
+
 def _collective(comm, x, token, compute, op: str):
-    return _join(*_issue(comm, x, token, compute, op), token)
+    log = getattr(_logs, "log", None)
+    if log is not None and log._next is not None:
+        return log.take(), None
+    y, token = _join(*_issue(comm, x, token, compute, op), token)
+    if log is not None:
+        log.results.append(y)
+    return y, token
 
 
 def _fold_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -201,6 +253,14 @@ def reduce_scatter(x, comm: StreamComm, axis: int = 0, token: Optional[Token] = 
     return _collective(
         comm, x, token, lambda vals, me: _fold_sum([_chunk(v, axis, me, len(vals)) for v in vals]), "reduce-scatter"
     )
+
+
+def reduce(x, comm: StreamComm, root: int = 0, token: Optional[Token] = None):
+    """The sum over the comm's ranks, on ``root`` only; the other ranks get
+    an empty tensor (a layer of ZeRO-1's stacking-dim moments: its grad
+    summed on the dp rank that owns it)."""
+    return _collective(comm, x, token,
+                       lambda vals, me: _fold_sum(vals) if me == root else vals[me].new_empty((0,)), "reduce")
 
 
 def all_to_all(x, comm: StreamComm, split_axis: int, concat_axis: int, token: Optional[Token] = None):

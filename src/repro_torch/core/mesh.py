@@ -33,6 +33,7 @@ need not.
 
 from __future__ import annotations
 
+import functools
 import math
 import threading
 import time
@@ -47,6 +48,7 @@ __all__ = [
     "Mesh",
     "make_mesh",
     "P",
+    "StackRow",
     "NamedSharding",
     "ShardedTensor",
     "device_put",
@@ -66,9 +68,20 @@ RENDEZVOUS_TIMEOUT_S = 10.0
 class Mesh:
     """Named axes over a grid of positions, row-major (the last axis
     fastest), one device per position. ``shape`` maps axis name → size in
-    axis order, as ``jax.sharding.Mesh.shape`` does."""
+    axis order, as ``jax.sharding.Mesh.shape`` does.
 
-    def __init__(self, axis_names: Sequence[str], shape: Sequence[int], devices: Sequence):
+    ``fold`` (a meta mesh's, empty by default) names axes whose positions
+    do the same work on blocks of the same shapes, as the data-parallel
+    ranks of a sharded step do: a region runs only the positions at
+    coordinate 0 on every folded axis, and a position off it is mirrored by
+    the one it folds onto (the same coordinates, 0 on the folded axes),
+    in every exchange and output. On meta tensors only shapes matter, so a
+    rank's ops and collectives are the ones it would issue unfolded
+    (``launch.dryrun``'s train cells, held against an unfolded mesh by
+    ``tests/test_torch_dryrun.py``)."""
+
+    def __init__(self, axis_names: Sequence[str], shape: Sequence[int], devices: Sequence,
+                 fold: Sequence[str] = ()):
         axis_names, shape = tuple(axis_names), tuple(int(s) for s in shape)
         if len(axis_names) != len(shape) or len(set(axis_names)) != len(axis_names):
             raise ValueError(f"mesh axes {axis_names} do not match shape {shape}")
@@ -77,15 +90,29 @@ class Mesh:
         devices = tuple(_indexed(torch.device(d)) for d in devices)
         if len(devices) != math.prod(shape):
             raise ValueError(f"{len(devices)} devices for {math.prod(shape)} mesh positions")
+        fold = tuple(fold)
+        if not set(fold) <= set(axis_names):
+            raise ValueError(f"mesh folds {fold}, not all of them axes of {axis_names}")
+        if fold and any(d.type != "meta" for d in devices):
+            raise ValueError(f"mesh folds {fold}: only a meta mesh may (its ranks do no device work)")
         self.axis_names = axis_names
         self.shape: Dict[str, int] = dict(zip(axis_names, shape))
         self.devices = devices
+        self.fold = fold
         self._streams: Dict[int, torch.cuda.Stream] = {}
         self._lock = threading.Lock()
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    def mirror(self, slot: int) -> int:
+        """The position ``slot`` folds onto: its coordinates with 0 on every
+        folded axis (``slot`` itself on an unfolded mesh)."""
+        out = 0
+        for name, c in self.coords(slot).items():
+            out = out * self.shape[name] + (0 if name in self.fold else c)
+        return out
 
     def coords(self, slot: int) -> Dict[str, int]:
         """Axis name → coordinate of position ``slot`` (row-major)."""
@@ -118,11 +145,12 @@ def _indexed(dev: torch.device) -> torch.device:
     return dev
 
 
-def make_mesh(shape: Sequence[int], names: Sequence[str], device="cuda") -> Mesh:
+def make_mesh(shape: Sequence[int], names: Sequence[str], device="cuda", fold: Sequence[str] = ()) -> Mesh:
     """``jax.make_mesh``: a mesh of ``shape`` named ``names``, every position
-    on ``device`` (the card unless the caller asks for the CPU)."""
+    on ``device`` (the card unless the caller asks for the CPU); ``fold``
+    as :class:`Mesh`'s (meta only)."""
     dev = resolve_device(device)
-    return Mesh(names, shape, [dev] * math.prod(shape))
+    return Mesh(names, shape, [dev] * math.prod(shape), fold)
 
 
 class P(tuple):
@@ -161,16 +189,65 @@ class P(tuple):
         return f"P{tuple(self)}"
 
 
+class StackRow(P):
+    """The spec of row ``row`` of a stacked array of ``rows`` rows whose
+    stacking dim the reference splits over ``stack`` (a tuple of axes): the
+    row's own dims laid out by the entries (``P``'s), the row held only by
+    the positions whose block of the stacking dim holds it — the ZeRO-1
+    moments of one layer where the reference puts the dp axes on the
+    layer-stacking dim, each layer's on ``rows / n`` of the ``n`` dp ranks'
+    blocks. The other positions hold no block (:class:`ShardedTensor`)."""
+
+    def __new__(cls, entries: P, stack: Tuple[str, ...], row: int, rows: int):
+        self = super().__new__(cls, *entries)
+        if set(stack) & set(self.axes):
+            raise ValueError(f"StackRow: the stacking axes {stack} also shard a row dim of {tuple(entries)}")
+        self.stack, self.row, self.rows = tuple(stack), int(row), int(rows)
+        return self
+
+    def holder(self, mesh: "Mesh") -> int:
+        """The index over ``stack`` (flattened, major → minor) of the
+        positions that hold the row."""
+        n = math.prod(mesh.shape[a] for a in self.stack)
+        if self.rows % n:
+            raise ValueError(f"{self.rows} rows do not split into {n} blocks over {self.stack}")
+        return self.row // (self.rows // n)
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, StackRow) and tuple(self) == tuple(other)
+                and (self.stack, self.row, self.rows) == (other.stack, other.row, other.rows))
+
+    def __ne__(self, other) -> bool:
+        return not self == other
+
+    def __hash__(self) -> int:
+        return hash((tuple(self), self.stack, self.row, self.rows))
+
+    def __repr__(self) -> str:
+        return f"StackRow{tuple(self)}(row {self.row} of {self.rows} over {self.stack})"
+
+
 class NamedSharding:
     """``jax.sharding.NamedSharding``: ``spec`` laid over ``mesh``."""
 
     def __init__(self, mesh: "Mesh", spec: P):
         if not isinstance(spec, P):
             raise TypeError(f"NamedSharding takes a P, got {spec!r}")
-        for a in spec.axes:
+        for a in spec.axes + getattr(spec, "stack", ()):
             if a not in mesh.shape:
                 raise ValueError(f"{spec}: axis {a!r} not in mesh {mesh.shape}")
         self.mesh, self.spec = mesh, spec
+        self._holder = spec.holder(mesh) if isinstance(spec, StackRow) else None
+
+    def holds(self, slot: int) -> bool:
+        """Whether position ``slot`` holds a block (every position does but
+        under a :class:`StackRow` spec)."""
+        if self._holder is None:
+            return True
+        coords, index = self.mesh.coords(slot), 0
+        for a in self.spec.stack:
+            index = index * self.mesh.shape[a] + coords[a]
+        return index == self._holder
 
     def index(self, slot: int, shape: Sequence[int]) -> Tuple[slice, ...]:
         """Position ``slot``'s block of a global array of ``shape``, one
@@ -205,9 +282,11 @@ def _assemble(sharding: NamedSharding, shape, blocks, device=None) -> torch.Tens
     ``device`` (position 0's by default); autograd tracks the copies."""
     mesh = sharding.mesh
     device = mesh.devices[0] if device is None else device
-    out = torch.empty(tuple(shape), dtype=blocks[0].dtype, device=device)
+    out = torch.empty(tuple(shape), dtype=next(b for b in blocks if b is not None).dtype, device=device)
     seen = set()
     for slot, b in enumerate(blocks):
+        if b is None:
+            continue
         idx = sharding.index(slot, shape)
         if _index_key(idx) not in seen:
             seen.add(_index_key(idx))
@@ -218,7 +297,9 @@ def _assemble(sharding: NamedSharding, shape, blocks, device=None) -> torch.Tens
 class ShardedTensor:
     """A global tensor of ``shape`` held as its blocks under ``sharding``:
     ``blocks[slot]`` is mesh position ``slot``'s block, on its device. Each
-    position holds a tensor of its own, replicas included, as devices do."""
+    position holds a tensor of its own, replicas included, as devices do;
+    a position that does not hold the tensor (``sharding.holds``: a
+    :class:`StackRow` spec) has ``None``."""
 
     def __init__(self, shape: Sequence[int], sharding: NamedSharding, blocks: Sequence[torch.Tensor]):
         self.shape = tuple(int(n) for n in shape)
@@ -226,14 +307,19 @@ class ShardedTensor:
         self.blocks = list(blocks)
         if len(self.blocks) != sharding.mesh.size:
             raise ValueError(f"{len(self.blocks)} blocks for {sharding.mesh.size} mesh positions")
+        first = next((b for b in self.blocks if b is not None), None)
         for slot, b in enumerate(self.blocks):
+            if (b is None) == sharding.holds(slot):
+                raise ValueError(f"block {slot}: {'missing' if b is None else 'held where the spec holds none'}")
+            if b is None:
+                continue
             want = tuple(s.stop - s.start for s in self.index(slot))
-            if tuple(b.shape) != want or b.dtype != self.blocks[0].dtype:
-                raise ValueError(f"block {slot}: {tuple(b.shape)}/{b.dtype}, expected {want}/{self.blocks[0].dtype}")
+            if tuple(b.shape) != want or b.dtype != first.dtype:
+                raise ValueError(f"block {slot}: {tuple(b.shape)}/{b.dtype}, expected {want}/{first.dtype}")
 
     @property
     def dtype(self):
-        return self.blocks[0].dtype
+        return next(b for b in self.blocks if b is not None).dtype
 
     @property
     def mesh(self) -> "Mesh":
@@ -247,6 +333,8 @@ class ShardedTensor:
         position that holds it: every element exactly once."""
         seen, out = set(), []
         for slot, b in enumerate(self.blocks):
+            if b is None:
+                continue
             idx = self.index(slot)
             if _index_key(idx) not in seen:
                 seen.add(_index_key(idx))
@@ -259,17 +347,18 @@ class ShardedTensor:
         done = {}
         for slot in range(len(self.blocks)):
             key = _index_key(self.index(slot))
-            if key not in done:
+            if key not in done and self.blocks[slot] is not None:
                 done[key] = fn(self.blocks[slot])
-        return ShardedTensor(self.shape, self.sharding, [done[_index_key(self.index(s))] for s in range(len(self.blocks))])
+        return ShardedTensor(self.shape, self.sharding, [done[_index_key(self.index(s))] if b is not None else None
+                                                         for s, b in enumerate(self.blocks)])
 
     def gather(self, device=None) -> torch.Tensor:
         """The global tensor, assembled on ``device`` (position 0's by default)."""
-        return _assemble(self.sharding, self.shape, [b.detach() for b in self.blocks], device)
+        return _assemble(self.sharding, self.shape, [None if b is None else b.detach() for b in self.blocks], device)
 
     def resident_bytes(self, slot: int) -> int:
         b = self.blocks[slot]
-        return b.numel() * b.element_size()
+        return 0 if b is None else b.numel() * b.element_size()
 
     def __repr__(self) -> str:
         return f"ShardedTensor({self.shape}, {self.dtype}, {self.sharding})"
@@ -289,7 +378,8 @@ def device_put(tree, shardings):
         raise TypeError(f"device_put: {shardings!r} is not a NamedSharding")
     x = torch.as_tensor(tree).detach()
     mesh = shardings.mesh
-    blocks = [x[shardings.index(slot, x.shape)].to(mesh.devices[slot]).clone() for slot in range(mesh.size)]
+    blocks = [x[shardings.index(slot, x.shape)].to(mesh.devices[slot]).clone() if shardings.holds(slot) else None
+              for slot in range(mesh.size)]
     return ShardedTensor(x.shape, shardings, blocks)
 
 
@@ -418,11 +508,28 @@ class _Region:
     def exchange(self, axes: Sequence[str], value) -> Tuple[list, int]:
         """Post ``value`` to this rank's group over ``axes`` and return every
         member's value (group order) and this rank's index. The n-th
-        exchange of a rank over ``axes`` meets the n-th of its peers."""
+        exchange of a rank over ``axes`` meets the n-th of its peers. On a
+        folded mesh only the members at 0 on the folded axes post; each
+        other member's value is its mirror's (:class:`Mesh`)."""
         key, index, size = self.group(axes)
         seq = self._seq.get(key[0], 0)
         self._seq[key[0]] = seq + 1
-        return self.rendezvous.exchange(key + (seq,), index, size, value), index
+        folded = [a for a in key[0] if a in self.mesh.fold]
+        if not folded:
+            return self.rendezvous.exchange(key + (seq,), index, size, value), index
+        kept = [a for a in key[0] if a not in self.mesh.fold]
+        sizes = [self.mesh.shape[a] for a in key[0]]
+        flat = lambda cs: functools.reduce(lambda acc, ac: acc * self.mesh.shape[ac[0]] + ac[1], cs, 0)  # noqa: E731
+        posted = self.rendezvous.exchange(key + (seq,), flat([(a, self.coords[a]) for a in kept]),
+                                          math.prod(self.mesh.shape[a] for a in kept), value)
+        out = []
+        for i in range(size):
+            cs, rest = [], i
+            for a, n in reversed(list(zip(key[0], sizes))):
+                rest, c = divmod(rest, n)
+                cs.append((a, c))
+            out.append(posted[flat([(a, c) for a, c in reversed(cs) if a in kept])])
+        return out, index
 
 
 _local = threading.local()
@@ -589,8 +696,9 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs, turns: Optional[bool] = None):
                     done[slot] = torch.cuda.Event()
                     done[slot].record(stream)
 
+        present = [slot for slot in range(mesh.size) if mesh.mirror(slot) == slot]
         threads = [threading.Thread(target=run, args=(slot,), name=f"mesh-rank-{slot}", daemon=True)
-                   for slot in range(mesh.size)]
+                   for slot in present]
         for t in threads:
             t.start()
         for t in threads:
@@ -605,6 +713,6 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs, turns: Optional[bool] = None):
             for t in _tensors(out):
                 if t.device in callers:  # allocated on a rank's stream, read on the caller's
                     t.record_stream(callers[t.device])
-        return _gather(out_specs, outs, mesh)
+        return _gather(out_specs, [outs[mesh.mirror(slot)] for slot in range(mesh.size)], mesh)
 
     return mapped

@@ -18,21 +18,26 @@ here is counted:
   and tokens (decode); ``output_bytes`` likewise for what the step returns;
 * ``collectives`` and ``memory.temp_bytes``: the sharded step run once on
   the production mesh over meta blocks — the train step
-  (``launch.train.make_train_step(dp=)``), or the sharded prefill or
-  decode step (``make_prefill_step``/``make_serve_step`` on params under
+  (``launch.train.make_train_step(dp=)``: every rank computes its share
+  tensor-parallel over ``model``; the dp axes folded, so one rank per
+  ``model`` index runs for the 16 it stands for, ``_sharded_train``), or
+  the sharded prefill or decode step
+  (``make_prefill_step``/``make_serve_step`` on params under
   ``param_specs`` and a cache under ``cache_specs``: tensor-parallel over
   ``model``, the decode sequence-parallel over the cache) — its
   thread-ranks' collectives counted at ``core/collectives``
   (``roofline.count_collectives``, the busiest rank) and the peak of live
-  meta storage over the step divided by the ranks (the train step's ranks
-  share one autograd graph, whose backward runs on the caller's thread,
-  so a rank's share is the region's peak over its rank count).
+  meta storage over the step divided by the ranks that ran (a train
+  cell's over its 16 computing ranks: at least the unfolded count and
+  nearer what a rank holds, ``_sharded_train``). ``--fold-check D,M`` holds
+  a folded count against one on every rank of a small meta mesh
+  (:func:`fold_check`).
 
-Every family has a sharded prefill and decode step. The one null left is
-a cell under a layout hint the sharded steps refuse (``seq_shard_acts``,
-``moe_dispatch_sharding``: ROADMAP P11c): its ``collectives`` and
-``temp_bytes`` are null and the row says why; its cost and compute and
-memory terms are still filled.
+Every family has a sharded train, prefill and decode step, under both
+layout hints (``seq_shard_acts``, ``moe_dispatch_sharding``). A row is
+null only where a step refuses its config: Whisper's train step, which
+runs its loss gathered, refuses the two hints (ROADMAP P11c); its cost
+and compute and memory terms are still filled and the row says why.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.core.mesh import NamedSharding, P, device_put
 from repro_torch.launch import roofline as rl
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.launch.op_cost import OpCounter, step_cost
 from repro_torch.launch.train import (make_prefill_step, make_serve_step, make_train_step, named, rows_spec,
                                      train_shardings)
@@ -68,9 +73,13 @@ def _opt_cfg(cfg) -> AdamWConfig:
 
 def _block_bytes(mesh, spec: P, t: torch.Tensor) -> int:
     """Bytes of mesh position 0's block of ``t`` under ``spec`` (the specs
-    split every dim evenly, so every position's block is as large)."""
+    split every dim evenly, so every position's block is as large, and the
+    dp ranks own equally many layers of a ``StackRow`` leaf)."""
+    sharding = NamedSharding(mesh, spec)
+    if not sharding.holds(0):
+        return 0
     n = 1
-    for s in NamedSharding(mesh, spec).index(0, t.shape):
+    for s in sharding.index(0, t.shape):
         n *= s.stop - s.start
     return n * t.element_size()
 
@@ -86,13 +95,50 @@ def _tree_bytes(mesh, tree, specs) -> int:
 
 def _sharded_train(cfg, opt_cfg, mesh, model, opt_abs, batch, pspecs, ospecs):
     """Run the sharded train step once on ``mesh`` over meta blocks:
-    (per-chip collective stats, the region's peak live bytes per rank)."""
+    (per-chip collective stats, temp bytes per rank). On a mesh that folds
+    its dp axes (``core.mesh.Mesh``) only the ranks at dp coordinate 0
+    run, one per ``model`` index, the others mirrored, since every dp rank
+    issues the same ops on blocks of the same shapes (its rows, its ZeRO-1
+    chunk or layers): the collectives are the unfolded step's. The temp
+    bytes are the region's peak of live bytes over the ranks that ran.
+    That peak is what the ranks hold (activations, the remat recompute's,
+    grads: each rank's own, so as many per rank folded or not) plus the
+    transient of the one op running at a time (the ranks take turns, the
+    backward is one pass on the caller's thread), which a count spreads
+    over the ranks that ran: over 16 folded, 256 unfolded, where a real
+    rank holds its own transient whole. So a folded count is at least the
+    unfolded one and nearer what a rank holds: on ``("data", "model")``
+    meta meshes of 2–16 × 2 (:func:`fold_check`, smoke configs) it read
+    1.06–1.13 times the unfolded count."""
     step = make_train_step(cfg, opt_cfg, dp=shd.dp_axes(mesh))  # raises first for what it refuses
     state = device_put({n: p.detach() for n, p in model.named_parameters()}, named(mesh, pspecs))
     opt = device_put(opt_abs, named(mesh, ospecs))
+    ran = sum(1 for slot in range(mesh.size) if mesh.mirror(slot) == slot)
     with rl.count_collectives() as coll, OpCounter(track_memory=True) as mem:
         step(state, opt, batch)
-    return coll.per_chip(), mem.peak_bytes // mesh.size
+    return coll.per_chip(), mem.peak_bytes // ran
+
+
+def fold_check(arch: str, shape=(16, 2), axes=("data", "model"), smoke: bool = True) -> dict:
+    """``arch × train_4k``'s sharded step on a meta mesh of ``shape`` named
+    ``axes``, run on every rank and with the dp axes folded: per run its
+    collectives, temp bytes per rank and seconds, for holding the folded
+    count (:func:`_sharded_train`) against a fully counted mesh."""
+    cfg = registry.get_config(arch, smoke=smoke)
+    out = {}
+    for name in ("unfolded", "folded"):
+        mesh = make_host_mesh(shape, axes, device="meta")
+        if name == "folded":
+            mesh = make_host_mesh(shape, axes, device="meta", fold=shd.dp_axes(mesh))
+        model, opt_cfg = api.abstract_params(cfg), _opt_cfg(cfg)
+        batch = registry.input_specs(cfg, registry.get_shape("train_4k"))
+        pspecs, ospecs, _, opt_abs = train_shardings(cfg, opt_cfg, mesh, model, batch)
+        model.requires_grad_(True)
+        t0 = time.perf_counter()
+        coll, temp = _sharded_train(cfg, opt_cfg, mesh, model, opt_abs, batch, pspecs, ospecs)
+        out[name] = dict(collectives={"summary": coll.summary(), **coll.per_op_bytes}, temp_bytes=temp,
+                         seconds=round(time.perf_counter() - t0, 2))
+    return out
 
 
 def _sharded_serve(step, mesh, model, pspecs, *args):
@@ -135,7 +181,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, verbose: boo
         global_cost = step_cost(make_train_step(cfg, opt_cfg), model, opt_abs, batch)
         t_lower = time.perf_counter() - t0
         t0 = time.perf_counter()
-        run = lambda: _sharded_train(cfg, opt_cfg, mesh, model, opt_abs, batch, pspecs, ospecs)  # noqa: E731
+        folded = make_production_mesh(multi_pod=multi_pod, fold=shd.dp_axes(mesh))
+        run = lambda: _sharded_train(cfg, opt_cfg, folded, model, opt_abs, batch, pspecs, ospecs)  # noqa: E731
     elif shape.mode == "prefill":
         batch = registry.input_specs(cfg, shape)
         cache = api.init_cache(cfg, shape.global_batch, shape.seq_len, device="meta")
@@ -163,7 +210,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, verbose: boo
                                      device_put(cache, named(mesh, cspecs)), io["tokens"], io["pos"])
     try:
         coll, temp = run()
-    except NotImplementedError as e:  # a layout hint the sharded steps refuse (ROADMAP P11c)
+    except NotImplementedError as e:  # a layout hint Whisper's gathered train step refuses (ROADMAP P11c)
         reason = str(e)
     t_sharded = time.perf_counter() - t0
 
@@ -253,10 +300,16 @@ def main():
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", choices=["single", "multi", "both"], default="single")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--fold-check", default=None, metavar="D,M",
+                    help="run --arch's smoke train_4k cell on a (D, M) ('data', 'model') meta mesh, on every rank "
+                         "and folded, and print both counts")
     args = ap.parse_args()
     if args.out and os.path.basename(args.out).startswith("BENCH_"):
         ap.error("--out must not be a BENCH_*.json name: those are the JAX package's benchmark files")
 
+    if args.fold_check:
+        print(json.dumps(fold_check(args.arch, tuple(int(n) for n in args.fold_check.split(","))), indent=1))
+        return
     pods = {"single": [False], "multi": [True], "both": [False, True]}[args.multi_pod]
     archs = registry.list_archs() if (args.all or not args.arch) else [args.arch]
     shapes = registry.list_shapes() if (args.all or not args.shape) else [args.shape]

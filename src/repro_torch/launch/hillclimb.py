@@ -2,10 +2,10 @@
 
 The port of ``repro.launch.hillclimb``: the same cells, tags and config
 transforms, each counted by ``launch.dryrun.lower_cell`` on the meta
-device (no card). The hypotheses say what each knob changes in the port.
-Variants whose knob the sharded step refuses (``seq_shard_acts`` and
-``moe_dispatch_sharding``, ROADMAP P11c) get a row whose collectives and
-temp bytes are null with the reason; their cost is still counted. Results append to ``--out``:
+device (no card). The hypotheses say what each knob changes in the port;
+every variant, the layout hints ``seq_shard_acts`` and
+``moe_dispatch_sharding`` included, gets its collectives and temp bytes
+counted. Results append to ``--out``:
 
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --cell llama --upto v1
 """
@@ -153,7 +153,7 @@ VARIANTS = {
             ),
             (
                 "v7-fsdp-gather",
-                "v5 + the per-layer weight gather knob (the port gathers each layer whole at block entry anyway)",
+                "v5 + the per-layer weight gather knob (the port gathers each layer's FSDP blocks at its entry anyway)",
                 lambda c: c.replace(remat="save_acts", fsdp=True, fsdp_gather_layers=True),
             ),
         ],

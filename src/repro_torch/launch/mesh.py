@@ -17,16 +17,18 @@ from repro_torch.core.mesh import make_mesh
 __all__ = ["make_production_mesh", "make_host_mesh", "HW"]
 
 
-def make_production_mesh(*, multi_pod: bool = False, device="meta"):
+def make_production_mesh(*, multi_pod: bool = False, device="meta", fold=()):
+    """The production mesh; ``fold`` names axes whose positions a region
+    mirrors instead of running (``core.mesh.Mesh``, meta only)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device=device)
+    return make_mesh(shape, axes, device=device, fold=fold)
 
 
-def make_host_mesh(shape=(2, 2), axes=("data", "model"), device="cuda"):
+def make_host_mesh(shape=(2, 2), axes=("data", "model"), device="cuda", fold=()):
     """A small mesh of thread-ranks (on the card unless the caller asks
-    for the CPU or meta)."""
-    return make_mesh(shape, axes, device=device)
+    for the CPU or meta; ``fold`` as :func:`make_production_mesh`'s)."""
+    return make_mesh(shape, axes, device=device, fold=fold)
 
 
 class HW:

@@ -15,8 +15,10 @@ collective passes: ``core/collectives._issue`` tells
 bytes, and of the transpose autograd runs for it in the backward. The
 byte convention is the reference's (operand sizes: all-reduce, all-to-all
 and collective-permute = result bytes; all-gather = result / group;
-reduce-scatter = result × group), and the per-chip value is the largest
-rank's total.
+reduce-scatter = result × group; the port's ``reduce`` and
+``collective-broadcast``, a layer of ZeRO-1's stacking-dim update, the
+operand: a reduce over every rank, a broadcast on its root), and the
+per-chip value is the largest rank's total.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ __all__ = [
     "model_step_flops",
 ]
 
-_COLL_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute",
+_COLL_OPS = ("all-reduce", "all-gather", "reduce-scatter", "reduce", "all-to-all", "collective-permute",
              "collective-broadcast")
 
 
@@ -66,15 +68,19 @@ class CollectiveStats:
 
 class CollectiveCount:
     """What :func:`count_collectives` gathers: per mesh position, the
-    operand bytes and count of each op its rank issued."""
+    operand bytes and count of each op its rank issued, and the count of
+    each (op, comm axes) pair (``by_axes``)."""
 
     def __init__(self):
         self.per_rank: Dict[int, CollectiveStats] = {}
+        self.by_axes: Dict[int, Dict[tuple, int]] = {}
         self._lock = threading.Lock()  # the ranks are threads
 
-    def __call__(self, op: str, slot: int, nbytes: int) -> None:
+    def __call__(self, op: str, slot: int, nbytes: int, axes: tuple = ()) -> None:
         with self._lock:
             self.per_rank.setdefault(slot, CollectiveStats()).add(op, nbytes)
+            kinds = self.by_axes.setdefault(slot, {})
+            kinds[(op, tuple(axes))] = kinds.get((op, tuple(axes)), 0) + 1
 
     def per_chip(self) -> CollectiveStats:
         """The busiest rank's stats (the per-chip value)."""

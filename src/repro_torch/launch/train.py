@@ -14,26 +14,33 @@ step functions take the sharded state that :func:`device_put` builds under
 ``opt_state_specs``, each mesh position (a thread-rank) holding only its
 blocks, and the batch split under ``batch_specs`` at step entry (each
 accumulation microbatch is the reference's: rows ``i·B/accum ...``, split
-over dp). The loss runs as the units its family's forward enters
-(``models.api.loss_units``: an embedding, a layer, a period, the head),
-each unit's blocks gathered whole at its entry (``models.common.run_units``);
-each dp group's loss is computed once, by its position whose other
-coordinates are 0, the others only lending their blocks to the gathers.
-The groups' sums and counts are all-reduced over dp into the reference's
-global loss ``xent + aux + mtp_loss_weight · mtp``; the MoE layers route
-over the whole microbatch (``models.moe.GlobalRouting``), as the
-reference's ``moe_apply`` on the global batch does. One backward from the
-caller routes the cotangents back through the gathers to every block, and
-a hook moves each block's grad into its sum as soon as it is ready. The
-update is ZeRO-1: per leaf, the block grads are summed over the replica
-axes the moment is not sharded over (a ``reduce_scatter`` over the dp axes
-into the moment chunk, an ``all_reduce`` over the rest), AdamW runs on the
-chunk with the norm over every chunk, and an ``all_gather`` over dp puts
-the chunk back into the block. Both steps take every family of the zoo (the
-transformer with MoE, MLA with MTP and the VLM prefix; RWKV-6 on its
-per-token route; Jamba; Whisper, whose batches carry ``enc_frames``) under
-every remat policy; the sharded step refuses the two layout hints
-``seq_shard_acts`` and ``moe_dispatch_sharding`` (ROADMAP P11c).
+over dp). Every position computes the loss of its dp group's rows
+tensor-parallel over ``model`` (``models.api.tp_loss`` on ``models.tp``:
+heads, hidden units, experts and vocab rows of its own blocks, the
+cross-entropy vocab-parallel), as GSPMD partitions the reference's jitted
+step; the ``model`` ranks of a group hold the same sums, and the sums and
+counts are all-reduced over dp among the ranks of one ``model`` index into
+the reference's global loss ``xent + aux + mtp_loss_weight · mtp``, read
+from position 0. The MoE layers route over the whole microbatch
+(``models.moe.GlobalRouting``), as the reference's ``moe_apply`` on the
+global batch does. One backward from the caller routes the cotangents
+through the collectives to every block, and a hook moves each block's grad
+into its sum as soon as it is ready. The update is ZeRO-1: per leaf, the
+block grads are summed over the replica axes the moment is not sharded
+over (a ``reduce_scatter`` over the dp axes into the moment chunk, an
+``all_reduce`` over the rest), AdamW runs on the chunk with the norm over
+every chunk, and an ``all_gather`` over dp puts the chunk back into the
+block. Where the reference puts the dp axes on the layer-stacking dim of a
+moment (``parallel.sharding.opt_state_specs``: the layer count divides by
+the dp size), layer ``l``'s moments live on dp rank ``l // (L / n_dp)``
+only: its grad is reduced over dp to that rank, which runs AdamW on it,
+and the updated layer is broadcast back over dp. Both steps take every
+family of the zoo (the transformer with MoE, MLA with MTP and the VLM
+prefix; RWKV-6 on its per-token route; Jamba; Whisper, whose batches carry
+``enc_frames``) under every remat policy and both layout hints
+(``seq_shard_acts``: Megatron's sequence parallelism on the transformer's
+sublayer outputs; ``moe_dispatch_sharding``: the experts' slots laid
+capacity over ``data``; ``models.tp``).
 
 ``make_prefill_step`` and ``make_serve_step`` take the single-rank model,
 or the sharded params of ``device_put(params, named(mesh, param_specs))``
@@ -42,8 +49,10 @@ as one region, the reference's jitted steps under those shardings, the
 batch rows over the dp axes, every layer tensor-parallel over ``model``
 and the decode attention sequence-parallel over the cache's
 ``T``-over-``model`` slots (``models.tp``, ``models.api.tp_prefill`` /
-``tp_decode_step``). They refuse the two layout hints as the sharded
-train step does.
+``tp_decode_step``), under the two layout hints as the train step; under
+``moe_dispatch_sharding`` with the rows split over dp their MoE layers
+take their slots from the count exchange over dp (``GlobalRouting``), so
+each slot holds one token of one group.
 
 ``Trainer`` wires every substrate together the way the paper intends its
 extensions to be used: data prefetch + async checkpoints + heartbeats are
@@ -73,8 +82,9 @@ import torch
 
 from repro_torch.checkpoint import iovec_store as store
 from repro_torch.checkpoint.manager import WRITE_TIMEOUT_S, CheckpointManager
-from repro_torch.core.collectives import all_gather, all_reduce, reduce_scatter
-from repro_torch.core.mesh import NamedSharding, P, ShardedTensor, axis_index, current_region, device_put, shard_map
+from repro_torch.core.collectives import all_gather, all_reduce, broadcast, reduce, reduce_scatter
+from repro_torch.core.mesh import (NamedSharding, P, ShardedTensor, StackRow, axis_index, current_region, device_put,
+                                   shard_map)
 from repro_torch.core.progress import AutotunePolicy, ProgressEngine
 from repro_torch.core.streams import StreamComm, stream_create, stream_free
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
@@ -91,17 +101,6 @@ from repro_torch.parallel import sharding as shd
 
 __all__ = ["make_grad_step", "make_train_step", "make_serve_step", "make_prefill_step", "named",
            "train_shardings", "shard_cache", "rows_spec", "Trainer"]
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    """Refuse the two layout hints in the sharded step, which has no
-    layouts for them to pin yet; on one rank they change nothing, as in
-    the reference without a mesh."""
-    for flag in ("seq_shard_acts", "moe_dispatch_sharding"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{flag}=True is not ported to the sharded step yet (ROADMAP P11c: tensor-parallel math)"
-            )
 
 
 # ----------------------------------------------------------------------
@@ -129,15 +128,39 @@ def _check_dp(mesh, dp) -> None:
         raise ValueError(f"dp={tuple(dp)} but the params' mesh has dp axes {shd.dp_axes(mesh)}")
 
 
-def _meta_models(cfg: ModelConfig, n: int) -> list:
-    """One module tree per mesh position, on ``torch.device("meta")``:
-    ``functional_call`` swaps parameters on the module it runs, so rank
-    threads must not share one."""
-    return [api.model_class(cfg)(cfg, torch.device("meta")) for _ in range(n)]
+def _check_hints(cfg: ModelConfig) -> None:
+    """A family whose sharded train step runs its loss gathered has no
+    layouts for the two hints to pin: it refuses them."""
+    if api.gathered(cfg):
+        for flag in ("seq_shard_acts", "moe_dispatch_sharding"):
+            if getattr(cfg, flag):
+                raise NotImplementedError(
+                    f"{flag}=True: the sharded train step runs {cfg.name}'s loss with its layers gathered "
+                    "whole (ROADMAP P11c: tensor-parallel Whisper)")
+
+
+def _gathered_loss(cfg: ModelConfig, mesh, models: list, params, specs, groups):
+    """The per-rank body of the gathered form (``models.api.loss_units``):
+    each dp group's loss computed once, by its position whose other
+    coordinates are 0, every unit's blocks gathered whole at its entry; the
+    other positions only lend their blocks to the gathers."""
+    others = [a for a in mesh.axis_names if a not in shd.dp_axes(mesh)]
+
+    def body(batch):
+        slot = current_region().slot
+        counted = all(axis_index(a) == 0 for a in others)
+        sums = run_units(cfg, api.loss_units(cfg, models[slot]), {n: st.blocks[slot] for n, st in params.items()},
+                         specs, batch if counted else None)
+        if sums is None:
+            return None
+        total, _ = all_reduce(_flat_sums(sums), groups)
+        return _loss_of_sums(cfg, total)
+
+    return body
 
 
 def _flat_sums(sums) -> torch.Tensor:
-    """One computing rank's sums (``run_units``) as one fp32 vector:
+    """One rank's sums (``models.api.tp_loss``) as one fp32 vector:
     xent sum and count, MTP sum and count (zeros without MTP), then every
     MoE layer's router row."""
     xs, xc = sums["xent"]
@@ -163,16 +186,15 @@ def _loss_of_sums(cfg: ModelConfig, v: torch.Tensor):
     return total, metrics
 
 
-def _partial_grads(cfg: ModelConfig, models: list, params, batch):
+def _partial_grads(cfg: ModelConfig, params, batch):
     """Every position's grads of its own blocks (name → list per position),
     the loss and its metrics (``_loss_of_sums``; the mean over the
     microbatches, the dropped choices summed). A position's block grad
-    holds the contributions of the loss terms whose forward gathered that
-    block; their sum over the block's replicas is the gradient."""
+    holds the contributions of the loss terms its block reached; their sum
+    over the block's replicas is the gradient."""
     mesh = _mesh_of(params)
     specs = {n: st.sharding.spec for n, st in params.items()}
     dp = shd.dp_axes(mesh)
-    others = [a for a in mesh.axis_names if a not in dp]
     groups = StreamComm(dp, mesh=mesh)
     batch = {k: torch.as_tensor(v) for k, v in batch.items()}
     bspecs = shd.batch_specs(cfg, batch, mesh)
@@ -181,15 +203,17 @@ def _partial_grads(cfg: ModelConfig, models: list, params, batch):
     for _, _, b in leaves:
         b.requires_grad_(True)
 
+    gathered = None
+    if api.gathered(cfg):
+        models = [api.model_class(cfg)(cfg, torch.device("meta")) for _ in range(mesh.size)]
+        gathered = _gathered_loss(cfg, mesh, models, params, specs, groups)
+
     def body(*parts):
-        slot = current_region().slot
-        blocks = {n: st.blocks[slot] for n, st in params.items()}
-        counted = all(axis_index(a) == 0 for a in others)  # each dp group's loss once
-        route = GlobalRouting(groups) if cfg.moe.enabled and counted else None
-        sums = run_units(cfg, api.loss_units(cfg, models[slot]), blocks, specs,
-                         dict(zip(keys, parts)) if counted else None, route)
-        if sums is None:
-            return None
+        if gathered is not None:
+            return gathered(dict(zip(keys, parts)))
+        w = tp.RankWeights({n: st.blocks[current_region().slot] for n, st in params.items()}, specs, mesh)
+        w.route = GlobalRouting(groups) if cfg.moe.enabled else None
+        sums = api.tp_loss(cfg, w, dict(zip(keys, parts)))
         total, _ = all_reduce(_flat_sums(sums), groups)
         return _loss_of_sums(cfg, total)
 
@@ -242,56 +266,75 @@ def _zero1_update(opt_cfg: AdamWConfig, params, opt_state, grads):
     mesh = _mesh_of(params)
     dp = shd.dp_axes(mesh)
     everyone = StreamComm(tuple(mesh.axis_names), mesh=mesh)
+    dp_comm = StreamComm(dp, mesh=mesh)
     metrics = [None] * mesh.size
 
     def plan(n):
         """(non-dp replica axes to all-reduce, dp axes to all-reduce, dim
-        the moment shards over dp or None)."""
+        the moment shards over dp or None, the dp rank that owns the
+        layer's moments or None)."""
         ps, ms = params[n].sharding.spec, opt_state["m"][n].sharding.spec
         replica = [a for a in mesh.axis_names if a not in ps.axes]
+        if isinstance(ms, StackRow):
+            if tuple(ms) != tuple(ps) or ms.stack != dp:
+                raise ValueError(f"{n}: moment spec {ms} is not param spec {ps} held by one dp rank")
+            return [a for a in replica if a not in dp], [], None, ms.holder(mesh)
         extra = [a for a in ms.axes if a not in ps.axes]
         dims = [d for d in range(len(ms)) if ms.dim_axes(d) != ps.dim_axes(d)]
         if extra and (tuple(extra) != dp or len(dims) != 1 or ps.dim_axes(dims[0])):
             raise ValueError(f"{n}: moment spec {ms} is not param spec {ps} with the dp axes on one more dim")
         k = dims[0] if extra else None
-        return ([a for a in replica if a not in dp], [] if extra else [a for a in replica if a in dp], k)
+        return [a for a in replica if a not in dp], [] if extra else [a for a in replica if a in dp], k, None
 
     plans = {n: plan(n) for n in params}
 
     def body():
         slot = current_region().slot
         coords = mesh.coords(slot)
+        me = dp_comm.rank()
         g_chunks, sq = {}, None
-        for n, (rest, dp_rep, k) in plans.items():
+        for n, (rest, dp_rep, k, owner) in plans.items():
             g, grads[n][slot] = grads[n][slot], None
             if rest:
                 g, _ = all_reduce(g, StreamComm(tuple(rest), mesh=mesh))
-            if k is not None:
-                g, _ = reduce_scatter(g, StreamComm(dp, mesh=mesh), axis=k)
+            if owner is not None:
+                g, _ = reduce(g, dp_comm, root=owner)
+                if owner != me:
+                    continue
+            elif k is not None:
+                g, _ = reduce_scatter(g, dp_comm, axis=k)
             elif dp_rep:
                 g, _ = all_reduce(g, StreamComm(tuple(dp_rep), mesh=mesh))
             g_chunks[n] = g
-            first = all(coords[a] == 0 for a in mesh.axis_names if a not in opt_state["m"][n].sharding.spec.axes)
+            ms = opt_state["m"][n].sharding.spec
+            first = all(coords[a] == 0 for a in mesh.axis_names if a not in ms.axes + (dp if owner is not None else ()))
             s = torch.sum(torch.square(g.to(torch.float32))) * (1.0 if first else 0.0)
             sq = s if sq is None else sq + s
+        if sq is None:  # a rank that owns no moment of any leaf
+            sq = torch.zeros((), dtype=torch.float32, device=mesh.devices[slot])
         total, _ = all_reduce(sq, everyone)
         gnorm = torch.sqrt(total)
-        state = {key: {n: opt_state[key][n].blocks[slot] for n in params} for key in ("m", "v", "master")
+        state = {key: {n: opt_state[key][n].blocks[slot] for n in g_chunks} for key in ("m", "v", "master")
                  if key in opt_state}
         state["count"] = opt_state["count"].blocks[slot]
         ps = {}
-        for n, (_, _, k) in plans.items():
-            block = params[n].blocks[slot]
+        for n in g_chunks:
+            block, k = params[n].blocks[slot], plans[n][2]
             if k is None:
                 ps[n] = block
             else:  # the block's chunk, updated apart from the block (its peers read the block meanwhile)
                 c = g_chunks[n].shape[k]
-                ps[n] = block.detach().narrow(k, StreamComm(dp, mesh=mesh).rank() * c, c).clone()
+                ps[n] = block.detach().narrow(k, me * c, c).clone()
         _, _, om = adamw_update(opt_cfg, g_chunks, state, ps, gnorm=gnorm)
-        for n, (_, _, k) in plans.items():
-            if k is not None:
-                full, _ = all_gather(ps[n], StreamComm(dp, mesh=mesh), axis=k)
-                params[n].blocks[slot].copy_(full)
+        for n, (_, _, k, owner) in plans.items():
+            block = params[n].blocks[slot]
+            if owner is not None:
+                full, _ = broadcast(block, dp_comm, root=owner)  # every rank passes its buffer, as MPI_Bcast
+                if owner != me:
+                    block.copy_(full)
+            elif k is not None:
+                full, _ = all_gather(ps[n], dp_comm, axis=k)
+                block.copy_(full)
         metrics[slot] = om
 
     with torch.no_grad():
@@ -308,12 +351,12 @@ def make_grad_step(cfg: ModelConfig, dp: tuple = ()):
     from :func:`device_put`) in place of the model and returns the grads
     laid out as the params, summed over every block's replicas."""
     if dp:
-        _check_ported(cfg)
+        _check_hints(cfg)
 
         def sharded_grad_step(params, batch):
             mesh = _mesh_of(params)
             _check_dp(mesh, dp)
-            partial, loss, _ = _partial_grads(cfg, _meta_models(cfg, mesh.size), params, batch)
+            partial, loss, _ = _partial_grads(cfg, params, batch)
             res = {n: [None] * mesh.size for n in params}
 
             def body():
@@ -359,12 +402,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, dp: tuple = ()):
     the loss's parts (``_loss_of_sums``: ``xent``, and ``aux``,
     ``moe_dropped``, ``mtp`` where the config has them)."""
     if dp:
-        _check_ported(cfg)
+        _check_hints(cfg)
 
         def sharded_train_step(params, opt_state, batch):
             mesh = _mesh_of(params)
             _check_dp(mesh, dp)
-            grads, loss, metrics = _partial_grads(cfg, _meta_models(cfg, mesh.size), params, batch)
+            grads, loss, metrics = _partial_grads(cfg, params, batch)
             om = _zero1_update(opt_cfg, params, opt_state, grads)
             return params, opt_state, {"loss": loss, **metrics, **om}
 
@@ -415,6 +458,17 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+def _serve_weights(cfg: ModelConfig, params, specs, mesh, rows: P):
+    """The rank's ``models.tp.RankWeights`` in a sharded serve step: under
+    ``moe_dispatch_sharding``, with the rows split over dp, the MoE layers
+    route over the dp groups (their slots global, the capacity laid over
+    ``data``); otherwise each group routes its rows alone (dropless)."""
+    w = tp.RankWeights({n: st.blocks[current_region().slot] for n, st in params.items()}, specs, mesh)
+    if cfg.moe.enabled and cfg.moe_dispatch_sharding and rows.axes:
+        w.route = GlobalRouting(StreamComm(shd.dp_axes(mesh), mesh=mesh))
+    return w
+
+
 def _sharded_prefill(cfg: ModelConfig, params, batch, max_len=None):
     """The sharded prefill (``make_prefill_step``'s docstring): one region
     over the params' mesh, each rank running ``models.api.tp_prefill`` on
@@ -435,7 +489,7 @@ def _sharded_prefill(cfg: ModelConfig, params, batch, max_len=None):
 
     def body(*parts):
         slot = current_region().slot
-        w = tp.RankWeights({n: st.blocks[slot] for n, st in params.items()}, specs, mesh)
+        w = _serve_weights(cfg, params, specs, mesh, rows)
         logits, blocks[slot] = api.tp_prefill(cfg, w, dict(zip(keys, parts)), T, cspecs)
         return logits
 
@@ -463,8 +517,7 @@ def _sharded_decode(cfg: ModelConfig, params, cache, tokens, pos):
         raise ValueError(f"the cache's batch dim is not laid out as the rows' {rows}: {leaves[0].sharding.spec}")
 
     def body(tok, p):
-        w = tp.RankWeights({n: st.blocks[current_region().slot] for n, st in params.items()}, specs, mesh)
-        return api.tp_decode_step(cfg, w, cache, tok, p)
+        return api.tp_decode_step(cfg, _serve_weights(cfg, params, specs, mesh, rows), cache, tok, p)
 
     with torch.no_grad():
         logits = shard_map(body, mesh, (rows, rows), rows, turns=_turns(mesh))(tokens, pos)
@@ -484,7 +537,6 @@ def make_serve_step(cfg: ModelConfig):
     ``out_shardings=None``) and the cache blocks are written in place."""
     def serve_step(params, cache, tokens, pos):
         if _is_sharded(params):
-            _check_ported(cfg)
             return _sharded_decode(cfg, params, cache, tokens, pos)
         return api.decode_step(cfg, params, cache, tokens, pos)
 
@@ -500,7 +552,6 @@ def make_prefill_step(cfg: ModelConfig):
     rank's heads into its ``T`` span by one all-to-all over ``model``."""
     def prefill_step(params, batch, max_len=None):
         if _is_sharded(params):
-            _check_ported(cfg)
             return _sharded_prefill(cfg, params, batch, max_len)
         return api.prefill(cfg, params, batch, max_len)
 

@@ -6,7 +6,8 @@
     init_cache(cfg, B, max_len, device)       → decode cache / recurrent state
     prefill(cfg, params, batch, max_len)      → (last_logits, cache)
     decode_step(cfg, params, cache, tok, pos) → (logits, cache)
-    loss_units(cfg, params)                   → the loss's sharded form
+    tp_loss(cfg, w, batch)                    → per rank: the sharded train step's loss sums
+    loss_units(cfg, params)                   → the gathered form of a loss (Whisper's)
     tp_prefill(cfg, w, batch, max_len, specs) → per rank: the sharded prefill
     tp_decode_step(cfg, w, cache, tok, pos)   → per rank: the sharded decode
 
@@ -32,7 +33,7 @@ from repro_torch.models import whisper as whisper_mod
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["family", "model_class", "init_params", "abstract_params", "loss_fn", "init_cache", "prefill", "decode_step",
-           "loss_units", "tp_prefill", "tp_decode_step"]
+           "tp_loss", "gathered", "loss_units", "tp_prefill", "tp_decode_step"]
 
 
 def family(cfg: ModelConfig) -> str:
@@ -58,13 +59,16 @@ _PREFILL = {"rwkv": rwkv_mod.rwkv_prefill, "jamba": jamba_mod.jamba_prefill, "en
             "transformer": tf_mod.prefill}
 _DECODE = {"rwkv": rwkv_mod.rwkv_decode_step, "jamba": jamba_mod.jamba_decode_step,
            "encdec": whisper_mod.whisper_decode_step, "transformer": tf_mod.decode_step}
-#: the per-rank forms of the sharded serve steps (``models.tp``), by family
-_TP = {"transformer": (tf_mod.tp_prefill, tf_mod.tp_decode_step),
-       "encdec": (whisper_mod.tp_prefill, whisper_mod.tp_decode_step),
-       "rwkv": (rwkv_mod.tp_prefill, rwkv_mod.tp_decode_step),
-       "jamba": (jamba_mod.tp_prefill, jamba_mod.tp_decode_step)}
-_UNITS = {"rwkv": rwkv_mod.loss_units, "jamba": jamba_mod.loss_units, "encdec": whisper_mod.loss_units,
-          "transformer": tf_mod.loss_units}
+#: the per-rank forms of the sharded steps (``models.tp``), by family:
+#: (train loss, prefill, decode step); a family without a train loss here
+#: takes the gathered form (:data:`_GATHERED`)
+_TP = {"transformer": (tf_mod.tp_loss, tf_mod.tp_prefill, tf_mod.tp_decode_step),
+       "encdec": (None, whisper_mod.tp_prefill, whisper_mod.tp_decode_step),
+       "rwkv": (rwkv_mod.tp_loss, rwkv_mod.tp_prefill, rwkv_mod.tp_decode_step),
+       "jamba": (jamba_mod.tp_loss, jamba_mod.tp_prefill, jamba_mod.tp_decode_step)}
+#: the families whose sharded train step gathers each layer's weights whole
+#: (``models.common.run_units``): Whisper (ROADMAP P11c)
+_GATHERED = {"encdec": whisper_mod.loss_units}
 
 
 def model_class(cfg: ModelConfig):
@@ -99,10 +103,29 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
     return _DECODE[family(cfg)](cfg, params, cache, tokens, pos)
 
 
+def tp_loss(cfg: ModelConfig, w, batch):
+    """Per rank, inside the sharded train step's region (``launch.train``):
+    the sums of ``loss_fn`` over this rank's rows of ``batch``, every layer
+    tensor-parallel over ``model`` (``w`` the rank's
+    ``models.tp.RankWeights``): ``{"xent": (sum, count)}``, with
+    ``"router"`` (per MoE layer, ``moe.moe_apply``'s sums) and ``"mtp"``
+    (sum, count) where the config has them."""
+    fn = _TP[family(cfg)][0]
+    if fn is None:
+        raise ValueError(f"{cfg.name}: the sharded train step runs its loss gathered (models.api.loss_units)")
+    return fn(cfg, w, batch)
+
+
+def gathered(cfg: ModelConfig) -> bool:
+    """Whether the sharded train step runs the family's loss in its gathered
+    form (:func:`loss_units`) rather than :func:`tp_loss`."""
+    return family(cfg) in _GATHERED
+
+
 def loss_units(cfg: ModelConfig, params):
-    """``loss_fn`` as the units its forward enters (``models.common.Unit``),
-    which ``models.common.run_units`` runs over a rank's parameter blocks."""
-    return _UNITS[family(cfg)](cfg, params)
+    """The gathered form of ``loss_fn`` (``models.common.Unit`` s, run by
+    ``models.common.run_units``) for a family of :func:`gathered`."""
+    return _GATHERED[family(cfg)](cfg, params)
 
 
 def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):
@@ -110,11 +133,11 @@ def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):
     (this rank's last logits, its cache blocks in the cache's tree);
     ``w`` is the rank's ``models.tp.RankWeights``, ``specs`` the cache's
     ``cache_specs``."""
-    return _TP[family(cfg)][0](cfg, w, batch, max_len, specs)
+    return _TP[family(cfg)][1](cfg, w, batch, max_len, specs)
 
 
 def tp_decode_step(cfg: ModelConfig, w, cache, tokens, pos):
     """Per rank, inside the sharded decode step's region: this rank's
     logits; ``cache`` is the tree of ``ShardedTensor`` s whose blocks at
     ``w.slot`` the step writes in place."""
-    return _TP[family(cfg)][1](cfg, w, cache, tokens, pos)
+    return _TP[family(cfg)][2](cfg, w, cache, tokens, pos)

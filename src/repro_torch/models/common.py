@@ -31,14 +31,14 @@ On ``torch.device("meta")`` (shapes only) a per-token loop runs one step
 that stands for all of them (:func:`meta_scan`), so ``launch.op_cost`` can
 count a 32k- or 500k-token loop without running it.
 
-**The sharded form of a loss.** Every family states its training loss as
-a list of units (:class:`Unit`), the pieces its forward enters one after another
-(an embedding, a layer, a period of layers, the head), each with the
-prefixes of the parameters it reads. :func:`run_units` is the one route
-that runs such a list inside a mesh region over a rank's parameter
-blocks: it gathers a unit's parameters whole at the unit's entry and
-returns the loss as sums and counts, so that a caller can add them up over
-any split of the batch.
+**The gathered form of a loss.** The sharded train step computes every
+family tensor-parallel (``models.tp``) but Whisper, whose loss it states as
+a list of units (:class:`Unit`), the pieces its forward enters one after
+another (the frames, a layer, a norm, the head), each with the prefixes of
+the parameters it reads: :func:`run_units` runs such a list inside a mesh
+region over a rank's parameter blocks, gathering a unit's parameters whole
+at the unit's entry, and returns the loss as a sum and a count, so that a
+caller can add them up over any split of the batch.
 """
 
 from __future__ import annotations
@@ -418,8 +418,8 @@ def remat_wrap(cfg: ModelConfig, fn):
 def tag_act(cfg: ModelConfig, x, name: str):
     """Name the (B, S, d) sublayer output ``x`` for the ``"save_acts"``
     policy; ``x`` itself under every other policy. ``seq_shard_acts``, the
-    reference's sequence-parallel constraint here, has no layout to pin
-    outside the sharded step (which refuses it), so it changes nothing."""
+    reference's sequence-parallel constraint here, is laid out by the
+    sharded steps (``models.tp``); on one rank it changes nothing."""
     return _tag(x, name) if cfg.remat == "save_acts" else x
 
 
@@ -505,7 +505,7 @@ def meta_scan(step, n: int, xs, consts, carry):
 
 
 # ----------------------------------------------------------------------
-# the sharded form of a loss: units run over a rank's parameter blocks
+# the gathered form of a loss: units run over a rank's parameter blocks
 # ----------------------------------------------------------------------
 
 
@@ -513,13 +513,11 @@ def meta_scan(step, n: int, xs, consts, carry):
 class Unit:
     """One piece of a loss's forward. ``prefixes`` name the parameters it
     reads: ``"layers.3."`` every parameter under that module, a name
-    without the trailing dot one parameter. ``fn(params, carry, route)``
-    returns the next carry (a dict: the batch's entries, the activations,
-    the sums); ``params`` holds one entry per prefix, a dict of the names
-    under it (relative to it) or the one tensor. ``route`` is the MoE's
-    :class:`~repro_torch.models.moe.GlobalRouting`, or None. ``remat``:
-    the unit runs under the config's remat policy, as the family's
-    single-rank forward runs it."""
+    without the trailing dot one parameter. ``fn(params, carry)`` returns
+    the next carry (a dict: the batch's entries, the activations, the
+    sums); ``params`` holds one entry per prefix, a dict of the names under
+    it (relative to it) or the one tensor. ``remat``: the unit runs under
+    the config's remat policy, as the family's single-rank forward runs it."""
 
     prefixes: Tuple[str, ...]
     fn: Callable
@@ -548,11 +546,8 @@ def gather_prefix(blocks: dict, specs: dict, prefix: str):
     ``blocks`` (name → block, laid out by ``specs``): each leaf
     all-gathered over the axes its spec shards it on, dim by dim, names
     relative to ``prefix`` (the one tensor for a prefix without a trailing
-    dot). Per-rank code, inside a region. The reference re-constrains the
-    scan-sliced layer to its TP layout (``fsdp_gather_layers``) and lets
-    GSPMD run it sharded; a thread mesh has no partitioner, so the port
-    gathers each unit's weights whole (Megatron-style sharded math is
-    ROADMAP work). Autograd reaches the blocks through the gathers."""
+    dot). Per-rank code, inside a region; autograd reaches the blocks
+    through the gathers."""
     mesh = current_region().mesh
     out = {}
     for name, block in blocks.items():
@@ -566,25 +561,21 @@ def gather_prefix(blocks: dict, specs: dict, prefix: str):
     return out if prefix.endswith(".") else out[""]
 
 
-#: the carry's entries that :func:`run_units` returns: ``xent`` and ``mtp``
-#: (sum, count) pairs, ``router`` a list of ``moe_apply(route=)`` rows
-SUM_KEYS = ("xent", "mtp", "router")
-
-
-def run_units(cfg: ModelConfig, units, blocks: dict, specs: dict, batch, route=None):
+def run_units(cfg: ModelConfig, units, blocks: dict, specs: dict, batch):
     """Per-rank: the loss of ``units`` over this rank's ``batch`` (a dict of
     tensors), every unit's parameters gathered from ``blocks`` at its entry
-    (:func:`gather_prefix`). Returns the final carry's :data:`SUM_KEYS`.
-    With ``batch=None`` the rank only takes part in the gathers its peers
-    need, in the same order, and returns None. A prefix that several units
-    read is gathered once, at its first unit, and kept."""
+    (:func:`gather_prefix`, before the remat boundary). Returns the final
+    carry's ``xent`` (sum, count). With ``batch=None`` the rank only takes
+    part in the gathers its peers need, in the same order, and returns
+    None. A prefix that several units read is gathered once, at its first
+    unit, and kept."""
     seen, reused = set(), set()
     for unit in units:
         reused.update(p for p in unit.prefixes if p in seen)
         seen.update(unit.prefixes)
     kept = {}
     carry = dict(batch) if batch is not None else None
-    for key, unit in enumerate(units):
+    for unit in units:
         params = []
         for prefix in unit.prefixes:
             got = kept.get(prefix)
@@ -593,27 +584,20 @@ def run_units(cfg: ModelConfig, units, blocks: dict, specs: dict, batch, route=N
                 if prefix in reused:
                     kept[prefix] = got
             params.append(got)
-        if carry is None:
-            continue
-
-        def fn(c, unit=unit, params=params, key=key):
-            if route is not None:
-                route.enter(key)
-            return unit.fn(params, c, route)
-
-        carry = (remat_wrap(cfg, fn) if unit.remat and torch.is_grad_enabled() else fn)(carry)
-    return None if carry is None else {k: carry[k] for k in SUM_KEYS if k in carry}
+        if carry is not None:
+            fn = functools.partial(unit.fn, params)
+            carry = (remat_wrap(cfg, fn) if unit.remat and torch.is_grad_enabled() else fn)(carry)
+    return None if carry is None else {"xent": carry["xent"]}
 
 
-def _head(cfg: ModelConfig, params, c, route):
+def _head(cfg: ModelConfig, params, c):
     emb, norm = params
-    x = c["x"][:, c.get("n_img", 0):]
-    logits = logits_out(cfg, emb, apply_norm(cfg, norm, x))
+    logits = logits_out(cfg, emb, apply_norm(cfg, norm, c["x"]))
     return {**c, "xent": xent_sums(logits, c["tokens"], c.get("loss_mask"))}
 
 
 def head_unit(cfg: ModelConfig) -> Unit:
-    """The last unit of every family's loss: the final norm, the output
-    projection through ``embed`` and the next-token xent of ``carry["x"]``
-    past the first ``carry["n_img"]`` (default 0) positions, as sums."""
+    """The last unit of a gathered loss: the final norm, the output
+    projection through ``embed`` and the next-token xent of ``carry["x"]``,
+    as sums."""
     return Unit(("embed.", "final_norm."), functools.partial(_head, cfg))

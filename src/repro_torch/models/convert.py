@@ -36,7 +36,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.iovec_store import StackedLeaf, map_leaves
+from repro_torch.checkpoint.iovec_store import RowShardings, StackedLeaf, map_leaves
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
@@ -180,13 +180,14 @@ def state_tree(cfg: ModelConfig, model, values: Optional[Mapping[str, torch.Tens
 def shardings_tree(cfg: ModelConfig, model, shardings: Mapping[str, object]):
     """The reference's params tree over per-parameter ``shardings``
     (parameter name → :class:`~repro_torch.core.mesh.NamedSharding`): a
-    stacked leaf takes the sharding its rows share — the ``shardings=``
-    argument of a restore into :func:`state_tree`'s structure."""
+    stacked leaf takes the sharding its rows share, or the
+    ``iovec_store.RowShardings`` of its rows where they differ (a
+    ``StackRow`` each) — the ``shardings=`` argument of a restore into
+    :func:`state_tree`'s structure."""
     flat = {}
     for name, (_stacked, names) in leaf_map(cfg, model).items():
-        if any(shardings[n] != shardings[names[0]] for n in names):
-            raise ValueError(f"{name}: the rows of a stacked leaf must share one sharding")
-        flat[name] = shardings[names[0]]
+        rows = [shardings[n] for n in names]
+        flat[name] = rows[0] if all(r == rows[0] for r in rows) else RowShardings(rows)
     return _nest(flat)
 
 

@@ -17,9 +17,10 @@ new K/V rows and Mamba states into the cache tensors in place.
 The attention layer takes the flash kernel on prefills of ``S % 128 ==
 0`` under ``attn_impl="flash"`` (``models.common.gqa_attention_full``);
 the Mamba layers are PyTorch ops, as the reference's are ``lax.scan``.
-The sharded form of the loss (:func:`loss_units`) runs a period as one
-unit, under the remat policy as :func:`jamba_loss` runs it; its MoE
-layers route over the whole microbatch (``models.moe.GlobalRouting``).
+The sharded train step's per-rank loss (:func:`tp_loss`) runs a period
+under the remat policy as :func:`jamba_loss` runs it, tensor-parallel
+(``models.tp``); its MoE layers route over the whole microbatch
+(``models.moe.GlobalRouting``).
 """
 
 from __future__ import annotations
@@ -35,17 +36,14 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import tp
 from repro_torch.models.common import (
-    Unit,
     apply_norm,
     embed,
     gqa_attention_decode,
     gqa_attention_full,
-    head_unit,
     logits_out,
     next_token_xent,
     remat_wrap,
     swiglu,
-    unit_call,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import _norm, _params, gqa_params, init_leaves, moe_params, swiglu_params
@@ -61,7 +59,7 @@ __all__ = [
     "jamba_loss",
     "jamba_prefill",
     "jamba_decode_step",
-    "loss_units",
+    "tp_loss",
     "tp_prefill",
     "tp_decode_step",
 ]
@@ -284,26 +282,64 @@ def jamba_decode_step(cfg: ModelConfig, model: JambaLM, cache, tokens, pos):
 # -- the sharded serve steps' per-rank forms (models.tp) ----------------------
 
 
-def _tp_layer(cfg: ModelConfig, w, pre: str, kind, x, positions, entry, spec, T: int, decode_pos=None):
-    """One Jamba layer on the rank. ``entry``: the attention layer's (K, V)
-    blocks at decode (None at prefill), or the Mamba layer's state blocks
-    (written in place); ``spec`` the cache leaf's spec. Returns (x, the
-    prefill's cache pair or None)."""
+def _tp_layer(cfg: ModelConfig, w, pre: str, kind, x, positions, entry, split: bool, spec, T: int,
+              decode_pos=None, train: bool = False):
+    """One Jamba layer on the rank: (x, the prefill's cache pair or None,
+    aux). ``entry``: the attention layer's (K, V) blocks at decode (None at
+    prefill), or the Mamba layer's state blocks (written in place; None in
+    the training loss, which starts from zeros); ``split``: the Mamba
+    layer's ``d_inner`` over ``model``; ``spec`` the attention cache leaf's
+    spec."""
     mixer, ffn = kind
     h = tp.norm(cfg, w, pre + "ln1.", x)
     pair = None
     if mixer == "attn":
         if decode_pos is None:
             a, seed = tp.attention_full(cfg, w, pre + "mixer.", h, positions, theta=cfg.rope_theta)
-            pair = tp.cache_block(w, seed, T, spec)
+            if spec is not None:
+                pair = tp.cache_block(w, seed, T, spec)
         else:
             a = tp.attention_decode(cfg, w, pre + "mixer.", h, entry, decode_pos, T, spec, theta=cfg.rope_theta)
     else:
-        a = mamba_mod.tp_mamba(cfg, w, pre + "mixer.", h, entry, tp.MODEL in spec.dim_axes(2))
+        a = mamba_mod.tp_mamba(cfg, w, pre + "mixer.", h, entry, split)
     x = x + a
     h = tp.norm(cfg, w, pre + "ln2.", x)
-    f = tp.moe(cfg, w, pre + "ffn.", h) if ffn == "moe" else tp.swiglu(cfg, w, pre + "ffn.", h, cfg.d_ff)
-    return x + f, pair
+    aux = None
+    if ffn == "moe":
+        f, aux = tp.moe(cfg, w, pre + "ffn.", h, train)
+    else:
+        f = tp.swiglu(cfg, w, pre + "ffn.", h, cfg.d_ff)
+    return x + f, pair, aux
+
+
+def _tp_period(cfg: ModelConfig, w, b: int, x, positions):
+    """Period ``b`` of the training loss on the rank: (x, its MoE layers'
+    router sums)."""
+    di = cfg.ssm.d_inner(cfg.d_model)
+    auxes = []
+    for pi, kind in enumerate(block_layout(cfg)):
+        pre = f"blocks.{b}.{pi}."
+        split = di % w.size == 0 and not w.replicated(pre + "mixer.")  # a replicated Mamba layer runs whole
+        x, _, aux = _tp_layer(cfg, w, pre, kind, x, positions, None, split, None, 0, train=True)
+        if aux is not None:
+            auxes.append(aux)
+    return x, auxes
+
+
+def tp_loss(cfg: ModelConfig, w, batch):
+    """Per rank, inside the sharded train step's region: the sums of
+    :func:`jamba_loss` over this rank's rows (``{"xent", "router"}`` as
+    ``transformer.tp_loss``'s), each period under the remat policy."""
+    tokens = batch["tokens"].long()
+    B, S = tokens.shape
+    x = tp.embed(cfg, w, tokens)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    router = []
+    for b in range(n_blocks(cfg)):
+        x, auxes = tp.remat(cfg, _tp_period)(cfg, w, b, x, positions)
+        router += auxes
+    return {"xent": tp.xent(cfg, w, tp.norm(cfg, w, "final_norm.", x), tokens, batch.get("loss_mask")),
+            "router": router}
 
 
 def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):
@@ -323,7 +359,7 @@ def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):
         for pi, kind in enumerate(layout):
             pre = f"blocks.{b}.{pi}."
             if kind[0] == "attn":
-                x, pair = _tp_layer(cfg, w, pre, kind, x, positions, None, specs[pi][0], max_len)
+                x, pair, _ = _tp_layer(cfg, w, pre, kind, x, positions, None, False, specs[pi][0], max_len)
                 out[pi][0].append(pair[0])
                 out[pi][1].append(pair[1])
             else:
@@ -332,7 +368,7 @@ def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):
                 one = mamba_mod.mamba_init_state(cfg, B, x.device)
                 n = di // w.size if split else di
                 st = {"conv": one["conv"][..., :n].clone(), "ssm": one["ssm"][:, :n].clone()}
-                x, _ = _tp_layer(cfg, w, pre, kind, x, positions, st, specs[pi]["ssm"], max_len)
+                x, _, _ = _tp_layer(cfg, w, pre, kind, x, positions, st, split, None, max_len)
                 for k in ("conv", "ssm"):
                     out[pi][k].append(st[k])
     logits = tp.logits(cfg, w, tp.norm(cfg, w, "final_norm.", x[:, -1]))
@@ -353,34 +389,10 @@ def tp_decode_step(cfg: ModelConfig, w, cache, tokens, pos):
             entry = cache[pi]
             if kind[0] == "attn":
                 K, V = entry
-                x, _ = _tp_layer(cfg, w, f"blocks.{b}.{pi}.", kind, x, None, (K.blocks[s][b], V.blocks[s][b]),
-                                 K.sharding.spec, K.shape[2], decode_pos=pos)
+                x, _, _ = _tp_layer(cfg, w, f"blocks.{b}.{pi}.", kind, x, None, (K.blocks[s][b], V.blocks[s][b]),
+                                    False, K.sharding.spec, K.shape[2], decode_pos=pos)
             else:
                 st = {k: entry[k].blocks[s][b] for k in ("conv", "ssm")}
-                x, _ = _tp_layer(cfg, w, f"blocks.{b}.{pi}.", kind, x, None, st, entry["ssm"].sharding.spec, 0)
+                x, _, _ = _tp_layer(cfg, w, f"blocks.{b}.{pi}.", kind, x, None, st,
+                                    tp.MODEL in entry["ssm"].sharding.spec.dim_axes(2), None, 0)
     return tp.logits(cfg, w, tp.norm(cfg, w, "final_norm.", x))[:, 0]
-
-
-# -- the sharded form of the loss (models.common.run_units) -------------------
-
-
-def _embed_unit(cfg: ModelConfig, params, c, route):
-    tokens = c["tokens"].long()
-    B, S = tokens.shape
-    x = embed(cfg, params[0], tokens)
-    return {**c, "tokens": tokens, "x": x, "positions": torch.arange(S, device=x.device).expand(B, S), "router": []}
-
-
-def _period_unit(cfg: ModelConfig, block, params, c, route):
-    x, auxes, _ = unit_call(block, params[0], lambda m: _period(cfg, m, c["x"], c["positions"], True, route))
-    return {**c, "x": x, "router": c["router"] + [a for layer, a in zip(block, auxes) if layer.kind[1] == "moe"]}
-
-
-def loss_units(cfg: ModelConfig, model: JambaLM) -> List[Unit]:
-    """:func:`jamba_loss` as units (``models.common.Unit``): the embedding,
-    each period ``blocks.{b}`` under the remat policy, the head; the MoE
-    layers' router sums go to ``router``."""
-    units = [Unit(("embed.",), functools.partial(_embed_unit, cfg))]
-    units += [Unit((f"blocks.{b}.",), functools.partial(_period_unit, cfg, block), remat=True)
-              for b, block in enumerate(model.blocks)]
-    return units + [head_unit(cfg)]

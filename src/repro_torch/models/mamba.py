@@ -135,6 +135,21 @@ def _ssm_scan(dt, B_, C_, x32, A, D, h):
     return torch.stack(ys, dim=1), h
 
 
+def _scan(dt, B_, C_, x32, A, D, h):
+    """:func:`_ssm_scan`, as ``CHUNK``-step chunks each under
+    ``torch.utils.checkpoint`` where autograd records the forward (``S %
+    CHUNK == 0``, more than one chunk), as the reference's ``jax.checkpoint``."""
+    S = dt.shape[1]
+    if not (S % CHUNK == 0 and S // CHUNK > 1 and torch.is_grad_enabled()):
+        return _ssm_scan(dt, B_, C_, x32, A, D, h)
+    ys = []
+    for c in range(0, S, CHUNK):
+        sl = slice(c, c + CHUNK)
+        y, h = checkpoint(_ssm_scan, dt[:, sl], B_[:, sl], C_[:, sl], x32[:, sl], A, D, h, use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
 def mamba_full(cfg: ModelConfig, p, x, state=None):
     """x (B,S,d) → (y (B,S,d), new state). ``state`` (default zeros) is not
     modified."""
@@ -149,16 +164,7 @@ def mamba_full(cfg: ModelConfig, p, x, state=None):
     A = -torch.exp(p["A_log"].float())  # (di,ds)
     D = p["D"].float()
     x32 = xc.float()
-    h = state["ssm"]
-    if S % CHUNK == 0 and S // CHUNK > 1 and torch.is_grad_enabled():
-        ys = []
-        for c in range(0, S, CHUNK):
-            sl = slice(c, c + CHUNK)
-            y, h = checkpoint(_ssm_scan, dt[:, sl], B_[:, sl], C_[:, sl], x32[:, sl], A, D, h, use_reentrant=False)
-            ys.append(y)
-        y = torch.cat(ys, dim=1)
-    else:
-        y, h = _ssm_scan(dt, B_, C_, x32, A, D, h)
+    y, h = _scan(dt, B_, C_, x32, A, D, state["ssm"])
     y = y.to(x.dtype) * _silu(z)
     return y @ p["out_proj"].to(x.dtype), {"conv": conv_state, "ssm": h}
 
@@ -168,8 +174,8 @@ def mamba_decode(cfg: ModelConfig, p, x, state):
     return mamba_full(cfg, p, x, state)
 
 
-def tp_mamba(cfg: ModelConfig, w, pre: str, x, state: dict, split: bool):
-    """:func:`mamba_full` on the rank (no grad): with ``split`` (the state's
+def tp_mamba(cfg: ModelConfig, w, pre: str, x, state, split: bool):
+    """:func:`mamba_full` on the rank: with ``split`` (the state's
     ``d_inner`` over ``model``) on the rank's channel share, else on every
     channel. ``in_proj`` is ``(None, "model")`` over the concatenated
     ``[x | z]`` (width ``2·d_inner``), so its column blocks are not channel
@@ -177,16 +183,22 @@ def tp_mamba(cfg: ModelConfig, w, pre: str, x, state: dict, split: bool):
     ``z``): the leaf is gathered whole and both halves cut to the share.
     ``x_proj`` is row-parallel (a small all-reduce of dt, B and C),
     ``out_proj`` row-parallel. ``state`` holds the rank's ``conv`` (B,
-    d_conv-1, di_l) and ``ssm`` (B, di_l, ds) blocks, written in place."""
+    d_conv-1, di_l) and ``ssm`` (B, di_l, ds) blocks, written in place; None
+    (the training loss) starts from zeros and keeps nothing."""
     di, ds, dc, dtr = _dims(cfg)
     c0, c1 = w.share(di) if split else (0, di)
+    if state is None:
+        zero = mamba_init_state(cfg, x.shape[0], x.device)
+        state, keep = {"conv": zero["conv"][..., c0:c1], "ssm": zero["ssm"][:, c0:c1]}, False
+    else:
+        keep = True
     ch = (lambda n, dim: w.part(pre + n, dim, di)) if split else (lambda n, dim: w.whole(pre + n))
     xz = x @ w.whole(pre + "in_proj").to(x.dtype)
     x_in, z = xz[..., c0:c1], xz[..., di + c0: di + c1]
     p = {"conv_w": ch("conv_w", 1), "conv_b": ch("conv_b", 0)}
     xc, conv_state = _causal_conv(p, x_in, state["conv"])
     xc = _silu(xc)
-    x_dbl = tp.reduce_sum(w, xc.float() @ ch("x_proj", 0).float(), xc.dtype) if split else xc @ ch("x_proj", 0).to(
+    x_dbl = w.sum(xc.float() @ ch("x_proj", 0).float()).to(xc.dtype) if split else xc @ ch("x_proj", 0).to(
         xc.dtype)
     dt_r, B_, C_ = torch.split(x_dbl, [dtr, ds, ds], dim=-1)
     dt_r = rms_norm(dt_r, w.whole(pre + "dt_norm"))
@@ -194,8 +206,9 @@ def tp_mamba(cfg: ModelConfig, w, pre: str, x, state: dict, split: bool):
     C_ = rms_norm(C_, w.whole(pre + "c_norm")).float()
     dt = F.softplus((dt_r @ ch("dt_proj", 1).to(xc.dtype)).float() + ch("dt_bias", 0).float())
     A = -torch.exp(ch("A_log", 0).float())
-    y, h = _ssm_scan(dt, B_, C_, xc.float(), A, ch("D", 0).float(), state["ssm"])
-    state["conv"].copy_(conv_state)
-    state["ssm"].copy_(h)
+    y, h = _scan(dt, B_, C_, xc.float(), A, ch("D", 0).float(), state["ssm"])
+    if keep:
+        state["conv"].copy_(conv_state)
+        state["ssm"].copy_(h)
     y = y.to(x.dtype) * _silu(z)
     return tp.row(cfg, w, y, pre + "out_proj", di) if split else y @ w.whole(pre + "out_proj").to(x.dtype)

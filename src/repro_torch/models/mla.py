@@ -109,8 +109,12 @@ def _tp_params(cfg: ModelConfig, w, pre: str) -> dict:
 
 
 def tp_mla_full(cfg: ModelConfig, w, pre: str, x, positions, theta: float):
-    """:func:`mla_full` on the rank's heads, ``wo`` row-parallel. Returns
-    (out, (c_kv, k_rope)): the latent is the same on every ``model`` rank."""
+    """:func:`mla_full` on the rank's heads, ``wo`` row-parallel (whole
+    where no leaf is split over ``model``). Returns (out, (c_kv, k_rope)):
+    the latent is the same on every ``model`` rank."""
+    if w.replicated(pre):
+        return tp._whole(w, lambda h: mla_full(cfg, w.tree(pre), h, positions, theta), x)
+    x = w.enter(x)
     m = cfg.mla
     B, S, _ = x.shape
     cd = cfg.cdtype

@@ -9,8 +9,9 @@ token-id table (sentinel ``N`` on free slots) whose gather builds the
 ``(E, C, d)`` expert batch; the expert FFN is one batched product per
 weight over the expert axis. The combine is either ``k`` gathers (the
 default) or one gate-weighted scatter-add (``moe_scatter_combine``).
-``moe_dispatch_sharding`` only pins the ``(E, C, d)`` layout on a mesh in
-the reference; with no partitioner here it changes nothing, as in the
+``moe_dispatch_sharding`` pins the ``(E, C, d)`` layout on a mesh in the
+reference: the sharded steps lay it out (``models.tp.moe``, through
+``moe_apply``'s ``dispatch``); on one rank it changes nothing, as in the
 reference without a mesh.
 
 Where the reference scatters with ``mode="drop"`` at an out-of-range
@@ -31,8 +32,8 @@ exchanged over the dp axes so a group's queue positions continue where the
 earlier groups' (in row order) stop, and the aux loss comes back as its
 sums (:func:`router_aux_from_sums` forms it after the caller's
 all-reduce). A layer recomputed by ``remat`` in the caller's backward runs
-outside the region, where no collective may be issued: it reuses the
-exchange its forward made.
+outside the region, where no collective may be issued: it reads back the
+exchange its forward made (``models.tp.remat``).
 """
 
 from __future__ import annotations
@@ -87,38 +88,35 @@ def router_aux_from_sums(cfg: ModelConfig, sums: torch.Tensor) -> torch.Tensor:
 
 
 class GlobalRouting:
-    """One computing rank's view of the routing over every dp group of the
-    sharded step (the module docstring). ``comm`` is the rank's
-    :class:`StreamComm` over the dp axes (bound to the mesh), whose
-    group-rank order is the batch's row order. The caller brackets each
-    unit of its forward with :meth:`enter`; the k-th routing inside a unit
-    exchanges its pick counts on the unit's first run and reads that
-    exchange back when ``remat`` reruns the unit."""
+    """One rank's view of the routing over every dp group of the sharded
+    step (the module docstring). ``comm`` is the rank's :class:`StreamComm`
+    over the dp axes (bound to the mesh), whose group-rank order is the
+    batch's row order."""
 
     def __init__(self, comm: StreamComm):
         self.comm, self.n_groups = comm, comm.size()
-        self._log: dict = {}
-        self._key, self._i = None, 0
-
-    def enter(self, key) -> None:
-        self._key, self._i = key, 0
+        self.rank = comm.rank()  # read in the region: a remat recompute runs outside it
 
     def offsets(self, counts: torch.Tensor) -> torch.Tensor:
         """(k, E) queue offsets of this group's choices, pass by pass, from
         ``counts`` (k, E), this group's picks per expert in each pass: every
         group's picks in the earlier passes, then the earlier groups' in
         this pass."""
-        log = self._log.setdefault(self._key, [])
-        if self._i == len(log):
-            every, _ = all_gather(counts, self.comm, axis=0, tiled=False)  # (G, k, E)
-            per_pass = every.sum(0)
-            log.append(torch.cumsum(per_pass, dim=0) - per_pass + every[: self.comm.rank()].sum(0))
-        self._i += 1
-        return log[self._i - 1]
+        every, _ = all_gather(counts, self.comm, axis=0, tiled=False)  # (G, k, E)
+        per_pass = every.sum(0)
+        return torch.cumsum(per_pass, dim=0) - per_pass + every[: self.rank].sum(0)
+
+
+def _expert_ffn(p, xe):
+    """The grouped SwiGLU of the experts ``p`` holds on ``xe`` (E_l, C, d)."""
+    g = F.silu(torch.bmm(xe, p["we_gate"].to(xe.dtype)))
+    u = torch.bmm(xe, p["we_up"].to(xe.dtype))
+    return torch.bmm(g * u, p["we_down"].to(xe.dtype))
 
 
 def moe_apply(cfg: ModelConfig, p, x, train: bool = False, route: GlobalRouting | None = None,
-              experts: Tuple[int, int] | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+              experts: Tuple[int, int] | None = None, dispatch: Callable | None = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) → (y (B,S,d), aux loss scalar). ``p`` holds ``router``
     (d,E) fp32, ``we_gate``/``we_up`` (E,d,de), ``we_down`` (E,de,d) and,
     with shared experts, ``shared`` (a nested mapping: a plain dict's key
@@ -135,7 +133,7 @@ def moe_apply(cfg: ModelConfig, p, x, train: bool = False, route: GlobalRouting 
     same over all ``E``, but only the choices of those experts are
     dispatched and combined, so the outputs of the ranks that hold the
     other experts add up to the whole; this partial comes back in fp32
-    (``models.tp.reduce_sum`` rounds the sum once)."""
+    (``models.tp.RankWeights.leave`` rounds the sum once)."""
     m = cfg.moe
     B, S, d = x.shape
     N = B * S
@@ -179,12 +177,12 @@ def moe_apply(cfg: ModelConfig, p, x, train: bool = False, route: GlobalRouting 
         keep = keep & (topi >= e0) & (topi < e1)
         table = table[e0 * C: e1 * C]
     x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
-    xe = x_pad[table.view(e1 - e0, C)]  # (E,C,d)
 
     # --- grouped expert FFN ----------------------------------------------
-    g = F.silu(torch.bmm(xe, p["we_gate"].to(xe.dtype)))
-    u = torch.bmm(xe, p["we_up"].to(xe.dtype))
-    ye = torch.bmm(g * u, p["we_down"].to(xe.dtype))  # (E,C,d)
+    if dispatch is not None and C % 16 == 0:
+        ye = dispatch(table.view(e1 - e0, C), x_pad, lambda xe: _expert_ffn(p, xe))
+    else:
+        ye = _expert_ffn(p, x_pad[table.view(e1 - e0, C)])  # (E,C,d)
 
     # --- combine -----------------------------------------------------------
     odt = x.dtype if experts is None else torch.float32

@@ -37,14 +37,14 @@ axis 0 with the batch on axis 1, so ``ServeEngine``'s splice holds:
 :func:`rwkv_loss` takes the default route, as the reference's does, so
 the trainer differentiates it; under autograd with inputs that need a
 gradient the kernel route raises ``NotImplementedError`` (K3 has no
-backward, nor has the reference's kernel). Its sharded form
-(:func:`loss_units`) takes the same route, layer by layer.
+backward, nor has the reference's kernel). The sharded train step's
+per-rank loss (:func:`tp_loss`) takes the per-token route, layer by layer,
+on the rank's heads.
 """
 
 from __future__ import annotations
 
-import functools
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -53,17 +53,14 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models import tp
 from repro_torch.models.common import (
-    Unit,
     apply_norm,
     dense_init,
     embed,
     embed_params,
-    head_unit,
     logits_out,
     meta_scan,
     next_token_xent,
     norm_params,
-    unit_call,
 )
 from repro_torch.models.config import ModelConfig
 
@@ -76,7 +73,7 @@ __all__ = [
     "rwkv_loss",
     "rwkv_prefill",
     "rwkv_decode_step",
-    "loss_units",
+    "tp_loss",
     "tp_prefill",
     "tp_decode_step",
     "HEAD_SIZE",
@@ -389,23 +386,33 @@ def _d_span(w, spec, d: int):
     return 0, d
 
 
-def _tp_layer(cfg: ModelConfig, w, l: int, x, st: dict, specs: dict, use_kernel: bool):
+def _tp_layer(cfg: ModelConfig, w, l: int, x, st, specs, use_kernel: bool):
     """One RWKV-6 layer on the rank: the time-mix's token shift and LoRAs
     read all of ``d`` (the rank's ``x_tm``/``x_cm`` blocks all-gathered at
     entry), ``w[rkvg]`` and the WKV recurrence on the rank's heads (its
     ``wkv`` block; every head where ``model`` does not divide them, the
     state being replicated then), ``wo`` and ``wv_c`` row-parallel,
     ``wr_c`` column-parallel with its gate all-gathered. ``st`` holds the
-    rank's blocks of this layer, written in place."""
+    rank's blocks of this layer, written in place, laid out by ``specs``;
+    ``st=None`` (the training loss, per-token route) starts from zeros,
+    heads split as ``cache_specs`` would split the state, and keeps
+    nothing."""
     pre = f"layers.{l}."
     B, S, d = x.shape
     H, cd = _n_heads(cfg), x.dtype
-    split = tp.MODEL in specs["wkv"].dim_axes(2)  # the rank's heads, or every head on every rank
+    # the rank's heads, or every head on every rank
+    split = tp.MODEL in specs["wkv"].dim_axes(2) if st is not None else H % w.size == 0
     h0, h1 = w.share(H) if split else (0, H)
     c0, c1 = h0 * HEAD_SIZE, h1 * HEAD_SIZE
     cols = (lambda n: w.part(pre + "p." + n, 1, H)) if split else (lambda n: w.whole(pre + "p." + n))
     full = lambda n: w.whole(pre + "p." + n)  # noqa: E731
-    t0, tn = _d_span(w, specs["x_tm"], d)
+    t0, tn = _d_span(w, specs["x_tm"], d) if st is not None else (0, d)
+    if st is None:
+        st = {"x_tm": x.new_zeros((B, d)), "x_cm": x.new_zeros((B, d)),
+              "wkv": torch.zeros((B, h1 - h0, HEAD_SIZE, HEAD_SIZE), dtype=torch.float32, device=x.device)}
+        keep = False
+    else:
+        keep = True
 
     def last(key):
         prev = st[key].to(cd)
@@ -432,14 +439,16 @@ def _tp_layer(cfg: ModelConfig, w, l: int, x, st: dict, specs: dict, use_kernel:
         yh, wkv = ops.wkv6(w32, r32, k32, v32, bonus, st["wkv"], chunk=KERNEL_CHUNK)
     else:
         yh, wkv = _wkv_scan(w32, r32, k32, v32, bonus, st["wkv"])
-    st["wkv"].copy_(wkv)
+    if keep:
+        st["wkv"].copy_(wkv)
     mu_, var = yh.mean(-1, keepdim=True), yh.var(-1, keepdim=True, unbiased=False)
     yh = (yh - mu_) * torch.rsqrt(var + 64e-5)
     ln_x = w.tree(pre + "ln_x.")
     y = yh.reshape(B, S, -1) * ln_x["w"][c0:c1].float() + ln_x["b"][c0:c1].float()
     y = y.to(cd) * g
     a = tp.row(cfg, w, y, pre + "p.wo", H) if split else y @ full("wo").to(cd)
-    st["x_tm"].copy_(h[:, -1, t0:t0 + tn])
+    if keep:
+        st["x_tm"].copy_(h[:, -1, t0:t0 + tn])
     x = x + a
     # channel-mix
     h = tp.norm(cfg, w, pre + "ln2.", x)
@@ -451,7 +460,8 @@ def _tp_layer(cfg: ModelConfig, w, l: int, x, st: dict, specs: dict, use_kernel:
     kv = tp.row(cfg, w, kk, pre + "p.wv_c", cfg.d_ff)
     r0, r1 = w.share(d)
     c = torch.sigmoid(tp.column(cfg, w, xr, pre + "p.wr_c", d)) * kv[..., r0:r1]
-    st["x_cm"].copy_(h[:, -1, t0:t0 + tn])
+    if keep:
+        st["x_cm"].copy_(h[:, -1, t0:t0 + tn])
     return x + w.gather(c, axis=-1)
 
 
@@ -487,29 +497,13 @@ def tp_decode_step(cfg: ModelConfig, w, cache, tokens, pos):
     return tp.logits(cfg, w, x)[:, 0]
 
 
-# ----------------------------------------------------------------------
-# the sharded form of the loss (models.common.run_units)
-# ----------------------------------------------------------------------
-
-
-def _embed_unit(cfg: ModelConfig, params, c, route):
-    tokens = c["tokens"].long()
-    return {**c, "tokens": tokens, "x": embed(cfg, params[0], tokens)}
-
-
-def _layer_unit(cfg: ModelConfig, layer: RWKVLayer, params, c, route):
-    x = c["x"]
-    H, B = _n_heads(cfg), x.shape[0]
-    zeros = {"x_tm": x.new_zeros((B, cfg.d_model)), "x_cm": x.new_zeros((B, cfg.d_model)),
-             "wkv": torch.zeros((B, H, HEAD_SIZE, HEAD_SIZE), dtype=torch.float32, device=x.device)}
-    x, _ = unit_call(layer, params[0], lambda m: _layer(cfg, m, x, zeros, False))
-    return {**c, "x": x}
-
-
-def loss_units(cfg: ModelConfig, model: RWKVLM) -> List[Unit]:
-    """:func:`rwkv_loss` as units (``models.common.Unit``): the embedding,
-    each layer ``layers.{i}`` on the per-token route from a zero state, and
-    the head. No remat, as :func:`rwkv_loss` has none."""
-    units = [Unit(("embed.",), functools.partial(_embed_unit, cfg))]
-    units += [Unit((f"layers.{i}.",), functools.partial(_layer_unit, cfg, layer)) for i, layer in enumerate(model.layers)]
-    return units + [head_unit(cfg)]
+def tp_loss(cfg: ModelConfig, w, batch):
+    """Per rank, inside the sharded train step's region: the sums of
+    :func:`rwkv_loss` over this rank's rows (``{"xent": (sum, count)}``),
+    every layer on the per-token route from zero states (no remat, as
+    :func:`rwkv_loss` has none)."""
+    tokens = batch["tokens"].long()
+    x = tp.embed(cfg, w, tokens)
+    for l in range(cfg.n_layers):
+        x = _tp_layer(cfg, w, l, x, None, None, False)
+    return {"xent": tp.xent(cfg, w, tp.norm(cfg, w, "final_norm.", x), tokens, batch.get("loss_mask"))}

@@ -15,15 +15,15 @@ per group, a tuple per pattern position of a pair, each ``(reps, B, T,
 max_len)`` on a sliding-window layer, a ring where position ``p`` lives at
 slot ``p % T``), ``(c_kv, k_rope)`` latent rows for MLA.
 
-The sharded form of the loss (:func:`loss_units`, run by
-:func:`lm_xent_blocks`) covers every config: MoE layers route over the
-whole microbatch (``models.moe.GlobalRouting``), MLA, the VLM prefix and
-MTP as in :func:`lm_loss`.
+The sharded steps' per-rank forms (:func:`tp_loss`, :func:`tp_prefill`,
+:func:`tp_decode_step`, on ``models.tp``) cover every config: MoE layers
+expert-parallel (in training routed over the whole microbatch,
+``models.moe.GlobalRouting``), MLA, local windows, the VLM prefix and MTP
+as in :func:`lm_loss`.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -36,19 +36,15 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import tp
 from repro_torch.models.common import (
-    Unit,
     apply_norm,
     embed,
     gqa_attention_decode,
     gqa_attention_full,
-    head_unit,
     logits_out,
     next_token_xent,
     remat_wrap,
-    run_units,
     swiglu,
     tag_act,
-    unit_call,
 )
 from repro_torch.models.config import ModelConfig
 
@@ -69,8 +65,7 @@ __all__ = [
     "init_cache",
     "prefill",
     "decode_step",
-    "loss_units",
-    "lm_xent_blocks",
+    "tp_loss",
     "tp_prefill",
     "tp_decode_step",
 ]
@@ -498,66 +493,37 @@ def decode_step(cfg: ModelConfig, model: TransformerLM, cache, tokens, pos):
 
 
 # ----------------------------------------------------------------------
-# the sharded form of the loss (models.common.run_units)
+# the sharded steps' per-rank forms (models.tp)
 # ----------------------------------------------------------------------
 
 
-def _embed_unit(cfg: ModelConfig, params, c, route):
-    tokens = c["tokens"].long()
-    x, positions, n_img = _embed_x(cfg, params[0], params[1] if cfg.vlm else None, tokens, c)
-    return {**c, "tokens": tokens, "x": x, "positions": positions, "n_img": n_img, "router": []}
+def _tp_layer(cfg: ModelConfig, w, pre: str, spec: LayerSpec, x, positions, seq: bool, train: bool = False):
+    """One full-sequence layer on the rank: (x, aux, cache seed). The
+    attention on the rank's heads (MLA: ``mla.tp_mla_full``), the FFN
+    column/row- or expert-parallel, a sublayer whose weights are all
+    replicated over ``model`` whole (``models.tp``'s leaf rule). With
+    ``seq`` (``seq_shard_acts``) ``x`` is the rank's share of ``S``: each
+    sublayer's input is all-gathered along ``S`` and its output
+    reduce-scattered back to the share (``RankWeights.enter``/``leave``)."""
+    with w.sequence(seq):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        h = tp.norm(cfg, w, pre + "ln1.", x)
+        if spec.attn == "mla":
+            a, seed = mla_mod.tp_mla_full(cfg, w, pre + "attn.", h, positions, spec.theta)
+        else:
+            a, seed = tp.attention_full(cfg, w, pre + "attn.", h, positions, window=spec.window, theta=spec.theta)
+        x = x + tag_act(cfg, a, "attn_out")
+        h = tp.norm(cfg, w, pre + "ln2.", x)
+        if spec.moe:
+            f, aux = tp.moe(cfg, w, pre + "ffn.", h, train)
+        else:
+            f = tp.swiglu(cfg, w, pre + "ffn.", h, spec.d_ff or cfg.d_ff)
+        return x + tag_act(cfg, f, "ffn_out"), aux, seed
 
 
-def _layer_unit(cfg: ModelConfig, layer: DecoderLayer, params, c, route):
-    x, aux, _ = unit_call(layer, params[0], lambda m: m.apply_full(cfg, c["x"], c["positions"], True, route))
-    return {**c, "x": x, "router": c["router"] + [aux] if layer.spec.moe else c["router"]}
-
-
-def _mtp_unit(cfg: ModelConfig, head: MTPHead, params, c, route):
-    mtp, emb, norm = params
-    tokens = c["tokens"]
-    h = c["x"][:, c["n_img"]:]
-    loss = unit_call(head, mtp, lambda m: m.loss(cfg, emb, norm, h, tokens, route))
-    count = torch.tensor(float(tokens[:, 2:].numel()), device=loss.device)
-    return {**c, "mtp": (loss * count, count)}
-
-
-def loss_units(cfg: ModelConfig, model: TransformerLM) -> List[Unit]:
-    """:func:`lm_loss` as units (``models.common.Unit``): the embedding
-    (with the image projection of a VLM), each layer ``groups.{g}.{l}``
-    under the remat policy, the head and, with MTP, the MTP head. The MoE
-    layers' router sums go to ``router`` (the MTP layer's are dropped, as
-    in :func:`lm_loss`)."""
-    units = [Unit(("embed.", "img_proj") if cfg.vlm else ("embed.",), functools.partial(_embed_unit, cfg))]
-    for gi, layers in enumerate(model.groups):
-        for li, layer in enumerate(layers):
-            units.append(Unit((f"groups.{gi}.{li}.",), functools.partial(_layer_unit, cfg, layer), remat=True))
-    units.append(head_unit(cfg))
-    if cfg.mtp_depth:
-        units.append(Unit(("mtp.", "embed.", "final_norm."), functools.partial(_mtp_unit, cfg, model.mtp)))
-    return units
-
-
-def lm_xent_blocks(cfg: ModelConfig, model: TransformerLM, blocks, specs, batch, compute: bool = True, route=None):
-    """Per-rank: the sums of :func:`lm_loss` over this rank's ``batch``,
-    every parameter gathered from this rank's ``blocks`` (name → block,
-    laid out by ``specs``) at the entry of the unit that uses it and
-    applied with ``torch.func.functional_call`` on ``model``'s modules
-    (which may live on ``torch.device("meta")``): ``{"xent": (sum, count),
-    "router": [per MoE layer, moe_apply's sums], "mtp": (sum, count)}``
-    (``mtp`` with MTP). With ``compute=False`` the rank only takes part in
-    the gathers its peers need and returns ``None``. ``route`` is the MoE
-    layers' :class:`~repro_torch.models.moe.GlobalRouting`."""
-    return run_units(cfg, loss_units(cfg, model), blocks, specs, batch if compute else None, route)
-
-
-# ----------------------------------------------------------------------
-# the sharded serve steps' per-rank forms (models.tp)
-# ----------------------------------------------------------------------
-
-
-def _tp_ffn(cfg: ModelConfig, w, pre: str, spec: LayerSpec, h):
-    return tp.moe(cfg, w, pre + "ffn.", h) if spec.moe else tp.swiglu(cfg, w, pre + "ffn.", h, spec.d_ff or cfg.d_ff)
+def _tp_train_layer(cfg: ModelConfig, w, pre: str, spec: LayerSpec, x, positions, seq: bool):
+    x, aux, _ = _tp_layer(cfg, w, pre, spec, x, positions, seq, True)
+    return x, aux
 
 
 def _tp_layers(cfg: ModelConfig):
@@ -569,6 +535,62 @@ def _tp_layers(cfg: ModelConfig):
             yield gi, pi, r, f"groups.{gi}.{i}.", pattern[pi]
 
 
+def _tp_embed(cfg: ModelConfig, w, tokens, batch, seq: bool):
+    """(x, positions, n_img): :func:`_embed_x` on the rank (the embedding
+    vocab-parallel, ``img_proj`` whole), with ``seq`` the rank's share of
+    the sequence (the prefix included)."""
+    x = tp.embed(cfg, w, tokens)
+    n_img = 0
+    if cfg.vlm and "img_embeds" in batch:
+        img = batch["img_embeds"].to(cfg.cdtype)
+        x = torch.cat([img @ w.whole("img_proj").to(cfg.cdtype), x], dim=1)
+        n_img = img.shape[1]
+    B, S, _ = x.shape
+    with w.sequence(seq):
+        x = w.local(x)
+    return x, torch.arange(S, device=x.device).expand(B, S), n_img
+
+
+def _tp_mtp(cfg: ModelConfig, w, h, tokens):
+    """:meth:`MTPHead.loss` on the rank, as (sum, count): the head's layer
+    tensor-parallel, its logits vocab-parallel (``models.tp.xent``)."""
+    B, S, _ = h.shape
+    hh = tp.norm(cfg, w, "mtp.norm_h.", h[:, : S - 1])
+    e = tp.norm(cfg, w, "mtp.norm_e.", tp.embed(cfg, w, tokens[:, 1:]))
+    z = torch.cat([hh, e], dim=-1) @ w.whole("mtp.proj").to(cfg.cdtype)
+    positions = torch.arange(S - 1, device=z.device).expand(B, S - 1)
+    z, _ = _tp_train_layer(cfg, w, "mtp.layer.", layer_groups(cfg)[-1][0][0], z, positions, False)
+    return tp.xent(cfg, w, tp.norm(cfg, w, "final_norm.", z), tokens[:, 1:])
+
+
+def tp_loss(cfg: ModelConfig, w, batch):
+    """Per rank, inside the sharded train step's region: the sums of
+    :func:`lm_loss` over this rank's rows of ``batch`` with
+    tensor-parallel layers (``models.tp``, ``w`` a
+    :class:`~repro_torch.models.tp.RankWeights` whose ``route`` routes the
+    MoE layers over the dp groups), each layer under the remat policy:
+    ``{"xent": (sum, count), "router": [per MoE layer, moe_apply's sums],
+    "mtp": (sum, count)}`` (``mtp`` with MTP; its layer's router sums
+    dropped, as :func:`lm_loss` drops them). The VLM prefix is left out of
+    the loss."""
+    tokens = batch["tokens"].long()
+    seq = w.seq_splits(cfg, tokens.shape[1] + (batch["img_embeds"].shape[1] if cfg.vlm and "img_embeds" in batch
+                                               else 0))
+    x, positions, n_img = _tp_embed(cfg, w, tokens, batch, seq)
+    router = []
+    for _, _, _, pre, spec in _tp_layers(cfg):
+        x, aux = tp.remat(cfg, _tp_train_layer)(cfg, w, pre, spec, x, positions, seq)
+        if spec.moe:
+            router.append(aux)
+    with w.sequence(seq):  # under seq_shard_acts the trunk's output gathered along S
+        h = w.enter(x)[:, n_img:]
+    sums = {"xent": tp.xent(cfg, w, tp.norm(cfg, w, "final_norm.", h), tokens, batch.get("loss_mask")),
+            "router": router}
+    if cfg.mtp_depth:
+        sums["mtp"] = _tp_mtp(cfg, w, h, tokens)
+    return sums
+
+
 def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):
     """Per rank, inside the sharded prefill's region: :func:`prefill` on
     this rank's rows of ``batch`` with tensor-parallel layers
@@ -576,28 +598,27 @@ def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):
     Returns (last logits (B_l, vocab), the rank's cache blocks in the
     cache's tree), ``specs`` being that tree's ``cache_specs``."""
     tokens = batch["tokens"].long()
-    x = tp.embed(cfg, w, tokens)
-    if cfg.vlm and "img_embeds" in batch:
-        img = batch["img_embeds"].to(cfg.cdtype)
-        x = torch.cat([img @ w.whole("img_proj").to(cfg.cdtype), x], dim=1)
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    seq = w.seq_splits(cfg, tokens.shape[1] + (batch["img_embeds"].shape[1] if cfg.vlm and "img_embeds" in batch
+                                               else 0))
+    x, positions, _ = _tp_embed(cfg, w, tokens, batch, seq)
     blocks = [[[[], []] for _ in pattern] for pattern, _ in layer_groups(cfg)]
     for gi, pi, _, pre, spec in _tp_layers(cfg):
-        h = tp.norm(cfg, w, pre + "ln1.", x)
         T, spec0 = _cache_len(spec, max_len), specs[gi][pi][0]
+        x, _, seed = _tp_layer(cfg, w, pre, spec, x, positions, seq)
         if spec.attn == "mla":
-            a, (c_kv, k_rope) = mla_mod.tp_mla_full(cfg, w, pre + "attn.", h, positions, spec.theta)
-            pair = tp.span_block(w, c_kv, T, spec0), tp.span_block(w, k_rope, T, specs[gi][pi][1])
+            pair = tp.span_block(w, seed[0], T, spec0), tp.span_block(w, seed[1], T, specs[gi][pi][1])
         else:
-            a, seed = tp.attention_full(cfg, w, pre + "attn.", h, positions, window=spec.window, theta=spec.theta)
             pair = tp.cache_block(w, seed, T, spec0)
-        x = x + a
-        x = x + _tp_ffn(cfg, w, pre, spec, tp.norm(cfg, w, pre + "ln2.", x))
         for j in (0, 1):
             blocks[gi][pi][j].append(pair[j])
-    logits = tp.logits(cfg, w, tp.norm(cfg, w, "final_norm.", x[:, -1]))
+    last = w.gather(x[:, -1:], axis=1)[:, -1] if seq else x[:, -1]
+    logits = tp.logits(cfg, w, tp.norm(cfg, w, "final_norm.", last))
     return logits, [tuple(tuple(torch.stack(t) for t in pair) for pair in g) for g in blocks]
+
+
+def _tp_ffn(cfg: ModelConfig, w, pre: str, spec: LayerSpec, h):
+    return tp.moe(cfg, w, pre + "ffn.", h)[0] if spec.moe else tp.swiglu(cfg, w, pre + "ffn.", h,
+                                                                          spec.d_ff or cfg.d_ff)
 
 
 def tp_decode_step(cfg: ModelConfig, w, cache, tokens, pos):
@@ -605,7 +626,8 @@ def tp_decode_step(cfg: ModelConfig, w, cache, tokens, pos):
     on this rank's rows with tensor-parallel layers and the
     sequence-parallel attention of ``models.tp``. ``cache`` is the cache's
     tree of ``ShardedTensor`` s (their blocks at ``w.slot`` are written in
-    place). Returns the logits (B_l, vocab)."""
+    place). Returns the logits (B_l, vocab). One token: ``seq_shard_acts``
+    does not split it."""
     tokens, pos = tokens.long(), pos.long()
     x = tp.embed(cfg, w, tokens[:, None])
     for gi, pi, r, pre, spec in _tp_layers(cfg):

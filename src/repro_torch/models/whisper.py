@@ -14,9 +14,14 @@ scans; the port holds one module per layer (``models.convert`` maps
 ``enc_layers.{l}.<leaf>`` to row ``l`` of ``enc_layers/<leaf>``). The
 cache keeps the reference's layout, ``{"self": (K, V), "cross": (K, V)}``,
 each ``(L, B, T, nkv, hd)``; decode writes the self-attention rows in
-place. The sharded form of the loss (:func:`loss_units`) enters the
-encoder's layers, its final norm, the decoder's embedding and layers and
-the head one after another, each layer under the remat policy.
+place. The sharded train step runs Whisper's loss in its gathered form
+(:func:`loss_units`, ``models.common.run_units``): the encoder's layers,
+its final norm, the decoder's embedding and layers and the head one after
+another, each layer under the remat policy and its weights gathered whole
+at its entry. A tensor-parallel decomposition sums the key biases'
+gradients, which are zero in exact arithmetic (no rope), in another order
+than the single-rank step and the grads tests hold them to that step's
+rounding (ROADMAP P11c).
 """
 
 from __future__ import annotations
@@ -330,29 +335,29 @@ def tp_decode_step(cfg: ModelConfig, w, cache, tokens, pos):
     return tp.logits(cfg, w, tp.norm(cfg, w, "final_norm.", x))[:, 0]
 
 
-# -- the sharded form of the loss (models.common.run_units) -------------------
+# -- the gathered form of the loss (models.common.run_units) ------------------
 
 
-def _frames_unit(cfg: ModelConfig, params, c, route):
+def _frames_unit(cfg: ModelConfig, params, c):
     x, positions = _enc_in(cfg, c["enc_frames"].to(cfg.cdtype))
     return {**c, "enc": x, "enc_positions": positions}
 
 
-def _enc_unit(cfg: ModelConfig, layer: EncoderLayer, params, c, route):
+def _enc_unit(cfg: ModelConfig, layer: EncoderLayer, params, c):
     return {**c, "enc": unit_call(layer, params[0], lambda m: _enc_layer(cfg, m, c["enc"], c["enc_positions"]))}
 
 
-def _enc_post_unit(cfg: ModelConfig, params, c, route):
+def _enc_post_unit(cfg: ModelConfig, params, c):
     return {**c, "enc": apply_norm(cfg, params[0], c["enc"])}
 
 
-def _dec_in_unit(cfg: ModelConfig, params, c, route):
+def _dec_in_unit(cfg: ModelConfig, params, c):
     tokens = c["tokens"].long()
     x, positions = _dec_in(cfg, params[0], tokens)
     return {**c, "tokens": tokens, "x": x, "positions": positions}
 
 
-def _dec_unit(cfg: ModelConfig, layer: DecoderLayer, params, c, route):
+def _dec_unit(cfg: ModelConfig, layer: DecoderLayer, params, c):
     x = unit_call(layer, params[0], lambda m: _dec_layer(cfg, m, c["x"], c["positions"], c["enc"])[0])
     return {**c, "x": x}
 

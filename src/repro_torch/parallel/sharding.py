@@ -20,8 +20,9 @@ the bridge between the two trees' names. Every rule is applied to the
 stacked shape, as in the reference, so the divisibility checks and the
 FSDP and ZeRO-1 dim choices are the reference's. Where ZeRO-1 puts the dp
 axes on the stacking dim itself (the layer count divides by the dp size),
-the entry goes with the dim: each dp rank then keeps that layer's moment
-whole (ROADMAP: the sharded step's memory).
+layer ``l``'s moment spec is a ``core.mesh.StackRow``: the layer's own
+dims laid out as its param's, held only by dp rank ``l // (L / n_dp)``,
+whose block of the reference's stacked moment holds row ``l``.
 
 Shapes come from the module's parameters, so a model built on
 ``torch.device("meta")`` gives full-width specs without allocating
@@ -35,7 +36,7 @@ import math
 import re
 from typing import Dict, Tuple
 
-from repro_torch.core.mesh import P
+from repro_torch.core.mesh import P, StackRow
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import leaf_map
 
@@ -246,9 +247,11 @@ def cache_specs(cfg: ModelConfig, cache, mesh, seq_axis_model: bool = True):
 def opt_state_specs(cfg: ModelConfig, pspecs: Dict[str, P], model, mesh, zero1: bool = True) -> Dict[str, P]:
     """Optimizer-moment specs = param specs, optionally ZeRO-1-extended:
     the first unsharded, data-divisible dim of the reference's (stacked)
-    leaf also shards over the dp axes. Keyed like ``pspecs``. A param spec
-    that FSDP already shards over the dp axes stays as it is, where the
-    reference would name the dp axes twice (a spec JAX refuses to use)."""
+    leaf also shards over the dp axes — the stacking dim itself gives each
+    layer a ``StackRow`` spec (the module docstring). Keyed like
+    ``pspecs``. A param spec that FSDP already shards over the dp axes
+    stays as it is, where the reference would name the dp axes twice (a
+    spec JAX refuses to use)."""
     dp = dp_axes(mesh)
     n_dp = _axes_size(mesh, dp)
     out = {}
@@ -261,8 +264,8 @@ def opt_state_specs(cfg: ModelConfig, pspecs: Dict[str, P], model, mesh, zero1: 
                     entries[i] = dp
                     break
         spec = _per_layer(P(*entries), stacked, len(shape))
-        for n in names:
-            out[n] = spec
+        for l, n in enumerate(names):
+            out[n] = StackRow(spec, dp, l, len(names)) if stacked and dp and entries[0] == dp else spec
     return out
 
 

@@ -6,9 +6,9 @@ production mesh is monkeypatched; 256 thread-ranks are the command line's
 business, not a test's): its row has the reference's keys, its argument
 bytes equal a reckoning from the port's specs, its collectives are
 counted, a train cell of every family counts the sharded step, a prefill
-and a decode cell count the sharded serve steps, and only a train cell
-under a refused layout hint carries null collectives and temp bytes, with
-its reason. ``run_cells``' skips follow the reference's
+and a decode cell count the sharded serve steps, and a train cell under
+either layout hint counts its step too: no row is null. ``run_cells``'
+skips follow the reference's
 applicability, and every hillclimb variant sets the same config fields on
 the port's config as on the reference's. All exact.
 """
@@ -25,6 +25,7 @@ jax = pytest.importorskip("jax")
 from repro.configs import registry as jreg  # noqa: E402
 from repro.launch import roofline as jrl  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
+from repro_torch.core.mesh import NamedSharding  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as lmesh  # noqa: E402
 from repro_torch.launch.hillclimb import VARIANTS  # noqa: E402
@@ -39,9 +40,11 @@ MEMORY_KEYS = {"argument_bytes", "output_bytes", "temp_bytes", "peak_bytes_per_d
 
 @pytest.fixture
 def small(monkeypatch):
-    """The smoke configs on a (2, 2) meta mesh."""
+    """The smoke configs on a (2, 2) meta mesh (a train cell's step on its
+    folded twin)."""
     mesh = lmesh.make_host_mesh((2, 2), device="meta")
-    monkeypatch.setattr(dryrun, "make_production_mesh", lambda multi_pod=False: mesh)
+    monkeypatch.setattr(dryrun, "make_production_mesh", lambda multi_pod=False, fold=():
+                        lmesh.make_host_mesh((2, 2), device="meta", fold=fold) if fold else mesh)
     monkeypatch.setattr(treg, "get_config", lambda arch, smoke=False, get=treg.get_config: get(arch, smoke=True))
     return mesh
 
@@ -68,7 +71,8 @@ def test_lower_cell_train_row(small):
     want = 0
     for n, p in params.items():
         want += _block_numel(p.shape, pspecs[n], small) * p.element_size()
-        want += 3 * _block_numel(p.shape, ospecs[n], small) * 4  # m, v and the fp32 master
+        if NamedSharding(small, ospecs[n]).holds(0):  # a layer's ZeRO-1 moments live on one dp rank
+            want += 3 * _block_numel(p.shape, ospecs[n], small) * 4  # m, v and the fp32 master
     want += 4  # the int32 step count
     want += shape.global_batch // 2 * shape.seq_len * 4  # int32 tokens over the data axis
     assert row["memory"]["argument_bytes"] == want
@@ -83,24 +87,20 @@ def test_lower_cell_train_row(small):
 @pytest.mark.parametrize("arch,shape", [("granite-moe-1b-a400m", "prefill_32k"), ("qwen1.5-0.5b", "decode_32k"),
                                         ("granite-moe-1b-a400m", "train_4k")])
 def test_lower_cell_null_with_reason(small, arch, shape):
-    """Only a cell under a layout hint the sharded steps refuse is null
-    (with its reason): a serve cell counts its sharded prefill or decode
-    step's collectives and temp bytes; the train cell here is run under
-    ``moe_dispatch_sharding``."""
+    """No cell is null any more (the name is the one the test had when a
+    cell under a refused layout hint was): a serve cell counts its sharded
+    prefill or decode step's collectives and temp bytes; the train cell
+    here, run under ``moe_dispatch_sharding``, counts its step's too."""
     hint = shape == "train_4k"
     row = dryrun.lower_cell(arch, shape, verbose=False,
                             cfg_transform=(lambda c: c.replace(moe_dispatch_sharding=True)) if hint else None)
     assert row["roofline"]["hlo_flops"] > 0 and row["roofline"]["t_memory_s"] > 0
     assert row["memory"]["argument_bytes"] > 0
-    if hint:
-        assert row["collectives"] is None and row["memory"]["temp_bytes"] is None
-        assert row["memory"]["peak_bytes_per_device"] is None
-        assert row["roofline"]["t_collective_s"] is None and row["roofline"]["coll_bytes_per_chip"] is None
-        assert "moe_dispatch_sharding" in row["reason"] and "P11c" in row["reason"]
-        return
     coll = row["collectives"]
     assert coll is not None and coll["all-reduce"] > 0 and "reason" not in row
-    if shape.startswith("decode"):
+    if hint:
+        assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
+    elif shape.startswith("decode"):
         assert coll["all-gather"] > 0  # q, the new K/V row and the attention partials
     else:
         assert coll["all-to-all"] > 0  # the prefill's K/V into the T-over-model cache
@@ -122,12 +122,33 @@ def test_lower_cell_train_row_of_every_family(small, arch):
 
 @pytest.mark.parametrize("knob", ["seq_shard_acts", "moe_dispatch_sharding"])
 def test_lower_cell_names_a_refused_knob(small, knob):
-    """A train cell under a layout hint the sharded step refuses keeps its
-    cost and is null with the knob named (ROADMAP P11c)."""
+    """A ``granite × train_4k`` row under either layout hint (once refused,
+    hence the name) has its collectives and temp bytes and no reason; under
+    ``seq_shard_acts`` the step reduce-scatters the sublayer outputs over
+    ``model``, where the hint-free step all-reduces them."""
     row = dryrun.lower_cell("granite-moe-1b-a400m", "train_4k", verbose=False,
                             cfg_transform=lambda c: c.replace(**{knob: True}))
-    assert row["collectives"] is None and row["memory"]["temp_bytes"] is None
-    assert knob in row["reason"] and "P11c" in row["reason"] and row["roofline"]["hlo_flops"] > 0
+    coll = row["collectives"]
+    assert coll is not None and row["memory"]["temp_bytes"] > 0 and "reason" not in row
+    assert row["roofline"]["hlo_flops"] > 0 and row["roofline"]["t_collective_s"] > 0
+    if knob == "seq_shard_acts":
+        base = dryrun.lower_cell("granite-moe-1b-a400m", "train_4k", verbose=False)["collectives"]
+        assert coll["reduce-scatter"] > base["reduce-scatter"] and coll["all-reduce"] < base["all-reduce"]
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-1b-a400m"])
+def test_folded_train_cell_counts_the_full_mesh(arch):
+    """A train cell's step run with the dp axes folded (one rank per
+    ``model`` index standing for its dp peers) counts exactly the
+    collectives of the step run on every rank of a ``(2, 2, 2)`` meta mesh;
+    its temp bytes, the region's peak over the ranks that ran, are at
+    least the unfolded count's (the one op running at a time is spread
+    over fewer ranks) and within 20% of it (1.06–1.13 times it on meshes of
+    2–16 × 2, ``dryrun --fold-check``)."""
+    r = dryrun.fold_check(arch, (2, 2, 2), ("pod", "data", "model"))
+    full, folded = r["unfolded"], r["folded"]
+    assert folded["collectives"] == full["collectives"] and full["collectives"]["all-reduce"] > 0
+    assert full["temp_bytes"] <= folded["temp_bytes"] <= 1.2 * full["temp_bytes"]
 
 
 def test_run_cells_skips_follow_reference(monkeypatch):

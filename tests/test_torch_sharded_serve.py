@@ -214,19 +214,49 @@ def test_stagger_crosses_rank_spans():
 
 @pytest.mark.parametrize("knob", ["seq_shard_acts", "moe_dispatch_sharding"])
 def test_sharded_serve_refuses_layout_hints(knob):
-    """The two layout hints stay refused in the sharded serve steps (ROADMAP
-    P11c), as in the sharded train step; on one rank they change nothing."""
-    from repro_torch.launch.train import make_prefill_step, make_serve_step, shard_cache
-    from repro_torch.models import api
+    """Each layout hint in the sharded serve steps (granite on ``(2, 2)``
+    ``("data", "model")``, the rows split over ``data``): the prefill's
+    logits and cache blocks and three decode steps' logits equal the
+    hint-free steps' (1e-6), and the prefill counts the hint's collectives
+    over its axis: reduce-scatters over ``model`` (the 16-token prompt
+    splits over ``model``; decode's one token does not), or all-to-alls
+    over ``data`` (the prefill's 32 tokens give ``C = 32``, ``C % 16 ==
+    0``). (The test's name is the refusal it held before the hints were
+    laid out.)"""
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.train import make_prefill_step, make_serve_step
 
     cfg, mesh, put = _sharded("granite-moe-1b-a400m", (2, 2), ("data", "model"))
-    cfg = cfg.replace(**{knob: True})
-    params = put(api.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
-    tokens = torch.zeros((2, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match=f"{knob}.*P11c"):
-        make_prefill_step(cfg)(params, {"tokens": tokens}, 16)
-    with pytest.raises(NotImplementedError, match=f"{knob}.*P11c"):
-        make_serve_step(cfg)(params, shard_cache(cfg, mesh, 2, 16), tokens[:, 0], torch.full((2,), 8))
+    params = put(api_init(cfg))
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 16)))
+    runs = []
+    for c in (cfg, cfg.replace(**{knob: True})):
+        with rl.count_collectives() as coll:
+            logits, cache = make_prefill_step(c)(params, {"tokens": tokens}, 24)
+        steps, tok = [], torch.argmax(logits, -1)
+        for i in range(3):
+            out, cache = make_serve_step(c)(params, cache, tok, torch.full((2,), 16 + i))
+            steps.append(out)
+            tok = torch.argmax(out, -1)
+        runs.append((logits, cache, steps, coll.by_axes[0]))
+    (l0, c0, s0, k0), (l1, c1, s1, k1) = runs
+    _close(l1, l0.numpy(), 1e-6, "prefill logits")
+    for a, b in zip(_leaves(c1), _leaves(c0)):
+        for slot in range(mesh.size):
+            _close(a.blocks[slot], b.blocks[slot].numpy(), 1e-6, "cache block")
+    for i, (a, b) in enumerate(zip(s1, s0)):
+        _close(a, b.numpy(), 1e-6, f"decode step {i}")
+    if knob == "seq_shard_acts":
+        assert k1.get(("reduce-scatter", ("model",)), 0) == 2 * cfg.n_layers
+        assert k1.get(("all-reduce", ("model",)), 0) < k0[("all-reduce", ("model",))]
+    else:
+        assert k1.get(("all-to-all", ("data",)), 0) == 2 * cfg.n_layers and ("all-to-all", ("data",)) not in k0
+
+
+def api_init(cfg):
+    from repro_torch.models import api
+
+    return api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
 
 def test_shard_cache_lays_out_cache_specs():

@@ -357,13 +357,13 @@ def test_train_step_gradients_match_reference(arch):
 
 def test_dense_only_paths_raise_for_moe():
     """The sharded step, the sharded forward and the pipeline, once dense
-    only, take MoE and MLA (with MTP) configs; they raise only for the two
-    layout hints the sharded step still refuses, naming ROADMAP P11c. On a
-    one-position mesh ``lm_xent_blocks``' sums give ``lm_loss``'s xent, aux
-    and MTP loss."""
+    only, take MoE and MLA (with MTP) configs, and the sharded step takes
+    both layout hints (the name is the test's from before). On a
+    one-position mesh ``tp_loss``' sums give ``lm_loss``'s xent, aux and
+    MTP loss."""
     from repro_torch.core.mesh import P, make_mesh, shard_map
     from repro_torch.core.streams import StreamComm
-    from repro_torch.models import moe
+    from repro_torch.models import moe, tp
 
     mesh = make_mesh((1,), ("data",), device="cpu")
     comm = StreamComm(("data",), mesh=mesh)
@@ -373,13 +373,17 @@ def test_dense_only_paths_raise_for_moe():
         assert callable(ttrain.make_train_step(tcfg, None, dp=("data",)))
         assert callable(pipeline_loss_fn(tcfg, None, "pipe", 1, None, None, None))
         for flag in ("seq_shard_acts", "moe_dispatch_sharding"):
-            with pytest.raises(NotImplementedError, match="P11c"):
-                ttrain.make_grad_step(tcfg.replace(**{flag: True}), dp=("data",))
+            assert callable(ttrain.make_grad_step(tcfg.replace(**{flag: True}), dp=("data",)))
         batch = {k: torch.from_numpy(v) for k, v in _batch(jcfg, 1).items()}
         blocks = {n: p.detach() for n, p in model.named_parameters()}
         specs = {n: P(*([None] * p.dim())) for n, p in blocks.items()}
-        sums = shard_map(lambda: ttf.lm_xent_blocks(tcfg, model, blocks, specs, batch, route=moe.GlobalRouting(comm)),
-                         mesh, (), P())()
+
+        def body():
+            w = tp.RankWeights(blocks, specs, mesh)
+            w.route = moe.GlobalRouting(comm)
+            return ttf.tp_loss(tcfg, w, batch)
+
+        sums = shard_map(body, mesh, (), P())()
         with torch.no_grad():
             _, metrics = tapi.loss_fn(tcfg, model, batch)
         xs, xc = sums["xent"]
