@@ -39,9 +39,10 @@ sharded step for every family the card can hold twice against the
 single-rank step (``sharded_zoo``: granite-moe-1b-a400m whole, with MoE
 routing over the data-parallel groups, then an fp32 copy cut in depth and
 the trained model's flash prefill; phi-3-vision and rwkv6-7b cut in depth;
-whisper-tiny), serves through the sharded prefill and decode steps
-(``sharded_serve``: qwen1.5-0.5b and granite-moe-1b-a400m at full width and
-depth on a ``(2, 4)`` mesh of thread-ranks, tensor-parallel over ``model``
+whisper-tiny whole, hint-free and under each layout hint), serves through
+the sharded prefill and decode steps (``sharded_serve``: qwen1.5-0.5b and
+granite-moe-1b-a400m at full width and depth on a ``(2, 4)`` mesh of
+thread-ranks, tensor-parallel over ``model``
 with the flash kernel on every rank's heads and the decode
 sequence-parallel over the cache, against the single-rank steps), and
 last checks the launch cost tooling (``cost``: the served decode step, a
@@ -209,9 +210,11 @@ ZOO2_FLASH = {"jamba": (128, (1, 384, 32, 8)), "whisper": (64, (1, 384, 6, 6))}
 # master). Depth cuts for memory (the widths stay the published ones):
 # granite's fp32 copy (run hint-free and under each layout hint), phi-3-vision
 # and rwkv6-7b; the trained granite serves one prefill of SZ_PREFILL_S tokens
-# with flash. PR 23's host ms of each part's sharded step on the gathered
-# route (every layer's weights gathered whole, one rank per dp group
-# computing), H100 80GB HBM3 at 700 W, stand beside this run's
+# with flash; whisper-tiny (whole) runs hint-free and under each layout
+# hint. The whole-layer route's host ms of each part's sharded step (every
+# layer's weights gathered whole, one rank per dp group computing), its last
+# reading before the tensor-parallel step replaced it, H100 80GB HBM3 at
+# 700 W, stand beside this run's; for whisper also one rank's step then
 SZ_MESH = ((2, 2, 2), ("pod", "data", "model"))
 SZ_LR = 1e-3
 SZ_GRANITE_BATCH = (16, 128)
@@ -222,7 +225,8 @@ SZ_PHI_BATCH = (32, 128)
 SZ_RWKV_LAYERS = 2
 SZ_RWKV_BATCH = (32, 128)
 SZ_WHISPER_BATCH = (8, 128)
-SZ_GATHERED_MS_PR23 = {"granite": 21020, "phi3": 6613, "rwkv6": 12341, "whisper": 2607}
+SZ_WHOLE_LAYER_MS = {"granite": 21020, "phi3": 6613, "rwkv6": 12341, "whisper": 2737}
+SZ_WHISPER_SINGLE_MS_THEN = 357
 # the peak PR 23 measured for granite's bf16 sharded step with its moments
 # held 4 times over dp and no master, and the reckoning for this layout:
 # 12 B a parameter of moments saved, 4 B a parameter of fp32 master added
@@ -3122,11 +3126,14 @@ def sz_predicted(cfg, pspecs: dict, counts_dispatch: bool) -> dict:
     output all-gathered along S; the embedding's and the cross-entropy's
     all-reduces; the cross-entropy's maxima gathered; two all-to-alls a MoE
     layer under the dispatch hint, each with its transpose), plus the
-    update's all-reduce of each leaf replicated over ``model``."""
+    update's all-reduce of each leaf replicated over ``model``. Whisper's
+    layers have two sublayers in the encoder and three in the decoder (its
+    cross-attention), and neither hint changes it."""
     L, mb = cfg.n_layers, max(1, cfg.grad_accum)
-    seq = cfg.seq_shard_acts
-    per = ({"all-gather": 4 * L + 2, "reduce-scatter": 4 * L + 1, "all-reduce": 4} if seq
-           else {"all-gather": 1, "all-reduce": 4 * L + 4})
+    seq = cfg.seq_shard_acts and not cfg.encdec
+    subs = 2 * cfg.n_enc_layers + 3 * L if cfg.encdec else 2 * L
+    per = ({"all-gather": 2 * subs + 2, "reduce-scatter": 2 * subs + 1, "all-reduce": 4} if seq
+           else {"all-gather": 1, "all-reduce": 2 * subs + 4})
     out = {f"{k}@model": mb * v for k, v in per.items()}
     out["all-reduce@model"] += sum(1 for spec in pspecs.values() if "model" not in spec.axes)
     if counts_dispatch:
@@ -3325,7 +3332,7 @@ def sz_granite(torch, smi: str) -> tuple:
     out = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params, batch=list(SZ_GRANITE_BATCH),
                grad_accum=cfg.grad_accum, remat=cfg.remat, capacity_factor=cfg.moe.capacity_factor, route="tp",
                bf16=dict(bf, params_beyond_one_bf16_step=bf_off, params_total=bf_total,
-                         gathered_route_step_host_ms_pr23=SZ_GATHERED_MS_PR23["granite"]),
+                         whole_layer_route_step_host_ms=SZ_WHOLE_LAYER_MS["granite"]),
                reckoning=reckoning, bf16_flips_per_layer=flips, bf16_flips=sum(flips),
                bf16_choices=sum(c.numel() for c in sr["calls"]) // cfg.moe.top_k,
                bf16_single_dropped=sr["dropped"], bf16_single_aux=sr["aux"],
@@ -3337,13 +3344,11 @@ def sz_granite(torch, smi: str) -> tuple:
 
 
 def sz_other(torch, name: str, cfg, shape, seed: int, smi: str) -> tuple:
-    """(b) one more family: the sharded step (tensor-parallel, or for
-    Whisper the gathered route) against the single-rank step (loss 1e-4),
-    with the K2 and K3 launches of the run (none: training takes the einsum
-    and per-token routes)."""
+    """(b) one more family: the tensor-parallel sharded step against the
+    single-rank step (loss 1e-4), with the K2 and K3 launches of the run
+    (none: training takes the einsum and per-token routes)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rwkv6_scan as wk
-    from repro_torch.models import api
 
     weights = sz_weights(torch, cfg, seed)
     batch = sz_batch(torch, cfg, shape, seed)
@@ -3355,8 +3360,8 @@ def sz_other(torch, name: str, cfg, shape, seed: int, smi: str) -> tuple:
     release(torch)
     out = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, params=sum(w.numel() for w in weights.values()),
                batch=list(shape), grad_accum=cfg.grad_accum, remat=cfg.remat, attn_impl=cfg.attn_impl,
-               route="gathered" if api.gathered(cfg) else "tp", **r,
-               gathered_route_step_host_ms_pr23=SZ_GATHERED_MS_PR23[name], flash_launches=k2, wkv6_launches=k3,
+               route="tp", **r,
+               whole_layer_route_step_host_ms=SZ_WHOLE_LAYER_MS[name], flash_launches=k2, wkv6_launches=k3,
                nvidia_smi=smi)
     checks = [(math.isfinite(r["loss"]) and r["loss_rel_err"] <= 1e-4,
                f"{name}: sharded vs single-rank loss rel {r['loss_rel_err']} <= 1e-4"),
@@ -3364,12 +3369,67 @@ def sz_other(torch, name: str, cfg, shape, seed: int, smi: str) -> tuple:
     return out, checks
 
 
+def sz_whisper(torch, smi: str) -> tuple:
+    """(b) whisper-tiny whole at its published widths and training settings
+    (4 + 4 layers, d 384, 6 heads, 1500 frames, bf16, grad_accum 2, remat
+    full): the tensor-parallel sharded step hint-free and under each layout
+    hint against the single-rank step (loss 1e-4; each hinted loss 1e-6 of
+    the hint-free one, as neither hint changes Whisper), each step's
+    collectives by kind and axes equal to the design's
+    (:func:`sz_predicted`), no K2 or K3 launch; its host ms beside the
+    gathered route's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan as wk
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import param_specs
+
+    cfg = get_config("whisper-tiny")
+    weights = sz_weights(torch, cfg, 23)
+    batch = sz_batch(torch, cfg, SZ_WHISPER_BATCH, 23)
+    pspecs = param_specs(cfg, api.abstract_params(cfg), make_mesh(*SZ_MESH))
+    fa.flash_attention.launches = wk.wkv6.launches = 0
+    single = sz_single(torch, cfg, weights, batch)
+    single.pop("single_params")
+    runs = {}
+    for hint in ("none", "seq_shard_acts", "moe_dispatch_sharding"):
+        c = cfg if hint == "none" else cfg.replace(**{hint: True})
+        r = sz_sharded(torch, c, weights, batch, count=True)
+        for k in ("params", "mesh"):
+            r.pop(k)
+        release(torch)
+        r["loss_rel_err"] = abs(r["loss"] - single["single_loss"]) / abs(single["single_loss"])
+        r["predicted_collectives"] = sz_predicted(c, pspecs, hint == "moe_dispatch_sharding")
+        runs[hint] = r
+    k2, k3 = fa.flash_attention.launches, wk.wkv6.launches
+    base = runs["none"]["loss"]
+    checks = [(k2 == 0 and k3 == 0, f"whisper: no K2 or K3 launch under autograd: {k2}, {k3}")]
+    for hint, r in runs.items():
+        checks += [(math.isfinite(r["loss"]) and r["loss_rel_err"] <= 1e-4,
+                    f"whisper {hint}: sharded vs single-rank loss rel {r['loss_rel_err']} <= 1e-4"),
+                   (all(r["collectives"].get(k, 0) == v for k, v in r["predicted_collectives"].items()),
+                    f"whisper {hint}: collectives {r['collectives']} hold the design's "
+                    f"{r['predicted_collectives']}")]
+        if hint != "none":
+            rel = abs(r["loss"] - base) / abs(base)
+            r["loss_rel_to_hint_free"] = rel
+            checks.append((rel <= 1e-6, f"whisper {hint}: loss rel {rel} to the hint-free TP step <= 1e-6"))
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, n_enc_layers=cfg.n_enc_layers, d_model=cfg.d_model,
+               params=sum(w.numel() for w in weights.values()), batch=list(SZ_WHISPER_BATCH),
+               grad_accum=cfg.grad_accum, remat=cfg.remat, attn_impl=cfg.attn_impl, route="tp", **single,
+               runs=runs, whole_layer_route_step_host_ms=SZ_WHOLE_LAYER_MS["whisper"],
+               whole_layer_route_single_step_host_ms=SZ_WHISPER_SINGLE_MS_THEN, flash_launches=k2, wkv6_launches=k3,
+               nvidia_smi=smi)
+    return out, checks
+
+
 def phase_sharded_zoo(torch, smi: str) -> dict:
     """The tensor-parallel sharded step for every family the card can hold
     twice: (a) granite-moe-1b-a400m whole with its fp32 master (its fp32
     copy cut in depth, hint-free and under each layout hint), (b)
-    phi-3-vision, rwkv6-7b (cut in depth) and whisper-tiny (its loss
-    gathered). deepseek-v3 and jamba stay on the CPU tests (their smallest
+    phi-3-vision, rwkv6-7b (cut in depth) and whisper-tiny (whole,
+    hint-free and under each layout hint). deepseek-v3 and jamba stay on the CPU tests (their smallest
     slice at published width does not fit two training states). Each
     part's line is printed before its checks are applied."""
     from repro_torch.configs import get_config
@@ -3388,8 +3448,7 @@ def phase_sharded_zoo(torch, smi: str) -> dict:
     done("granite", out, checks, t)
     for name, arch, over, shape, seed in (("phi3", "phi-3-vision-4.2b", dict(n_layers=SZ_PHI_LAYERS), SZ_PHI_BATCH, 21),
                                           ("rwkv6", "rwkv6-7b", dict(n_layers=SZ_RWKV_LAYERS, attn_impl="flash"),
-                                           SZ_RWKV_BATCH, 22),
-                                          ("whisper", "whisper-tiny", {}, SZ_WHISPER_BATCH, 23)):
+                                           SZ_RWKV_BATCH, 22)):
         release(torch)
         t = time.perf_counter()
         cfg = get_config(arch).replace(**over)
@@ -3397,6 +3456,10 @@ def phase_sharded_zoo(torch, smi: str) -> dict:
         if "n_layers" in over:
             out["reduced"] = dict(n_layers=f"{get_config(arch).n_layers} -> {cfg.n_layers}")
         done(name, out, checks, t)
+    release(torch)
+    t = time.perf_counter()
+    out, checks = sz_whisper(torch, smi)
+    done("whisper", out, checks, t)
     emit("sharded_zoo", part="summary", flash_launches=launches, phase_host_s=time.perf_counter() - t0,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi)
     check(not failed, f"sharded_zoo: {failed}")

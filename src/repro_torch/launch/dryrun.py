@@ -34,10 +34,8 @@ here is counted:
   (:func:`fold_check`).
 
 Every family has a sharded train, prefill and decode step, under both
-layout hints (``seq_shard_acts``, ``moe_dispatch_sharding``). A row is
-null only where a step refuses its config: Whisper's train step, which
-runs its loss gathered, refuses the two hints (ROADMAP P11c); its cost
-and compute and memory terms are still filled and the row says why.
+layout hints (``seq_shard_acts``, ``moe_dispatch_sharding``), so every
+row is whole.
 """
 
 from __future__ import annotations
@@ -110,7 +108,7 @@ def _sharded_train(cfg, opt_cfg, mesh, model, opt_abs, batch, pspecs, ospecs):
     unfolded one and nearer what a rank holds: on ``("data", "model")``
     meta meshes of 2–16 × 2 (:func:`fold_check`, smoke configs) it read
     1.06–1.13 times the unfolded count."""
-    step = make_train_step(cfg, opt_cfg, dp=shd.dp_axes(mesh))  # raises first for what it refuses
+    step = make_train_step(cfg, opt_cfg, dp=shd.dp_axes(mesh))
     state = device_put({n: p.detach() for n, p in model.named_parameters()}, named(mesh, pspecs))
     opt = device_put(opt_abs, named(mesh, ospecs))
     ran = sum(1 for slot in range(mesh.size) if mesh.mirror(slot) == slot)
@@ -155,7 +153,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, verbose: boo
                tag: str = ""):
     """Count one cell. Returns a result dict (JSON-safe) with the
     reference's keys (``compile_s`` and ``xla_cost_raw`` null: nothing is
-    compiled) plus ``sharded_s`` and, where a part is null, ``reason``.
+    compiled) plus ``sharded_s``.
     ``cfg_transform(cfg) -> cfg`` applies hillclimb variants."""
     cfg = registry.get_config(arch)
     if cfg_transform is not None:
@@ -168,7 +166,6 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, verbose: boo
     model = api.abstract_params(cfg)
     pspecs = shd.param_specs(cfg, model, mesh)
     params = dict(model.named_parameters())
-    coll = temp = reason = None
     if shape.mode == "train":
         opt_cfg = _opt_cfg(cfg)
         batch = registry.input_specs(cfg, shape)
@@ -208,18 +205,13 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, verbose: boo
         t0 = time.perf_counter()
         run = lambda: _sharded_serve(make_serve_step(cfg), mesh, model, pspecs,  # noqa: E731
                                      device_put(cache, named(mesh, cspecs)), io["tokens"], io["pos"])
-    try:
-        coll, temp = run()
-    except NotImplementedError as e:  # a layout hint Whisper's gathered train step refuses (ROADMAP P11c)
-        reason = str(e)
+    coll, temp = run()
     t_sharded = time.perf_counter() - t0
 
     mflops = rl.model_step_flops(cfg, shape)
     cost = {"flops": global_cost.flops / n_chips, "bytes accessed": global_cost.bytes / n_chips}
-    terms = rl.roofline_terms(cost, coll or rl.CollectiveStats(), n_chips, mflops)
+    terms = rl.roofline_terms(cost, coll, n_chips, mflops)
     row = terms.row()
-    if coll is None:
-        row["t_collective_s"] = row["coll_bytes_per_chip"] = None
 
     result = {
         "arch": arch,
@@ -235,14 +227,12 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, verbose: boo
             "argument_bytes": args_bytes,
             "output_bytes": out_bytes,
             "temp_bytes": temp,
-            "peak_bytes_per_device": None if temp is None else args_bytes + temp,
+            "peak_bytes_per_device": args_bytes + temp,
         },
-        "collectives": None if coll is None else {"summary": coll.summary(), **coll.per_op_bytes},
+        "collectives": {"summary": coll.summary(), **coll.per_op_bytes},
         "roofline": row,
         "xla_cost_raw": {"flops": None, "bytes_accessed": None},
     }
-    if reason is not None:
-        result["reason"] = reason
     if verbose:
         m = result["memory"]
         print(
@@ -252,19 +242,17 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False, verbose: boo
         print(f"  memory: args={_gb(m['argument_bytes'])} temps={_gb(m['temp_bytes'])} "
               f"peak/device={_gb(m['peak_bytes_per_device'])}")
         print(f"  cost: flops={terms.flops:.3e} bytes={terms.hbm_bytes:.3e}")
-        print(f"  collectives: {'n/a' if coll is None else coll.summary()}")
-        if reason:
-            print(f"  null: {reason}")
+        print(f"  collectives: {coll.summary()}")
         print(
             f"  roofline: compute={rl.fmt_seconds(terms.t_compute)} memory={rl.fmt_seconds(terms.t_memory)} "
-            f"collective={'n/a' if coll is None else rl.fmt_seconds(terms.t_collective)} -> {terms.bottleneck}-bound; "
+            f"collective={rl.fmt_seconds(terms.t_collective)} -> {terms.bottleneck}-bound; "
             f"useful={row['useful_ratio']:.3f} mfu_bound={row['mfu_bound']:.3f}"
         )
     return result
 
 
 def _gb(x):
-    return "n/a" if x is None else f"{x/2**30:.2f}GiB"
+    return f"{x/2**30:.2f}GiB"
 
 
 def run_cells(archs, shapes, pods, out_path=None, stop_on_error=False):

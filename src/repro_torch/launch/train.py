@@ -83,7 +83,7 @@ import torch
 from repro_torch.checkpoint import iovec_store as store
 from repro_torch.checkpoint.manager import WRITE_TIMEOUT_S, CheckpointManager
 from repro_torch.core.collectives import all_gather, all_reduce, broadcast, reduce, reduce_scatter
-from repro_torch.core.mesh import (NamedSharding, P, ShardedTensor, StackRow, axis_index, current_region, device_put,
+from repro_torch.core.mesh import (NamedSharding, P, ShardedTensor, StackRow, current_region, device_put,
                                    shard_map)
 from repro_torch.core.progress import AutotunePolicy, ProgressEngine
 from repro_torch.core.streams import StreamComm, stream_create, stream_free
@@ -92,7 +92,6 @@ from repro_torch.device import resolve_device
 from repro_torch.ft.heartbeat import HeartbeatMonitor
 from repro_torch.ft.straggler import StragglerMonitor
 from repro_torch.models import api, tp
-from repro_torch.models.common import run_units
 from repro_torch.models.config import ModelConfig, torch_dtype
 from repro_torch.models.convert import state_tree
 from repro_torch.models.moe import GlobalRouting, router_aux_from_sums
@@ -126,37 +125,6 @@ def _turns(mesh):
 def _check_dp(mesh, dp) -> None:
     if tuple(dp) != shd.dp_axes(mesh):
         raise ValueError(f"dp={tuple(dp)} but the params' mesh has dp axes {shd.dp_axes(mesh)}")
-
-
-def _check_hints(cfg: ModelConfig) -> None:
-    """A family whose sharded train step runs its loss gathered has no
-    layouts for the two hints to pin: it refuses them."""
-    if api.gathered(cfg):
-        for flag in ("seq_shard_acts", "moe_dispatch_sharding"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(
-                    f"{flag}=True: the sharded train step runs {cfg.name}'s loss with its layers gathered "
-                    "whole (ROADMAP P11c: tensor-parallel Whisper)")
-
-
-def _gathered_loss(cfg: ModelConfig, mesh, models: list, params, specs, groups):
-    """The per-rank body of the gathered form (``models.api.loss_units``):
-    each dp group's loss computed once, by its position whose other
-    coordinates are 0, every unit's blocks gathered whole at its entry; the
-    other positions only lend their blocks to the gathers."""
-    others = [a for a in mesh.axis_names if a not in shd.dp_axes(mesh)]
-
-    def body(batch):
-        slot = current_region().slot
-        counted = all(axis_index(a) == 0 for a in others)
-        sums = run_units(cfg, api.loss_units(cfg, models[slot]), {n: st.blocks[slot] for n, st in params.items()},
-                         specs, batch if counted else None)
-        if sums is None:
-            return None
-        total, _ = all_reduce(_flat_sums(sums), groups)
-        return _loss_of_sums(cfg, total)
-
-    return body
 
 
 def _flat_sums(sums) -> torch.Tensor:
@@ -203,14 +171,7 @@ def _partial_grads(cfg: ModelConfig, params, batch):
     for _, _, b in leaves:
         b.requires_grad_(True)
 
-    gathered = None
-    if api.gathered(cfg):
-        models = [api.model_class(cfg)(cfg, torch.device("meta")) for _ in range(mesh.size)]
-        gathered = _gathered_loss(cfg, mesh, models, params, specs, groups)
-
     def body(*parts):
-        if gathered is not None:
-            return gathered(dict(zip(keys, parts)))
         w = tp.RankWeights({n: st.blocks[current_region().slot] for n, st in params.items()}, specs, mesh)
         w.route = GlobalRouting(groups) if cfg.moe.enabled else None
         sums = api.tp_loss(cfg, w, dict(zip(keys, parts)))
@@ -351,8 +312,6 @@ def make_grad_step(cfg: ModelConfig, dp: tuple = ()):
     from :func:`device_put`) in place of the model and returns the grads
     laid out as the params, summed over every block's replicas."""
     if dp:
-        _check_hints(cfg)
-
         def sharded_grad_step(params, batch):
             mesh = _mesh_of(params)
             _check_dp(mesh, dp)
@@ -402,8 +361,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, dp: tuple = ()):
     the loss's parts (``_loss_of_sums``: ``xent``, and ``aux``,
     ``moe_dropped``, ``mtp`` where the config has them)."""
     if dp:
-        _check_hints(cfg)
-
         def sharded_train_step(params, opt_state, batch):
             mesh = _mesh_of(params)
             _check_dp(mesh, dp)

@@ -7,7 +7,6 @@
     prefill(cfg, params, batch, max_len)      → (last_logits, cache)
     decode_step(cfg, params, cache, tok, pos) → (logits, cache)
     tp_loss(cfg, w, batch)                    → per rank: the sharded train step's loss sums
-    loss_units(cfg, params)                   → the gathered form of a loss (Whisper's)
     tp_prefill(cfg, w, batch, max_len, specs) → per rank: the sharded prefill
     tp_decode_step(cfg, w, cache, tok, pos)   → per rank: the sharded decode
 
@@ -33,7 +32,7 @@ from repro_torch.models import whisper as whisper_mod
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["family", "model_class", "init_params", "abstract_params", "loss_fn", "init_cache", "prefill", "decode_step",
-           "tp_loss", "gathered", "loss_units", "tp_prefill", "tp_decode_step"]
+           "tp_loss", "tp_prefill", "tp_decode_step"]
 
 
 def family(cfg: ModelConfig) -> str:
@@ -60,15 +59,11 @@ _PREFILL = {"rwkv": rwkv_mod.rwkv_prefill, "jamba": jamba_mod.jamba_prefill, "en
 _DECODE = {"rwkv": rwkv_mod.rwkv_decode_step, "jamba": jamba_mod.jamba_decode_step,
            "encdec": whisper_mod.whisper_decode_step, "transformer": tf_mod.decode_step}
 #: the per-rank forms of the sharded steps (``models.tp``), by family:
-#: (train loss, prefill, decode step); a family without a train loss here
-#: takes the gathered form (:data:`_GATHERED`)
+#: (train loss, prefill, decode step)
 _TP = {"transformer": (tf_mod.tp_loss, tf_mod.tp_prefill, tf_mod.tp_decode_step),
-       "encdec": (None, whisper_mod.tp_prefill, whisper_mod.tp_decode_step),
+       "encdec": (whisper_mod.tp_loss, whisper_mod.tp_prefill, whisper_mod.tp_decode_step),
        "rwkv": (rwkv_mod.tp_loss, rwkv_mod.tp_prefill, rwkv_mod.tp_decode_step),
        "jamba": (jamba_mod.tp_loss, jamba_mod.tp_prefill, jamba_mod.tp_decode_step)}
-#: the families whose sharded train step gathers each layer's weights whole
-#: (``models.common.run_units``): Whisper (ROADMAP P11c)
-_GATHERED = {"encdec": whisper_mod.loss_units}
 
 
 def model_class(cfg: ModelConfig):
@@ -110,22 +105,7 @@ def tp_loss(cfg: ModelConfig, w, batch):
     ``models.tp.RankWeights``): ``{"xent": (sum, count)}``, with
     ``"router"`` (per MoE layer, ``moe.moe_apply``'s sums) and ``"mtp"``
     (sum, count) where the config has them."""
-    fn = _TP[family(cfg)][0]
-    if fn is None:
-        raise ValueError(f"{cfg.name}: the sharded train step runs its loss gathered (models.api.loss_units)")
-    return fn(cfg, w, batch)
-
-
-def gathered(cfg: ModelConfig) -> bool:
-    """Whether the sharded train step runs the family's loss in its gathered
-    form (:func:`loss_units`) rather than :func:`tp_loss`."""
-    return family(cfg) in _GATHERED
-
-
-def loss_units(cfg: ModelConfig, params):
-    """The gathered form of ``loss_fn`` (``models.common.Unit`` s, run by
-    ``models.common.run_units``) for a family of :func:`gathered`."""
-    return _GATHERED[family(cfg)](cfg, params)
+    return _TP[family(cfg)][0](cfg, w, batch)
 
 
 def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):

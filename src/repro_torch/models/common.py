@@ -30,34 +30,18 @@ tensors and its plain version for CPU tensors.
 On ``torch.device("meta")`` (shapes only) a per-token loop runs one step
 that stands for all of them (:func:`meta_scan`), so ``launch.op_cost`` can
 count a 32k- or 500k-token loop without running it.
-
-**The gathered form of a loss.** The sharded train step computes every
-family tensor-parallel (``models.tp``) but Whisper, whose loss it states as
-a list of units (:class:`Unit`), the pieces its forward enters one after
-another (the frames, a layer, a norm, the head), each with the prefixes of
-the parameters it reads: :func:`run_units` runs such a list inside a mesh
-region over a rank's parameter blocks, gathering a unit's parameters whole
-at the unit's entry, and returns the loss as a sum and a count, so that a
-caller can add them up over any split of the batch.
 """
 
 from __future__ import annotations
 
-import functools
 import math
 import threading
 from contextlib import contextmanager
-from dataclasses import dataclass
-from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
-from repro_torch.core.collectives import all_gather
-from repro_torch.core.mesh import current_region
-from repro_torch.core.streams import StreamComm
 from repro_torch.models.config import ModelConfig
 
 __all__ = [
@@ -84,12 +68,6 @@ __all__ = [
     "trip_count",
     "remat_wrap",
     "tag_act",
-    "xent_sums",
-    "Unit",
-    "unit_call",
-    "gather_prefix",
-    "run_units",
-    "head_unit",
 ]
 
 NEG_INF = -1e30
@@ -347,15 +325,6 @@ def next_token_xent(logits, tokens, mask=None):
     return -ll.mean()
 
 
-def xent_sums(logits, tokens, mask=None):
-    """``(summed next-token xent, token count)``: :func:`next_token_xent`
-    as a sum and a count, whose ratio over any split of the batch is the
-    mean over all of it (``Σ sum / Σ count``)."""
-    count = mask[:, 1:].float().sum() if mask is not None else torch.tensor(
-        float(tokens[:, 1:].numel()), device=logits.device)
-    return next_token_xent(logits, tokens, mask) * count, count
-
-
 # ----------------------------------------------------------------------
 # rematerialisation
 # ----------------------------------------------------------------------
@@ -502,102 +471,3 @@ def meta_scan(step, n: int, xs, consts, carry):
             y, carry = step(*(x.select(1, 0) for x in xs), *consts, carry)
         return y.new_empty((y.shape[0], n) + tuple(y.shape[1:])), carry
     return _OneStep.apply(step, n, len(xs), len(consts), *xs, *consts, carry)
-
-
-# ----------------------------------------------------------------------
-# the gathered form of a loss: units run over a rank's parameter blocks
-# ----------------------------------------------------------------------
-
-
-@dataclass(frozen=True)
-class Unit:
-    """One piece of a loss's forward. ``prefixes`` name the parameters it
-    reads: ``"layers.3."`` every parameter under that module, a name
-    without the trailing dot one parameter. ``fn(params, carry)`` returns
-    the next carry (a dict: the batch's entries, the activations, the
-    sums); ``params`` holds one entry per prefix, a dict of the names under
-    it (relative to it) or the one tensor. ``remat``: the unit runs under
-    the config's remat policy, as the family's single-rank forward runs it."""
-
-    prefixes: Tuple[str, ...]
-    fn: Callable
-    remat: bool = False
-
-
-class _Bound(nn.Module):
-    def __init__(self, module: nn.Module, fn: Callable):
-        super().__init__()
-        self.m, self.fn = module, fn
-
-    def forward(self):
-        return self.fn(self.m)
-
-
-def unit_call(module: nn.Module, params: dict, fn: Callable):
-    """``fn(module)`` with ``module``'s parameters replaced by ``params``
-    (names relative to ``module``, every one of them given):
-    ``torch.func.functional_call`` on a module method or a function of the
-    module. ``module`` may live on ``torch.device("meta")``."""
-    return torch.func.functional_call(_Bound(module, fn), {f"m.{k}": v for k, v in params.items()}, (), strict=True)
-
-
-def gather_prefix(blocks: dict, specs: dict, prefix: str):
-    """The parameters under ``prefix``, whole, gathered from this rank's
-    ``blocks`` (name → block, laid out by ``specs``): each leaf
-    all-gathered over the axes its spec shards it on, dim by dim, names
-    relative to ``prefix`` (the one tensor for a prefix without a trailing
-    dot). Per-rank code, inside a region; autograd reaches the blocks
-    through the gathers."""
-    mesh = current_region().mesh
-    out = {}
-    for name, block in blocks.items():
-        if not (name.startswith(prefix) if prefix.endswith(".") else name == prefix):
-            continue
-        full, spec = block, specs[name]
-        for d in range(len(spec)):
-            if spec.dim_axes(d):
-                full, _ = all_gather(full, StreamComm(spec.dim_axes(d), mesh=mesh), axis=d)
-        out[name[len(prefix):]] = full
-    return out if prefix.endswith(".") else out[""]
-
-
-def run_units(cfg: ModelConfig, units, blocks: dict, specs: dict, batch):
-    """Per-rank: the loss of ``units`` over this rank's ``batch`` (a dict of
-    tensors), every unit's parameters gathered from ``blocks`` at its entry
-    (:func:`gather_prefix`, before the remat boundary). Returns the final
-    carry's ``xent`` (sum, count). With ``batch=None`` the rank only takes
-    part in the gathers its peers need, in the same order, and returns
-    None. A prefix that several units read is gathered once, at its first
-    unit, and kept."""
-    seen, reused = set(), set()
-    for unit in units:
-        reused.update(p for p in unit.prefixes if p in seen)
-        seen.update(unit.prefixes)
-    kept = {}
-    carry = dict(batch) if batch is not None else None
-    for unit in units:
-        params = []
-        for prefix in unit.prefixes:
-            got = kept.get(prefix)
-            if got is None:
-                got = gather_prefix(blocks, specs, prefix)
-                if prefix in reused:
-                    kept[prefix] = got
-            params.append(got)
-        if carry is not None:
-            fn = functools.partial(unit.fn, params)
-            carry = (remat_wrap(cfg, fn) if unit.remat and torch.is_grad_enabled() else fn)(carry)
-    return None if carry is None else {"xent": carry["xent"]}
-
-
-def _head(cfg: ModelConfig, params, c):
-    emb, norm = params
-    logits = logits_out(cfg, emb, apply_norm(cfg, norm, c["x"]))
-    return {**c, "xent": xent_sums(logits, c["tokens"], c.get("loss_mask"))}
-
-
-def head_unit(cfg: ModelConfig) -> Unit:
-    """The last unit of a gathered loss: the final norm, the output
-    projection through ``embed`` and the next-token xent of ``carry["x"]``,
-    as sums."""
-    return Unit(("embed.", "final_norm."), functools.partial(_head, cfg))

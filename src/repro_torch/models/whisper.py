@@ -14,37 +14,33 @@ scans; the port holds one module per layer (``models.convert`` maps
 ``enc_layers.{l}.<leaf>`` to row ``l`` of ``enc_layers/<leaf>``). The
 cache keeps the reference's layout, ``{"self": (K, V), "cross": (K, V)}``,
 each ``(L, B, T, nkv, hd)``; decode writes the self-attention rows in
-place. The sharded train step runs Whisper's loss in its gathered form
-(:func:`loss_units`, ``models.common.run_units``): the encoder's layers,
-its final norm, the decoder's embedding and layers and the head one after
-another, each layer under the remat policy and its weights gathered whole
-at its entry. A tensor-parallel decomposition sums the key biases'
-gradients, which are zero in exact arithmetic (no rope), in another order
-than the single-rank step and the grads tests hold them to that step's
-rounding (ROADMAP P11c).
+place. The sharded steps run each rank's share of the heads, hidden units
+and vocab rows (``models.tp``): :func:`tp_loss`, :func:`tp_prefill` and
+:func:`tp_decode_step`. The encoder's output is the same on every
+``model`` rank; each rank's cross-attention projects it to its own heads'
+K/V, and the backward of the all-reduces that made it sums the ranks'
+partial cotangents, so its gradient is counted once. Neither layout hint
+changes Whisper (the reference tags no activation of it and it has no
+MoE): the sharded steps run it as without them.
 """
 
 from __future__ import annotations
 
-import functools
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.models.common import (
-    Unit,
     apply_norm,
     embed,
     gelu_mlp,
     gqa_attention_decode,
     gqa_attention_full,
-    head_unit,
     logits_out,
     next_token_xent,
     remat_wrap,
-    unit_call,
 )
 from repro_torch.models import tp
 from repro_torch.models.config import ModelConfig
@@ -60,7 +56,7 @@ __all__ = [
     "init_cache",
     "whisper_prefill",
     "whisper_decode_step",
-    "loss_units",
+    "tp_loss",
     "tp_prefill",
     "tp_decode_step",
 ]
@@ -274,7 +270,61 @@ def whisper_decode_step(cfg: ModelConfig, model: WhisperLM, cache, tokens, pos):
     return logits_out(cfg, model.embed, x)[:, 0], cache
 
 
-# -- the sharded serve steps' per-rank forms (models.tp) ----------------------
+# -- the sharded steps' per-rank forms (models.tp) ----------------------------
+
+
+def _tp_enc_layer(cfg: ModelConfig, w, l: int, x, positions):
+    pre = f"enc_layers.{l}."
+    a, _ = tp.attention_full(cfg, w, pre + "attn.", tp.norm(cfg, w, pre + "ln1.", x), positions, causal=False,
+                             use_rope=False)
+    x = x + a
+    return x + tp.gelu_mlp(cfg, w, pre + "mlp.", tp.norm(cfg, w, pre + "ln2.", x))
+
+
+def _tp_encode(cfg: ModelConfig, w, frames):
+    """The encoder on the rank, each layer under ``tp.remat`` (a no-op
+    without grad), its output after ``enc_ln_post``: the same on every
+    ``model`` rank."""
+    x, positions = _enc_in(cfg, frames.to(cfg.cdtype))
+    for l in range(cfg.n_enc_layers):
+        x = tp.remat(cfg, _tp_enc_layer)(cfg, w, l, x, positions)
+    return tp.norm(cfg, w, "enc_ln_post.", x)
+
+
+def _tp_dec_in(cfg: ModelConfig, w, tokens):
+    """The decoder's vocab-parallel embedding with its sinusoids: (x, positions)."""
+    B, S = tokens.shape
+    x = tp.embed(cfg, w, tokens) + sinusoids(S, cfg.d_model, tokens.device).to(cfg.cdtype)
+    return x, torch.arange(S, device=x.device).expand(B, S)
+
+
+def _tp_dec_layer(cfg: ModelConfig, w, l: int, x, positions, enc):
+    """One decoder layer on the rank: (x, its self-attention seed, its
+    cross-attention seed), the seeds as ``models.tp.cache_block`` takes them."""
+    pre = f"dec_layers.{l}."
+    a, seed = tp.attention_full(cfg, w, pre + "attn.", tp.norm(cfg, w, pre + "ln1.", x), positions, use_rope=False)
+    x = x + a
+    a, xseed = tp.attention_full(cfg, w, pre + "xattn.", tp.norm(cfg, w, pre + "lnx.", x), positions, kv_x=enc)
+    x = x + a
+    return x + tp.gelu_mlp(cfg, w, pre + "mlp.", tp.norm(cfg, w, pre + "ln2.", x)), seed, xseed
+
+
+def _tp_train_dec_layer(cfg: ModelConfig, w, l: int, x, positions, enc):
+    return _tp_dec_layer(cfg, w, l, x, positions, enc)[0]
+
+
+def tp_loss(cfg: ModelConfig, w, batch):
+    """Per rank, inside the sharded train step's region: the sums of
+    :func:`whisper_loss` over this rank's rows of ``batch``
+    (``{"xent": (sum, count)}``), every layer of the encoder and the
+    decoder tensor-parallel (``models.tp``) under the remat policy, one
+    ``tp.remat`` per layer run, as :func:`whisper_loss` runs them."""
+    enc = _tp_encode(cfg, w, batch["enc_frames"])
+    tokens = batch["tokens"].long()
+    x, positions = _tp_dec_in(cfg, w, tokens)
+    for l in range(cfg.n_layers):
+        x = tp.remat(cfg, _tp_train_dec_layer)(cfg, w, l, x, positions, enc)
+    return {"xent": tp.xent(cfg, w, tp.norm(cfg, w, "final_norm.", x), tokens, batch.get("loss_mask"))}
 
 
 def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):
@@ -284,29 +334,12 @@ def tp_prefill(cfg: ModelConfig, w, batch, max_len: int, specs):
     ``b_out`` added once. Returns (last logits, {"self": (K, V), "cross":
     (K, V)} blocks); the cross K/V go into their ``T_enc``-over-``model``
     blocks as the self K/V do."""
-    frames = batch["enc_frames"].to(cfg.cdtype)
-    x, positions = _enc_in(cfg, frames)
-    for l in range(cfg.n_enc_layers):
-        pre = f"enc_layers.{l}."
-        a, _ = tp.attention_full(cfg, w, pre + "attn.", tp.norm(cfg, w, pre + "ln1.", x), positions, causal=False,
-                                 use_rope=False)
-        x = x + a
-        x = x + tp.gelu_mlp(cfg, w, pre + "mlp.", tp.norm(cfg, w, pre + "ln2.", x))
-    enc = tp.norm(cfg, w, "enc_ln_post.", x)
-    tokens = batch["tokens"].long()
-    B, S = tokens.shape
-    x = tp.embed(cfg, w, tokens) + sinusoids(S, cfg.d_model, tokens.device).to(cfg.cdtype)
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    enc = _tp_encode(cfg, w, batch["enc_frames"])
+    x, positions = _tp_dec_in(cfg, w, batch["tokens"].long())
     (sk, _), (xk, _) = specs["self"], specs["cross"]
     out = {"self": ([], []), "cross": ([], [])}
     for l in range(cfg.n_layers):
-        pre = f"dec_layers.{l}."
-        a, seed = tp.attention_full(cfg, w, pre + "attn.", tp.norm(cfg, w, pre + "ln1.", x), positions,
-                                    use_rope=False)
-        x = x + a
-        a, xseed = tp.attention_full(cfg, w, pre + "xattn.", tp.norm(cfg, w, pre + "lnx.", x), positions, kv_x=enc)
-        x = x + a
-        x = x + tp.gelu_mlp(cfg, w, pre + "mlp.", tp.norm(cfg, w, pre + "ln2.", x))
+        x, seed, xseed = _tp_dec_layer(cfg, w, l, x, positions, enc)
         for key, sd, T, spec in (("self", seed, max_len, sk), ("cross", xseed, cfg.n_audio_ctx, xk)):
             for j, t in enumerate(tp.cache_block(w, sd, T, spec)):
                 out[key][j].append(t)
@@ -333,45 +366,3 @@ def tp_decode_step(cfg: ModelConfig, w, cache, tokens, pos):
                                     (kx.blocks[s][l], vx.blocks[s][l]), kx.shape[2], kx.sharding.spec)
         x = x + tp.gelu_mlp(cfg, w, pre + "mlp.", tp.norm(cfg, w, pre + "ln2.", x))
     return tp.logits(cfg, w, tp.norm(cfg, w, "final_norm.", x))[:, 0]
-
-
-# -- the gathered form of the loss (models.common.run_units) ------------------
-
-
-def _frames_unit(cfg: ModelConfig, params, c):
-    x, positions = _enc_in(cfg, c["enc_frames"].to(cfg.cdtype))
-    return {**c, "enc": x, "enc_positions": positions}
-
-
-def _enc_unit(cfg: ModelConfig, layer: EncoderLayer, params, c):
-    return {**c, "enc": unit_call(layer, params[0], lambda m: _enc_layer(cfg, m, c["enc"], c["enc_positions"]))}
-
-
-def _enc_post_unit(cfg: ModelConfig, params, c):
-    return {**c, "enc": apply_norm(cfg, params[0], c["enc"])}
-
-
-def _dec_in_unit(cfg: ModelConfig, params, c):
-    tokens = c["tokens"].long()
-    x, positions = _dec_in(cfg, params[0], tokens)
-    return {**c, "tokens": tokens, "x": x, "positions": positions}
-
-
-def _dec_unit(cfg: ModelConfig, layer: DecoderLayer, params, c):
-    x = unit_call(layer, params[0], lambda m: _dec_layer(cfg, m, c["x"], c["positions"], c["enc"])[0])
-    return {**c, "x": x}
-
-
-def loss_units(cfg: ModelConfig, model: WhisperLM) -> List[Unit]:
-    """:func:`whisper_loss` as units (``models.common.Unit``): the frames,
-    each ``enc_layers.{i}`` under the remat policy, ``enc_ln_post``, the
-    decoder's embedding, each ``dec_layers.{i}`` under the remat policy,
-    the head."""
-    units = [Unit((), functools.partial(_frames_unit, cfg))]
-    units += [Unit((f"enc_layers.{i}.",), functools.partial(_enc_unit, cfg, layer), remat=True)
-              for i, layer in enumerate(model.enc_layers)]
-    units += [Unit(("enc_ln_post.",), functools.partial(_enc_post_unit, cfg)),
-              Unit(("embed.",), functools.partial(_dec_in_unit, cfg))]
-    units += [Unit((f"dec_layers.{i}.",), functools.partial(_dec_unit, cfg, layer), remat=True)
-              for i, layer in enumerate(model.dec_layers)]
-    return units + [head_unit(cfg)]

@@ -86,9 +86,15 @@ def test_waitall_batches_wait_fn_once_per_group(pkg, eng):
 
     batch = [eng.grequest_start(poll_fn=lambda st: st.get("done", False), wait_fn=wait_fn, extra_state={})
              for _ in range(3)]
-    other = eng.grequest_start(poll_fn=lambda st: True)
+    counter = {"n": 0}
+
+    def poll2(st):
+        st["n"] += 1
+        return st["n"] > 2
+
+    other = eng.grequest_start(poll_fn=poll2, extra_state=counter)
     assert eng.wait_all(batch + [other], timeout=5)
-    assert hit["wait_fn"] == 1
+    assert hit["wait_fn"] == 1 and counter["n"] == 3
 
 
 def test_progress_of_one_stream_polls_only_that_stream(pkg, eng):
@@ -134,6 +140,8 @@ def test_schedule_record_seal_replay(pkg, eng):
     sched = pkg.sch.Schedule(engine=eng, name="t-life")
     assert sched.state == "IDLE"
     _record_double(sched)
+    assert sched.sealed
+    assert sched.ops() == [{"kind": "double", "label": "double", "parts": 1}]
     for i in range(1, 4):
         ctx = sched.replay(binding={"x": i}, timeout=_T)
         assert ctx.outputs["y"] == 2 * i and ctx.epoch == i and ctx.done
@@ -153,11 +161,12 @@ def test_schedule_stale_fingerprint_then_rerecord(pkg, eng):
     sched.replay(timeout=_T)
     with pytest.raises(pkg.sch.ScheduleStale):
         sched.check(n=5)
+    assert sched.state == "INVALID" and "n" in sched.stats()["invalid_reason"]
     with pytest.raises(pkg.sch.ScheduleStale):
         sched.replay(timeout=_T)
     _record_double(sched)
     ctx = sched.replay(binding={"x": 3}, timeout=_T)
-    assert ctx.outputs["y"] == 6 and ctx.epoch == 2
+    assert ctx.outputs["y"] == 6 and ctx.epoch == 2 and sched.stats()["replays"] == 2
 
 
 def test_schedule_prewait_runs_once(pkg, eng):
@@ -175,7 +184,9 @@ def test_schedule_prewait_runs_once(pkg, eng):
     finally:
         rec.abort()
     ctx = sched.replay(wait=False)
+    assert ctx.fused.request.wait_fn is None  # mounted lazily, at wait()
     ctx.wait(timeout=_T)
+    assert ctx.fused.request.wait_fn is not None and ran == [1]
     ctx.wait(timeout=_T)
     assert ran == [1]
 
@@ -211,6 +222,10 @@ def test_offload_streams_get_the_reference_kind_and_channel():
 def test_info_set_hex_matches_reference():
     handle = (123456789).to_bytes(8, "little")
     assert tss.info_set_hex({}, "value", handle) == jss.info_set_hex({}, "value", handle)
+    for m in (jss, tss):
+        info = {}
+        m.info_set_hex(info, "value", handle)
+        assert bytes.fromhex(info["value"]) == handle
 
 
 def test_tokens_are_identity_on_the_cpu():

@@ -1,18 +1,42 @@
-"""The port's datatype engine against the JAX package's, on seeded random
-descriptor trees: the same tree built in both engines must give the same
-iovec algebra, the same ``pack_info`` proof, and byte-identical pack and
-unpack, for numpy buffers and for CPU torch tensors (bf16 included)."""
+"""The port's datatype engine against the JAX package's.
+
+Seeded random descriptor trees: the same tree built in both engines must
+give the same iovec algebra, the same ``pack_info`` proof, and
+byte-identical pack and unpack, for numpy buffers and for CPU torch
+tensors (bf16 included); every tree is also held, in the port's engine,
+to the reference suite's brute-force oracles (``tests/test_datatype.py``:
+random segment access, ``type_iov_len`` against a prefix scan,
+``pack_info`` against the exact affine check, ``iter_runs``, a numpy
+gather and scatter). Trees with a negative lower bound (``resized`` with
+``lb < 0``, ``hindexed`` with negative displacements, each possibly
+tiled by an outer ``contiguous`` or ``hvector``) pack and unpack
+byte-identically to the reference's rebased engine.
+
+The reference suite's unit cases and hypothesis properties run over
+both packages (``pkg`` is ``jax`` or ``torch``) with the same bodies and
+assertions.
+"""
 
 import random
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 pytest.importorskip("jax")
 
 import repro.core.datatype as jdt  # noqa: E402
 import repro_torch.core.datatype as tdt  # noqa: E402
+
+PKGS = {"jax": SimpleNamespace(dt=jdt), "torch": SimpleNamespace(dt=tdt)}
+
+
+@pytest.fixture(params=sorted(PKGS), scope="module")
+def pkg(request):
+    """Module-scoped: hypothesis runs many examples under one fixture value."""
+    return PKGS[request.param]
 
 
 def _random_datatype(m, rng: random.Random, depth: int):
@@ -57,18 +81,108 @@ def _random_datatype(m, rng: random.Random, depth: int):
     return m.resized(inner, 0, inner.lb + inner.extent + rng.choice([0, 0, 3, 8]))
 
 
-def _pair(seed):
+def _negative_datatype(m, rng: random.Random, depth: int):
+    """A tree with ``lb < 0``: a :func:`_random_datatype` tree under
+    ``resized`` with a negative lower bound or ``hindexed`` blocks at
+    negative displacements, possibly tiled by an outer ``contiguous`` or
+    ``hvector`` (non-overlapping segments throughout)."""
+    inner = _random_datatype(m, rng, depth)
+    if rng.random() < 0.5:
+        k = rng.randint(1, 8)
+        d = m.resized(inner, -k, inner.lb + inner.extent + k + rng.choice([0, 0, 3, 8]))
+    else:
+        lens, displs, off = [], [], 0
+        for _ in range(rng.randint(1, 3)):
+            c = rng.randint(1, 2)
+            displs.append(off)
+            lens.append(c)
+            off += c * inner.extent + max(inner.lb, 0) + rng.randint(0, 8)
+        base = rng.randint(1, off + 8)  # every block below 0, or some
+        d = m.hindexed(lens, [x - base for x in displs], inner)
+    outer = rng.choice(["none", "contig", "hvector"])
+    if outer == "contig":
+        return m.contiguous(rng.randint(2, 3), d)
+    if outer == "hvector":
+        bl = rng.randint(1, 2)
+        return m.hvector(rng.randint(2, 3), bl, bl * d.extent + rng.randint(0, 8), d)
+    return d
+
+
+def _pair(seed, build=_random_datatype):
     depth = random.Random(seed).randint(1, 3)
-    j = _random_datatype(jdt, random.Random(seed * 7919 + 1), depth)
-    t = _random_datatype(tdt, random.Random(seed * 7919 + 1), depth)
+    j = build(jdt, random.Random(seed * 7919 + 1), depth)
+    t = build(tdt, random.Random(seed * 7919 + 1), depth)
     return j, t
 
 
-@pytest.mark.parametrize("seed", range(40))
-def test_random_trees_pack_unpack_byte_exact(seed):
-    jd, td = _pair(seed)
-    rng = random.Random(seed)
-    count = rng.randint(1, 3)
+def _merge_ref(m, iovs):
+    out = []
+    for off, ln in iovs:
+        if ln == 0:
+            continue
+        if out and out[-1].offset + out[-1].length == off:
+            out[-1] = m.Iov(out[-1].offset, out[-1].length + ln)
+        else:
+            out.append(m.Iov(off, ln))
+    return out
+
+
+def _affine_ref(segs):
+    """Reference uniformity: exactly what pack_info promises."""
+    if not segs:
+        return None
+    L = segs[0].length
+    if any(s.length != L for s in segs):
+        return None
+    if len(segs) == 1:
+        return (1, L, 0, segs[0].offset)
+    S = segs[1].offset - segs[0].offset
+    if any(segs[i].offset != segs[0].offset + i * S for i in range(len(segs))):
+        return None
+    return (len(segs), L, S, segs[0].offset)
+
+
+def _oracles(d, rng: random.Random, count: int, buf: np.ndarray, origin: int) -> None:
+    """``tests/test_datatype.py``'s randomized oracles on the port's tree
+    ``d`` over ``count`` reps of ``buf``, whose byte 0 is offset ``origin``."""
+    segs = d.iovs()
+    assert sum(s.length for s in segs) == d.size == tdt.type_iov_len(d, -1)[1]
+    assert len(segs) == d.num_segments
+    for i in (0, len(segs) // 2, len(segs) - 1):
+        assert d.segment(i) == segs[i]
+    for _ in range(5):
+        budget = rng.randint(0, d.size + 4)
+        acc = k = 0
+        for s in segs:
+            if acc + s.length > budget:
+                break
+            acc += s.length
+            k += 1
+        assert tdt.type_iov_len(d, budget) == (k, acc)
+    assert tdt.pack_info(d) == _affine_ref(segs)
+    all_segs = [tdt.Iov(s.offset + r * d.extent, s.length) for r in range(count) for s in segs]
+    runs = _merge_ref(tdt, all_segs)
+    assert tdt.coalesced_iovs(d, count) == runs
+    mb = rng.choice([3, 7, 64])
+    split = list(tdt.iter_runs(d, max_bytes=mb, count=count))
+    assert all(r.length <= mb for r in split) and _merge_ref(tdt, split) == runs
+    at = [(s.offset - origin, s.length) for s in all_segs]
+    packed = tdt.pack(buf, d, count)
+    np.testing.assert_array_equal(packed, np.concatenate([buf[o:o + n] for o, n in at]))
+    ref = np.zeros_like(buf)
+    pos = 0
+    for o, n in at:
+        ref[o:o + n] = packed[pos:pos + n]
+        pos += n
+    out = np.zeros_like(buf)
+    tdt.unpack(packed, d, out, count)
+    np.testing.assert_array_equal(out, ref)
+
+
+def _byte_exact(jd, td, rng: random.Random, count: int) -> None:
+    """Both engines' trees agree on their algebra, and pack and unpack
+    byte-identically over a random buffer (numpy, a CPU tensor, the naive
+    engine), which the port also holds to the brute-force oracles."""
     assert (td.size, td.extent, td.lb) == (jd.size, jd.extent, jd.lb)
     assert [(s.offset, s.length) for s in td.iovs()] == [(s.offset, s.length) for s in jd.iovs()]
     assert tdt.pack_info(td) == jdt.pack_info(jd)
@@ -78,7 +192,8 @@ def test_random_trees_pack_unpack_byte_exact(seed):
     ]
 
     segs = jd.iovs()
-    need = (count - 1) * jd.extent + max(s.offset + s.length for s in segs)
+    origin = min(0, jd.lb, min(s.offset for s in segs))  # a negative lower bound is rebased to byte 0
+    need = (count - 1) * jd.extent + max(s.offset + s.length for s in segs) - origin
     buf = np.frombuffer(rng.randbytes(max(need, 1)), dtype=np.uint8).copy()
     expect = jdt.pack(buf, jd, count)
     np.testing.assert_array_equal(tdt.pack(buf, td, count), expect)
@@ -90,6 +205,25 @@ def test_random_trees_pack_unpack_byte_exact(seed):
     t_out = torch.zeros(buf.size, dtype=torch.uint8)
     tdt.unpack(torch.from_numpy(expect), td, t_out, count)
     np.testing.assert_array_equal(t_out.numpy(), j_out)
+    n_out = np.zeros_like(buf)
+    tdt.unpack_naive(expect, td, n_out, count)
+    np.testing.assert_array_equal(n_out, j_out)
+    _oracles(td, rng, count, buf, origin)
+
+
+@pytest.mark.parametrize("seed", range(60))
+def test_random_trees_pack_unpack_byte_exact(seed):
+    jd, td = _pair(seed)
+    rng = random.Random(seed)
+    _byte_exact(jd, td, rng, rng.randint(1, 3))
+
+
+@pytest.mark.parametrize("seed", range(40))
+def test_random_negative_lb_trees_pack_unpack_byte_exact(seed):
+    jd, td = _pair(seed, _negative_datatype)
+    assert jd.lb < 0
+    rng = random.Random(seed)
+    _byte_exact(jd, td, rng, rng.randint(1, 3))
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -110,3 +244,320 @@ def test_host_engine_refuses_device_tensors():
         tdt.pack(torch.zeros(4, device="meta"), td)
     with pytest.raises(ValueError, match="contiguous CPU tensor"):
         tdt.unpack(np.zeros(16, np.uint8), td, torch.zeros(8, 2).t())
+
+
+# ----------------------------------------------------------------------
+# the reference suite's unit cases, over both packages
+# ----------------------------------------------------------------------
+
+
+def test_paper_subarray_example(pkg):
+    """The paper's typeiov.c: 100³ subarray of a 1000³ volume of 16-byte
+    structs → 100·100 segments of 100·16 bytes (YZ-fragmentation)."""
+    value = pkg.dt.predefined(16, "value")
+    vol = pkg.dt.subarray([1000, 1000, 1000], [100, 100, 100], [300, 300, 300], value)
+    n, b = pkg.dt.type_iov_len(vol, -1)
+    assert n == 100 * 100
+    assert b == 100 * 100 * 100 * 16 == pkg.dt.type_size(vol)
+    iovs = pkg.dt.type_iov(vol, 0, 4)
+    assert len(iovs) == 4
+    assert all(i.length == 100 * 16 for i in iovs)
+    # first segment offset: (300*1000*1000 + 300*1000 + 300) * 16
+    assert iovs[0].offset == (300 * 1_000_000 + 300 * 1000 + 300) * 16
+
+
+def test_iov_len_bisection(pkg):
+    v = pkg.dt.vector(10, 2, 5, pkg.dt.predefined(4))
+    # 10 segments of 8 bytes
+    assert pkg.dt.type_iov_len(v, -1) == (10, 80)
+    assert pkg.dt.type_iov_len(v, 24) == (3, 24)
+    assert pkg.dt.type_iov_len(v, 25) == (3, 24)  # whole segments only
+    assert pkg.dt.type_iov_len(v, 7) == (0, 0)
+
+
+def test_contiguous_merging(pkg):
+    c = pkg.dt.contiguous(8, pkg.dt.predefined(4))
+    assert c.num_segments == 1
+    assert c.segment(0) == pkg.dt.Iov(0, 32)
+    # gap-free vector merges too
+    v = pkg.dt.vector(4, 2, 2, pkg.dt.predefined(4))
+    assert v.num_segments == 1
+
+
+def test_random_access_matches_enumeration(pkg):
+    v = pkg.dt.hvector(7, 3, 40, pkg.dt.predefined(4))
+    segs = v.iovs()
+    for i, s in enumerate(segs):
+        assert v.segment(i) == s
+
+
+def test_struct_and_indexed(pkg):
+    s = pkg.dt.struct([1, 2], [0, 64], [pkg.dt.predefined(8), pkg.dt.contiguous(2, pkg.dt.predefined(4))])
+    assert pkg.dt.type_size(s) == 8 + 2 * 8
+    idx = pkg.dt.indexed([2, 1], [0, 5], pkg.dt.predefined(4))
+    assert pkg.dt.type_size(idx) == 12
+    iovs = idx.iovs()
+    assert iovs[0] == pkg.dt.Iov(0, 8)
+    assert iovs[1] == pkg.dt.Iov(20, 4)
+
+
+def test_resized_extent(pkg):
+    r = pkg.dt.resized(pkg.dt.predefined(4), 0, 16)
+    c = pkg.dt.contiguous(3, r)
+    assert c.num_segments == 3
+    assert c.segment(1).offset == 16
+
+
+def test_pack_info_uniform(pkg):
+    v = pkg.dt.vector(16, 3, 8, pkg.dt.predefined(4))
+    assert pkg.dt.pack_info(v) == (16, 12, 32, 0)
+    sub3 = pkg.dt.subarray([10, 10, 10], [2, 2, 2], [1, 1, 1], pkg.dt.predefined(4))
+    assert pkg.dt.pack_info(sub3) is None  # two-level stride is not uniform
+    sub2 = pkg.dt.subarray([10, 10], [4, 4], [2, 2], pkg.dt.predefined(4))
+    info = pkg.dt.pack_info(sub2)
+    assert info == (4, 16, 40, (2 * 10 + 2) * 4)
+
+
+def test_pack_info_adversarial_affine_probes(pkg):
+    """Regression: hindexed segment offsets 0,10,25,30,40,50 pass the old
+    sampling heuristic's first/second/middle/last probes (middle = index 3
+    → 30 == 3·10, last = 50 == 5·10) yet segment 2 sits at 25 ≠ 20 — the
+    sampled pack_info returned (6, 2, 10, 0) and the dense kernel packed
+    bytes 20..21 where the layout holds 25..26. The exact structural
+    check must classify it irregular."""
+    adv = pkg.dt.hindexed([1] * 6, [0, 10, 25, 30, 40, 50], pkg.dt.predefined(2))
+    assert pkg.dt.pack_info(adv) is None
+    # and the host engine packs it correctly
+    buf = np.arange(60, dtype=np.uint8)
+    expect = np.concatenate([buf[o : o + l] for o, l in adv.iovs()])
+    np.testing.assert_array_equal(pkg.dt.pack(buf, adv), expect)
+
+
+def test_pack_info_uniform_hindexed_still_fast(pkg):
+    """Exactness must not lose genuinely affine block layouts."""
+    uh = pkg.dt.hindexed([2, 2, 2, 2], [0, 12, 24, 36], pkg.dt.predefined(4))
+    assert pkg.dt.pack_info(uh) == (4, 8, 12, 0)
+    # touching blocks (stride == segment) are uniform too
+    touch = pkg.dt.hindexed([2, 2], [0, 8], pkg.dt.predefined(4))
+    assert pkg.dt.pack_info(touch) == (2, 8, 8, 0)
+    assert pkg.dt.coalesced_iovs(touch) == [pkg.dt.Iov(0, 16)]
+
+
+# ----------------------------------------------------------------------
+# negative lower bounds: rebase instead of numpy wraparound corruption
+# ----------------------------------------------------------------------
+
+
+def test_pack_negative_lb_rebased(pkg):
+    """Regression: offsets below 0 used to wrap to the buffer tail
+    (flat[-8:-4]) and silently pack the wrong bytes. With the buffer-origin
+    rebase, buffer byte 0 corresponds to the type's lowest byte."""
+    neg = pkg.dt.hindexed([4, 4], [-8, 0], pkg.dt.predefined(1))
+    assert neg.lb == -8
+    buf = np.arange(16, dtype=np.uint8)
+    packed = pkg.dt.pack(buf, neg)
+    # offset -8 → buf[0:4], offset 0 → buf[8:12]
+    np.testing.assert_array_equal(packed, np.r_[buf[0:4], buf[8:12]])
+    np.testing.assert_array_equal(pkg.dt.pack_naive(buf, neg), packed)
+
+
+def test_unpack_negative_lb_rebased(pkg):
+    neg = pkg.dt.hindexed([4, 4], [-8, 0], pkg.dt.predefined(1))
+    packed = np.arange(8, dtype=np.uint8) + 100
+    out = np.zeros(16, np.uint8)
+    pkg.dt.unpack(packed, neg, out)
+    expect = np.zeros(16, np.uint8)
+    expect[0:4] = packed[0:4]
+    expect[8:12] = packed[4:8]
+    np.testing.assert_array_equal(out, expect)
+    out2 = np.zeros(16, np.uint8)
+    pkg.dt.unpack_naive(packed, neg, out2)
+    np.testing.assert_array_equal(out2, expect)
+
+
+def test_negative_resized_lb_roundtrip(pkg):
+    r = pkg.dt.resized(pkg.dt.contiguous(2, pkg.dt.predefined(4)), -4, 16)
+    assert r.lb == -4
+    c = pkg.dt.contiguous(3, r)  # reps tile at extent 16 from lb -4
+    buf = np.random.default_rng(1).integers(1, 255, 64, dtype=np.uint8)
+    packed = pkg.dt.pack(buf, c)
+    np.testing.assert_array_equal(packed, pkg.dt.pack_naive(buf, c))
+    out = np.zeros_like(buf)
+    pkg.dt.unpack(packed, c, out)
+    out_naive = np.zeros_like(buf)
+    pkg.dt.unpack_naive(packed, c, out_naive)
+    np.testing.assert_array_equal(out, out_naive)
+
+
+def test_pack_buffer_too_small_raises(pkg):
+    """The old engine silently produced garbage (numpy slice clamping) —
+    now an exact bounds check raises."""
+    v = pkg.dt.vector(4, 1, 4, pkg.dt.predefined(4))  # spans 52 bytes
+    with pytest.raises(ValueError, match="buffer holds"):
+        pkg.dt.pack(np.zeros(16, np.uint8), v)
+    with pytest.raises(ValueError, match="buffer holds"):
+        pkg.dt.unpack(np.zeros(v.size, np.uint8), v, np.zeros(16, np.uint8))
+
+
+# ----------------------------------------------------------------------
+# coalesced runs / iter_runs
+# ----------------------------------------------------------------------
+
+
+def test_coalesced_iovs_merges_across_reps(pkg):
+    dense = pkg.dt.contiguous(4, pkg.dt.predefined(4))
+    assert pkg.dt.coalesced_iovs(dense, 5) == [pkg.dt.Iov(0, 80)]
+    gappy = pkg.dt.vector(3, 1, 2, pkg.dt.predefined(4))
+    assert len(pkg.dt.coalesced_iovs(gappy)) == 3
+    # resized padding keeps reps apart
+    padded = pkg.dt.resized(pkg.dt.contiguous(2, pkg.dt.predefined(4)), 0, 12)
+    assert pkg.dt.coalesced_iovs(padded, 3) == [pkg.dt.Iov(0, 8), pkg.dt.Iov(12, 8), pkg.dt.Iov(24, 8)]
+
+
+def test_iter_runs_max_bytes_splits(pkg):
+    dense = pkg.dt.contiguous(8, pkg.dt.predefined(4))
+    runs = list(pkg.dt.iter_runs(dense, max_bytes=10, count=2))
+    assert all(r.length <= 10 for r in runs)
+    assert _merge_ref(pkg.dt, runs) == [pkg.dt.Iov(0, 64)]
+    with pytest.raises(ValueError):
+        next(pkg.dt.iter_runs(dense, max_bytes=0))
+
+
+# ----------------------------------------------------------------------
+# the reference suite's hypothesis properties, over both packages
+# ----------------------------------------------------------------------
+
+def base_strategy(m):
+    return st.sampled_from([1, 2, 4, 8]).map(lambda n: m.predefined(n))
+
+
+@st.composite
+def datatype_strategy(draw, m, depth=2):
+    """The reference suite's strategy, drawing the tree in the engine ``m``."""
+    if depth == 0:
+        return draw(base_strategy(m))
+    kind = draw(
+        st.sampled_from(
+            ["contig", "vector", "hvector", "indexed", "struct", "subarray", "resized", "base"]
+        )
+    )
+    if kind == "subarray":  # base must be dense: draw a primitive
+        ndims = draw(st.integers(1, 2))
+        subsizes = [draw(st.integers(1, 3)) for _ in range(ndims)]
+        starts = [draw(st.integers(0, 2)) for _ in range(ndims)]
+        sizes = [s + st_ + draw(st.integers(0, 2)) for s, st_ in zip(subsizes, starts)]
+        return m.subarray(sizes, subsizes, starts, draw(base_strategy(m)))
+    inner = draw(datatype_strategy(m, depth=depth - 1))
+    if kind == "base":
+        return inner
+    if kind == "contig":
+        return m.contiguous(draw(st.integers(1, 4)), inner)
+    if kind == "vector":
+        count = draw(st.integers(1, 4))
+        blocklen = draw(st.integers(1, 3))
+        stride = draw(st.integers(blocklen, blocklen + 3))
+        return m.vector(count, blocklen, stride, inner)
+    if kind == "hvector":
+        count = draw(st.integers(1, 4))
+        blocklen = draw(st.integers(1, 3))
+        stride = draw(st.integers(blocklen * inner.extent, blocklen * inner.extent + 16))
+        return m.hvector(count, blocklen, stride, inner)
+    if kind == "struct":
+        other = draw(datatype_strategy(m, depth=depth - 1))
+        ca, cb = draw(st.integers(1, 2)), draw(st.integers(1, 2))
+        d2 = ca * inner.extent + inner.extent + draw(st.integers(0, 8))
+        return m.struct([ca, cb], [0, d2], [inner, other])
+    if kind == "resized":
+        span = inner.lb + inner.extent
+        return m.resized(inner, 0, span + draw(st.sampled_from([0, 0, 3, 8])))
+    # indexed: displacements increasing with room for blocks (gap 0 allowed
+    # so coalescing paths are exercised)
+    nb = draw(st.integers(1, 3))
+    lens = [draw(st.integers(1, 2)) for _ in range(nb)]
+    displs, off = [], 0
+    for ln in lens:
+        displs.append(off)
+        off += ln + draw(st.integers(0, 2))
+    return m.indexed(lens, displs, inner)
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.data())
+def test_property_size_equals_segment_sum(pkg, data):
+    d = data.draw(datatype_strategy(pkg.dt))
+    n, b = pkg.dt.type_iov_len(d, -1)
+    assert b == pkg.dt.type_size(d)
+    segs = pkg.dt.type_iov(d, 0, n)
+    assert len(segs) == n
+    assert sum(s.length for s in segs) == pkg.dt.type_size(d)
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.data())
+def test_property_segments_within_extent_and_ordered(pkg, data):
+    d = data.draw(datatype_strategy(pkg.dt))
+    segs = d.iovs()
+    lo, hi = d.lb, d.lb + d.extent
+    prev_end = None
+    for s in segs:
+        assert s.offset >= lo and s.offset + s.length <= hi
+        if prev_end is not None:
+            assert s.offset >= prev_end  # non-overlapping, ordered
+        prev_end = s.offset + s.length
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.data(), st.integers(0, 1 << 16))
+def test_property_iov_len_is_whole_segment_prefix(pkg, data, budget):
+    d = data.draw(datatype_strategy(pkg.dt))
+    n, b = pkg.dt.type_iov_len(d, budget)
+    segs = d.iovs()
+    # n = max k with sum of first k lengths <= budget
+    acc, k = 0, 0
+    for s in segs:
+        if acc + s.length > budget:
+            break
+        acc += s.length
+        k += 1
+    assert (n, b) == (k, acc)
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.data())
+def test_property_pack_unpack_roundtrip(pkg, data):
+    d = data.draw(datatype_strategy(pkg.dt))
+    ext = d.lb + d.extent
+    rng = np.random.default_rng(0)
+    buf = rng.integers(1, 255, size=max(ext, 1), dtype=np.uint8)  # nonzero
+    packed = pkg.dt.pack(buf, d)
+    assert packed.size == pkg.dt.type_size(d)
+    out = np.zeros_like(buf)
+    pkg.dt.unpack(packed, d, out)
+    # every packed byte landed back at its source offset
+    for off, ln in d.iovs():
+        assert np.array_equal(out[off : off + ln], buf[off : off + ln])
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.data(), st.integers(0, 20), st.integers(0, 10))
+def test_property_random_access_window(pkg, data, off, ln):
+    d = data.draw(datatype_strategy(pkg.dt))
+    segs = d.iovs()
+    window = pkg.dt.type_iov(d, off, ln)
+    assert window == segs[off : off + ln]
+
+
+@settings(max_examples=30, deadline=None)
+@given(st.integers(1, 6), st.integers(1, 6), st.integers(1, 6))
+def test_property_subarray_segments(pkg, nx, ny, nz):
+    full = [nx + 2, ny + 3, nz + 1]
+    sub = pkg.dt.subarray(full, [nx, ny, nz], [1, 1, 0], pkg.dt.predefined(4))
+    # C-order: innermost dim contiguous → nx*ny segments unless fully dense
+    n, _ = pkg.dt.type_iov_len(sub, -1)
+    if nz == full[2] and ny == full[1]:
+        assert n == 1 if nx == full[0] or True else n
+    else:
+        assert n == nx * ny
+    buf = np.arange(np.prod(full) * 4, dtype=np.uint8)
+    ref = buf.reshape(full + [4])[1 : 1 + nx, 1 : 1 + ny, 0:nz].reshape(-1)
+    assert np.array_equal(pkg.dt.pack(buf, sub), ref)

@@ -136,7 +136,19 @@ def test_lower_cell_names_a_refused_knob(small, knob):
         assert coll["reduce-scatter"] > base["reduce-scatter"] and coll["all-reduce"] < base["all-reduce"]
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("knob", ["seq_shard_acts", "moe_dispatch_sharding"])
+def test_lower_cell_whisper_train_under_a_hint(small, knob):
+    """``whisper-tiny × train_4k`` under either layout hint counts its
+    folded tensor-parallel step, with no reason: the collectives of the
+    hint-free row, as neither hint changes Whisper (the reference tags no
+    activation of it, and it has no MoE)."""
+    row = dryrun.lower_cell("whisper-tiny", "train_4k", verbose=False,
+                            cfg_transform=lambda c: c.replace(**{knob: True}))
+    assert "reason" not in row and row["memory"]["temp_bytes"] > 0 and row["roofline"]["t_collective_s"] > 0
+    assert row["collectives"] == dryrun.lower_cell("whisper-tiny", "train_4k", verbose=False)["collectives"]
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-1b-a400m", "whisper-tiny"])
 def test_folded_train_cell_counts_the_full_mesh(arch):
     """A train cell's step run with the dp axes folded (one rank per
     ``model`` index standing for its dp peers) counts exactly the

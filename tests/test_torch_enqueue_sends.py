@@ -94,10 +94,33 @@ def test_pack_stacked_matches_reference(seed):
 
     jd = _random_datatype(jdt, random.Random(seed), random.Random(seed).randint(1, 3))
     td = _random_datatype(tdt, random.Random(seed), random.Random(seed).randint(1, 3))
-    if td.size == 0 or td.lb < 0:
-        pytest.skip("empty/negative-lb layout")
+    if td.size == 0:
+        pytest.skip("empty layout")
+    _stacked_bytes_match(jd, td, seed)
+
+
+@pytest.mark.parametrize("seed", range(10))
+def test_pack_stacked_matches_reference_negative_lb(seed):
+    """As :func:`test_pack_stacked_matches_reference` for a layout whose
+    lower bound is negative: each row's byte 0 is the type's lowest byte
+    (the reference's rebase), every row packed on its own, the bytes the
+    reference's."""
+    from test_torch_datatype import _negative_datatype
+
+    depth = random.Random(seed).randint(1, 3)
+    jd = _negative_datatype(jdt, random.Random(seed), depth)
+    td = _negative_datatype(tdt, random.Random(seed), depth)
+    assert td.lb < 0 and td.size > 0
+    _stacked_bytes_match(jd, td, seed)
+
+
+def _stacked_bytes_match(jd, td, seed):
+    """``n`` stacked rows, each as long as one element of the layout needs
+    (from its lowest byte, rebased to 0 where negative, to its highest)."""
     n = random.Random(seed).randint(2, 5)
-    row = max(td.lb + td.extent, 1)
+    segs = td.iovs()
+    lo = min(0, td.lb, min(s.offset for s in segs))
+    row = max(max(td.lb + td.extent, max(s.offset + s.length for s in segs)) - lo, 1)
     x = np.random.default_rng(seed).integers(0, 255, (n, row), dtype=np.uint8)
     got = tenq._pack_stacked(torch.from_numpy(x), td, 1, n)
     ref = jenq._pack_stacked(jnp.asarray(x), jd, 1, n)

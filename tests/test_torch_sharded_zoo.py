@@ -387,7 +387,12 @@ def test_sharded_grads_match_single_rank(arch):
     """make_grad_step(dp=) for every arch of the zoo, fp32 at smoke size:
     every block's gradient, gathered, within 1e-4 of each leaf's largest
     of the single-rank gradient, and the loss to 1e-5; make_train_step(dp=)
-    from the same state gives the same loss and finite params."""
+    from the same state gives the same loss and finite params. Whisper's
+    key biases (``*.attn.bk``, ``*.xattn.bk``) shift each softmax row by a
+    constant and it has no rope, so their true gradient is zero and both
+    steps hold only their rounding, summed in another order: they are held
+    at 1e-4 of the same attention's ``wk`` gradient's largest, each step's
+    values as near zero as that."""
     from repro_torch.configs import get_config, list_archs
     from repro_torch.launch.train import make_grad_step, make_train_step
     from repro_torch.models import api
@@ -404,8 +409,13 @@ def test_sharded_grads_match_single_rank(arch):
     assert abs(loss.item() - loss1.item()) <= 1e-5 * abs(loss1.item())
     for n, g in grads.items():
         assert g.sharding == params[n].sharding
-        w = want[n].numpy()
-        assert np.max(np.abs(g.gather().numpy() - w)) <= 1e-4 * max(np.abs(w).max(), 1e-6), n
+        w, got = want[n].numpy(), g.gather().numpy()
+        if arch == "whisper-tiny" and n.endswith("attn.bk"):
+            bound = 1e-4 * np.abs(want[n[:-2] + "wk"].numpy()).max()
+            assert np.abs(got).max() <= bound and np.abs(w).max() <= bound, n
+            assert np.max(np.abs(got - w)) <= bound, n
+            continue
+        assert np.max(np.abs(got - w)) <= 1e-4 * max(np.abs(w).max(), 1e-6), n
     _, _, m = make_train_step(cfg, _opt_cfg(), dp=dp_axes(_mesh()))(params, opt, batch)
     assert abs(m["loss"].item() - loss.item()) <= 1e-6 * abs(loss.item())
     assert all(bool(torch.isfinite(st.gather()).all()) for st in params.values())
