@@ -44,7 +44,10 @@ the sharded prefill and decode steps (``sharded_serve``: qwen1.5-0.5b and
 granite-moe-1b-a400m at full width and depth on a ``(2, 4)`` mesh of
 thread-ranks, tensor-parallel over ``model``
 with the flash kernel on every rank's heads and the decode
-sequence-parallel over the cache, against the single-rank steps), and
+sequence-parallel over the cache, against the single-rank steps), runs
+the port's five examples as a user does (``examples``: each
+``examples/port/*.py`` in a process of its own on the card with its
+defaults, ``train_lm.py`` trained and then resumed from its last save), and
 last checks the launch cost tooling (``cost``: the served decode step, a
 prefill and the train step counted on meta tensors beside their measured
 times and hand-derived bounds, peak memory predicted on meta against the
@@ -252,6 +255,17 @@ SS_TIE_GAP = 1e-6
 # deep) reached its cache at 1.44e-5 and its logits at 1.5e-5 on an H100,
 # five times qwen's, so its cache is held at 5e-5
 SS_CACHE_TOL = {"qwen": 1e-5, "granite": 5e-5}
+# the examples phase: each port example run as its users run it, in a
+# process of its own on the card with the defaults, each bounded by its own
+# timeout (seconds); train_lm runs EX_TRAIN_STEPS[0] steps, crossing its
+# periodic save at step 50, then EX_TRAIN_STEPS[1] more resumed from the last
+# save in the same --ckpt-dir. A save holds the bf16 params and the fp32
+# moments and master: 14 bytes a parameter, three saves kept
+EX_TIMEOUT_S = {"quickstart": 60, "serve_lm": 90, "train_lm": 180, "train_lm_resume": 120,
+                "pipeline_train": 120, "streams_overlap": 90}
+EX_TRAIN_STEPS = (60, 10)
+EX_SAVE_BYTES_A_PARAM = 14
+EX_SAVES_KEPT = 3
 # the cost phase: the served decode step (slots, max_len) and prefill length
 # it counts on meta tensors beside serve's measured times; the tolerances of
 # its checks; the dry-run cell it runs, in a process of its own started
@@ -3817,6 +3831,122 @@ def phase_sharded_serve(torch, smi: str, parts=(("qwen", "qwen1.5-0.5b"), ("gran
     return dict(flash_launches=launches)
 
 
+# ----------------------------------------------------------------------
+# the examples phase
+# ----------------------------------------------------------------------
+
+
+def run_example(name: str, timeout: float, *args: str) -> tuple:
+    """``python examples/port/<name>.py *args`` with ``PYTHONPATH=src``, as
+    the README runs it: (stdout, wall seconds). A non-zero exit or running
+    past ``timeout`` seconds (which kills the process) fails the phase."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "examples" / "port" / f"{name}.py"), *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t
+    check(proc.returncode == 0, f"examples/port/{name}.py {' '.join(args)} exited {proc.returncode}:\n"
+                                f"{proc.stderr[-3000:]}")
+    return proc.stdout, seconds
+
+
+def example_lines(out: str, prefix: str) -> list:
+    return [ln for ln in out.splitlines() if ln.startswith(prefix)]
+
+
+def train_lm_run(out: str) -> dict:
+    """A train_lm run's logged losses, its step-time line's numbers, the
+    step it restored and its final loss line."""
+    import re
+
+    logged = [(int(m[1]), float(m[2])) for m in
+              (re.match(r"\[trainer\] step (\d+) loss (\S+) ", ln) for ln in example_lines(out, "[trainer] step "))]
+    timing = re.match(r"\[train_lm\] steps (\d+)\.\.(\d+): (\S+) ms a step .*, (\S+) tokens/s",
+                      example_lines(out, "[train_lm] steps ")[-1])
+    restored = example_lines(out, "[trainer] restored step ")
+    final = re.match(r"\[train_lm\] loss (\S+) -> (\S+) over (\d+) steps", out.splitlines()[-1])
+    check(final is not None, f"train_lm ends with its loss line: {out.splitlines()[-1:]}")
+    return dict(first_step=int(timing[1]), last_step=int(timing[2]), ms_a_step=float(timing[3]),
+                tokens_per_s=float(timing[4]), logged=logged,
+                restored=int(restored[0].split()[-1]) if restored else None,
+                loss_first=float(final[1]), loss_last=float(final[2]), steps=int(final[3]))
+
+
+def phase_examples(torch, smi: str) -> dict:
+    """The five port examples (``examples/port/``) on the card, each in a
+    process of its own with its defaults: quickstart, serve_lm,
+    pipeline_train and streams_overlap must end with ``OK`` (the reference's
+    asserts hold inside each); train_lm trains the 95.2M-parameter preset
+    for EX_TRAIN_STEPS[0] steps, then resumes for EX_TRAIN_STEPS[1] more from
+    its last save, its losses finite and falling. Checkpoints go to a
+    directory under the checkout's build/, removed at the end."""
+    import importlib.util
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the examples' processes share the card with this one
+    seconds, out = {}, {}
+    for name in ("quickstart", "serve_lm"):
+        out[name], seconds[name] = run_example(name, EX_TIMEOUT_S[name])
+        check(out[name].splitlines()[-1:] == ["OK"], f"{name} ends with OK")
+    check(len(example_lines(out["quickstart"], "[grequest] completed after 3 polls")) == 1,
+          "quickstart's generalized request completed after 3 polls")
+    check("owns torch.cuda.Stream" in out["quickstart"], "quickstart's offload stream owns a torch.cuda.Stream")
+    check(len(example_lines(out["serve_lm"], "[serve] 6 requests, 72 tokens")) == 1, "serve_lm served 6 x 12 tokens")
+
+    spec = importlib.util.spec_from_file_location("port_train_lm", ROOT / "examples" / "port" / "train_lm.py")
+    train_lm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(train_lm)
+    n_params = train_lm.model_100m().param_counts()["total"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    base = Path(tempfile.mkdtemp(prefix="examples-ckpt-", dir=ROOT / "build"))
+    try:
+        need_disk(base, EX_SAVES_KEPT * EX_SAVE_BYTES_A_PARAM * n_params, "train_lm's checkpoints")
+        first, resumed = EX_TRAIN_STEPS
+        for key, steps in (("train_lm", first), ("train_lm_resume", resumed)):
+            out[key], seconds[key] = run_example("train_lm", EX_TIMEOUT_S[key], "--steps", str(steps),
+                                                 "--ckpt-dir", str(base))
+        saves = sorted(p.name for p in base.iterdir() if p.name.startswith("step_"))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    tl, tr = train_lm_run(out["train_lm"]), train_lm_run(out["train_lm_resume"])
+    check(tl["restored"] is None and (tl["first_step"], tl["last_step"], tl["steps"]) == (0, first - 1, first),
+          f"train_lm ran steps 0..{first - 1} from scratch: {tl}")
+    check(tr["restored"] == first - 1 and (tr["first_step"], tr["last_step"], tr["steps"]) == (first, first + resumed - 1,
+                                                                                           resumed),
+          f"the resumed train_lm restored step {first - 1} and ran from step {first}: {tr}")
+    check(saves == [f"step_{s:08d}" for s in (50, first - 1, first + resumed - 1)], f"train_lm's saves: {saves}")
+    losses = [l for _, l in tl["logged"] + tr["logged"]] + [tl["loss_last"], tr["loss_first"], tr["loss_last"]]
+    check(all(math.isfinite(l) for l in losses), f"train_lm's losses finite: {losses}")
+    check(tl["loss_last"] < tl["loss_first"] and tr["loss_last"] < tl["loss_first"] and tr["loss_first"] < tl["loss_first"],
+          f"train_lm's losses fall: {tl['loss_first']} -> {tl['loss_last']}, resumed {tr['loss_first']} -> "
+          f"{tr['loss_last']}")
+
+    for name in ("pipeline_train", "streams_overlap"):
+        out[name], seconds[name] = run_example(name, EX_TIMEOUT_S[name])
+        check(out[name].splitlines()[-1:] == ["OK"], f"{name} ends with OK")
+    pipe = example_lines(out["pipeline_train"], "[pipeline] ")
+    pipe_first, pipe_last = float(pipe[0].split()[-1]), float(example_lines(out["pipeline_train"],
+                                                                          "[pipeline] final loss")[0].split()[3])
+    check(pipe_last < 2.0 and pipe_last < pipe_first, f"pipeline_train's loss {pipe_first} -> {pipe_last}, below 2.0")
+    streams = example_lines(out["streams_overlap"], "[streams] part (b) ran on ")
+    n_streams = int(streams[0].split()[5]) if streams else 0
+    check(n_streams == 4 * 8, f"streams_overlap's part (b) ran on 4 CUDA streams a rank x 8 ranks: {streams}")
+
+    res = dict(seconds=seconds, phase_s=time.perf_counter() - t0,
+               train_lm=dict(params=n_params, batch=4, seq=128, steps=[first, resumed],
+                             ms_a_step=tl["ms_a_step"], tokens_per_s=tl["tokens_per_s"],
+                             resumed_ms_a_step=tr["ms_a_step"], resumed_tokens_per_s=tr["tokens_per_s"],
+                             restored_step=tr["restored"], logged=tl["logged"] + tr["logged"],
+                             loss=[tl["loss_first"], tl["loss_last"], tr["loss_first"], tr["loss_last"]], saves=saves),
+               pipeline_train=dict(first_loss=pipe_first, last_loss=pipe_last),
+               streams_overlap=dict(cuda_streams=n_streams),
+               quickstart=example_lines(out["quickstart"], "[streams]"),
+               nvidia_smi=smi, device=torch.cuda.get_device_name(0))
+    emit("examples", **res)
+    return res
+
+
 def phase_timer_ab(torch) -> None:
     """The timer's variants, each in turns so that a change of timer can be
     told from noise, and the pack's timed shapes under the default timer.
@@ -4141,6 +4271,7 @@ def run_phases(torch, smi: str, dry: dict) -> int:
     zoo2 = phase_zoo2(torch, smi)
     sharded = phase_sharded_zoo(torch, smi)
     sserve = phase_sharded_serve(torch, smi)
+    phase_examples(torch, smi)
     phase_cost(torch, smi, serve, train, dry)
 
     ft = kern["flash_times"][-1]  # the longest served prompt, S = 384

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: it imports without JAX, never imports the
 JAX package, and asking for the card without one raises instead of
-falling back to the CPU. The port's benchmarks (``benchmarks/port/``) are
-held to the same rules."""
+falling back to the CPU. The port's benchmarks (``benchmarks/port/``) and
+examples (``examples/port/``) are held to the same rules."""
 
 import ast
+import importlib.util
 import pkgutil
 import subprocess
 import sys
@@ -15,6 +16,8 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 PORT_BENCH = REPO / "benchmarks" / "port"
+PORT_EXAMPLES = REPO / "examples" / "port"
+EXAMPLE_NAMES = ["pipeline_train", "quickstart", "serve_lm", "streams_overlap", "train_lm"]
 
 
 def _port_modules():
@@ -29,6 +32,10 @@ def _port_bench_files():
     return sorted(PORT_BENCH.glob("*.py"))
 
 
+def _port_example_files():
+    return sorted(PORT_EXAMPLES.glob("*.py"))
+
+
 def test_every_port_module_imports_without_jax():
     mods = ["repro_torch"] + _port_modules()
     assert "repro_torch.serving.engine" in mods and "repro_torch.kernels._build" in mods
@@ -40,6 +47,8 @@ def test_every_port_module_imports_without_jax():
         assert f"repro_torch.{sub}" in mods, sub
     benches = [str(p) for p in _port_bench_files()]
     assert any(b.endswith("serving_load.py") for b in benches)
+    examples = [str(p) for p in _port_example_files()]
+    assert [Path(p).stem for p in examples] == EXAMPLE_NAMES
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError
@@ -50,6 +59,11 @@ def test_every_port_module_imports_without_jax():
         f"for i, path in enumerate({benches!r}):\n"  # the port's benchmarks, imported as modules
         "    spec = importlib.util.spec_from_file_location(f'port_bench_{i}', path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        f"for i, path in enumerate({examples!r}):\n"  # the port's examples, imported as modules
+        "    spec = importlib.util.spec_from_file_location(f'port_example_{i}', path)\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    assert callable(mod.main), path\n"
         "assert not any(k == 'repro' or k.startswith('repro.') for k in sys.modules), "
         "sorted(k for k in sys.modules if k.startswith('repro.'))\n"
         "print('IMPORTED', len(sys.modules))\n"
@@ -77,6 +91,7 @@ def _imports(path: Path):
     "path",
     sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py"))
     + sorted(p.relative_to(REPO).as_posix() for p in PORT_BENCH.glob("*.py"))
+    + sorted(p.relative_to(REPO).as_posix() for p in PORT_EXAMPLES.glob("*.py"))
     + ["chip_smoke.py"],
 )
 def test_no_jax_or_reference_imports(path):
@@ -114,6 +129,19 @@ def test_cuda_requested_without_cuda_raises(name):
         pytest.skip("this machine has CUDA: the no-card refusal cannot be observed here")
     with pytest.raises(RuntimeError, match="cuda"):
         _entry_points()[name]()
+
+
+@pytest.mark.parametrize("name", EXAMPLE_NAMES)
+def test_example_asked_for_cuda_without_cuda_raises(name):
+    """Each port example's ``main(["--device", "cuda"])`` refuses a machine
+    without a card before it does any work, rather than running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the no-card refusal cannot be observed here")
+    spec = importlib.util.spec_from_file_location(f"port_example_{name}", PORT_EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.main(["--device", "cuda"])
 
 
 def test_unported_configs_raise_with_roadmap_pointer():
