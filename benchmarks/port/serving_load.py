@@ -17,8 +17,8 @@ Sections:
 * **load** — an open-loop Poisson arrival process (the loader rank sleeps
   exp(1/rate) between offers; arrival stamps taken there) over a mix of
   prompt/output lengths, per engine kind. Reports sustained requests/s over
-  the arrival→last-completion span and p50/p99 normalized per-token latency
-  (arrival→done over tokens out).
+  the arrival→last-completion span and p50/p99 time to first token
+  (arrival→the engine's ``Request.t_first`` stamp, via ``Completion.t_first``).
 * **parity** — the two load runs saw identical traffic; their token streams
   must match request for request. **Asserted.**
 * **spill** — the same traffic prefix through a deliberately tight pool with
@@ -118,11 +118,11 @@ def _run_load(cfg, params, kind, offers, rate_rps, prompt_lens, *, max_batch, ma
     _sync(params.device)
     assert len(cs) == len(offers) and not fe.rejected
     span = max(c.t_done for c in cs) - min(c.t_arrival for c in cs)
-    per_tok_ms = np.array([c.per_token_s * 1e3 for c in cs])
+    ttft_ms = np.array([c.ttft_s * 1e3 for c in cs])
     row = {
         "requests_per_s": len(cs) / span,
-        "p50_token_latency_ms": float(np.quantile(per_tok_ms, 0.50)),
-        "p99_token_latency_ms": float(np.quantile(per_tok_ms, 0.99)),
+        "p50_ttft_ms": float(np.quantile(ttft_ms, 0.50)),
+        "p99_ttft_ms": float(np.quantile(ttft_ms, 0.99)),
         "completed": len(cs),
         "tokens_out": int(sum(c.n_out for c in cs)),
         "steps": fe.steps,
@@ -271,8 +271,8 @@ def main(argv=None) -> int:
     data = bench(smoke=args.smoke, device=args.device)
     for kind, row in data["load"].items():
         print(
-            f"serving_load/{kind} on {data['device']}: {row['requests_per_s']:.1f} req/s, token "
-            f"p50={row['p50_token_latency_ms']:.1f}ms p99={row['p99_token_latency_ms']:.1f}ms "
+            f"serving_load/{kind} on {data['device']}: {row['requests_per_s']:.1f} req/s, ttft "
+            f"p50={row['p50_ttft_ms']:.1f}ms p99={row['p99_ttft_ms']:.1f}ms "
             f"({row['completed']} reqs, {row['tokens_out']} tokens, peak concurrent {row['max_concurrent']})"
         )
     em = data["equal_memory"]

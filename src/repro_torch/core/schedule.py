@@ -52,6 +52,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.core.progress import FusedRequestSet, ProgressEngine, default_engine
 from repro_torch.core.streams import MPIXStream, STREAM_NULL
+from repro_torch.tracing import span
 
 __all__ = [
     "Schedule",
@@ -395,21 +396,24 @@ class Schedule:
             epoch = self._replays
             ops = self._ops
             n_parts = self._n_parts
-        fused = self.engine.fused_start(
-            n_parts, stream=self.stream, name=f"{self.name}@{epoch}"
-        )
-        ctx = ReplayContext(self, fused, binding, scratch, epoch)
-        try:
-            for op in ops:
-                op.issue(ctx)
-        except BaseException:
-            # an op raised (ScheduleStale or otherwise): cancel parent +
-            # parts so the engine queue drains instead of leaking a
-            # never-completing fused parent
-            fused.cancel()
-            raise
-        if wait:
-            ctx.wait(timeout)
+        with span("schedule.replay"):
+            fused = self.engine.fused_start(
+                n_parts, stream=self.stream, name=f"{self.name}@{epoch}"
+            )
+            ctx = ReplayContext(self, fused, binding, scratch, epoch)
+            try:
+                with span("schedule.issue"):
+                    for op in ops:
+                        op.issue(ctx)
+            except BaseException:
+                # an op raised (ScheduleStale or otherwise): cancel parent +
+                # parts so the engine queue drains instead of leaking a
+                # never-completing fused parent
+                fused.cancel()
+                raise
+            if wait:
+                with span("schedule.wait"):
+                    ctx.wait(timeout)
         return ctx
 
     # -- introspection -----------------------------------------------------

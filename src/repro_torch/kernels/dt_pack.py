@@ -34,6 +34,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import count_launch
+
 __all__ = ["dt_pack", "dt_unpack", "dt_unpack_into", "dt_pack_plain", "dt_unpack_plain", "dt_unpack_into_plain",
            "PackPlan", "pack_plan", "access_width"]
 
@@ -146,7 +148,7 @@ def dt_pack(buf, *, nseg: int, seg_len: int, stride: int, start: int = 0):
     )
     if rc != 0:
         raise RuntimeError(f"dt_pack kernel launch failed: cudaError {rc} ({plan})")
-    dt_pack.launches += 1
+    count_launch(dt_pack)
     return out
 
 
@@ -172,7 +174,7 @@ def dt_unpack(packed, *, nseg: int, seg_len: int, stride: int, start: int = 0, o
     )
     if rc != 0:
         raise RuntimeError(f"dt_unpack kernel launch failed: cudaError {rc}")
-    dt_unpack.launches += 1
+    count_launch(dt_unpack)
     return out
 
 
@@ -206,7 +208,7 @@ def dt_unpack_into(packed, out, *, nseg: int, seg_len: int, stride: int, start: 
     )
     if rc != 0:
         raise RuntimeError(f"dt_unpack_into kernel launch failed: cudaError {rc} ({plan})")
-    dt_unpack_into.launches += 1
+    count_launch(dt_unpack_into)
     return out
 
 

@@ -23,9 +23,9 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
-
 import torch
+
+from repro_torch.kernels import count_launch
 
 __all__ = ["flash_attention", "flash_attention_plain", "check_kernel_inputs", "tensor_core_layout_error",
            "KERNEL_HEAD_DIMS", "KERNEL_BLOCK"]
@@ -126,10 +126,8 @@ def flash_attention(q, k, v, causal: bool = True):
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {rc}")
-    with _launches_lock:  # thread-ranks launch concurrently; += alone can lose a count
-        flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 
 flash_attention.launches = 0
-_launches_lock = threading.Lock()

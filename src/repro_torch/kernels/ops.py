@@ -15,7 +15,7 @@ from repro_torch.kernels import dt_pack as _dtp
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rwkv6_scan as _wkv
 
-__all__ = ["gqa_flash_attention", "wkv6", "pack_datatype", "unpack_datatype", "unpack_datatype_into"]
+__all__ = ["gqa_flash_attention", "wkv6", "pack_datatype", "unpack_datatype", "unpack_datatype_into", "k1_launches"]
 
 
 def gqa_flash_attention(q, k, v, causal: bool = True):
@@ -93,3 +93,9 @@ def unpack_datatype_into(packed_flat, dtype_descr: dt.Datatype, out_flat, *, inf
     return _dtp.dt_unpack_into(
         packed_flat, out_flat, nseg=nseg, seg_len=seg_bytes // item, stride=stride, start=disp // item
     )
+
+
+def k1_launches() -> int:
+    """K1 launches so far: the datatype kernels' counters together (pack,
+    unpack and the in-place ``dt_unpack_into``)."""
+    return _dtp.dt_pack.launches + _dtp.dt_unpack.launches + _dtp.dt_unpack_into.launches

@@ -35,9 +35,9 @@ a gradient raises until a backward kernel is ported.
 from __future__ import annotations
 
 import ctypes
-import threading
-
 import torch
+
+from repro_torch.kernels import count_launch
 
 __all__ = ["wkv6", "wkv6_plain", "state_alignment_error", "KERNEL_CHUNKS", "HEAD_SIZE"]
 
@@ -141,10 +141,8 @@ def wkv6(w, r, k, v, bonus, state0, chunk: int = 64):
     )
     if rc != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: cudaError {rc}")
-    with _launches_lock:  # thread-ranks launch concurrently; += alone can lose a count
-        wkv6.launches += 1
+    count_launch(wkv6)
     return y, s_out
 
 
 wkv6.launches = 0
-_launches_lock = threading.Lock()

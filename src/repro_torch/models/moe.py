@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from repro_torch.core.collectives import all_gather
 from repro_torch.core.streams import StreamComm
 from repro_torch.models.config import ModelConfig
+from repro_torch.tracing import span
 
 __all__ = ["moe_capacity", "moe_apply", "router_aux_loss", "router_aux_from_sums", "GlobalRouting", "observers"]
 
@@ -141,72 +142,75 @@ def moe_apply(cfg: ModelConfig, p, x, train: bool = False, route: GlobalRouting 
     C = moe_capacity(N * (route.n_groups if route is not None else 1), cfg, train=train)
     xf = x.reshape(N, d)
 
-    # --- route (fp32) --------------------------------------------------
-    probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)  # (N,E)
-    topv, topi = torch.topk(probs, k, dim=-1)  # (N,k), largest first
-    gates = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    with span("moe.route"):
+        # --- route (fp32) --------------------------------------------------
+        probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)  # (N,E)
+        topv, topi = torch.topk(probs, k, dim=-1)  # (N,k), largest first
+        gates = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
 
-    # --- position-in-expert: k passes, tokens in row-major B*S order ------
-    within_cols, counts = [], []
-    for j in range(k):
-        oh = F.one_hot(topi[:, j], E)  # (N,E)
-        within = torch.cumsum(oh, dim=0) - oh  # exclusive count per expert
-        within_cols.append(within.gather(1, topi[:, j : j + 1])[:, 0])
-        counts.append(oh.sum(0))
-    counts = torch.stack(counts)  # (k,E)
-    base = route.offsets(counts) if route is not None else torch.cumsum(counts, dim=0) - counts
-    pos = torch.stack([c + base[j][topi[:, j]] for j, c in enumerate(within_cols)], dim=1)  # (N,k)
-    keep = pos < C
-    for fn in observers:
-        fn(torch.sum(~keep))
-    if route is None:
-        aux = router_aux_loss(probs, topi, E) * m.router_aux_weight
-    else:
-        top1 = F.one_hot(topi[:, 0], E).sum(0).float()
-        aux = torch.cat([top1, probs.sum(0), torch.sum(~keep).float()[None], top1.new_full((1,), float(N))])
-
-    # --- dispatch: token-id table (E,C), sentinel N, then gather ----------
-    # flat (e, c) of every kept choice, unique by construction; a dropped
-    # choice goes to the padding slot E*C, sliced off below
-    slot = torch.where(keep, topi * C + pos, E * C).reshape(-1)
-    table = torch.full((E * C + 1,), N, dtype=torch.long, device=x.device)
-    table[slot] = torch.arange(N, device=x.device)[:, None].expand(N, k).reshape(-1)
-    table = table[: E * C]
-    e0, e1 = experts if experts is not None else (0, E)
-    if experts is not None:  # this rank's experts only
-        keep = keep & (topi >= e0) & (topi < e1)
-        table = table[e0 * C: e1 * C]
-    x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
-
-    # --- grouped expert FFN ----------------------------------------------
-    if dispatch is not None and C % 16 == 0:
-        ye = dispatch(table.view(e1 - e0, C), x_pad, lambda xe: _expert_ffn(p, xe))
-    else:
-        ye = _expert_ffn(p, x_pad[table.view(e1 - e0, C)])  # (E,C,d)
-
-    # --- combine -----------------------------------------------------------
-    odt = x.dtype if experts is None else torch.float32
-    if cfg.moe_scatter_combine:
-        gate_table = torch.zeros((E * C + 1,), dtype=torch.float32, device=x.device)
-        gate_table[slot] = gates.reshape(-1)
-        yw = ye * gate_table[e0 * C: e1 * C].view(e1 - e0, C, 1).to(ye.dtype)
-        out = x.new_zeros((N + 1, d), dtype=odt).index_add_(0, table, yw.reshape(-1, d).to(odt))[:N]
-    else:
-        out = x.new_zeros((N, d), dtype=odt)
-        cpos = torch.where(keep, pos, torch.zeros_like(pos))
-        ei = topi if experts is None else (topi - e0).clamp(0, e1 - e0 - 1)
+        # --- position-in-expert: k passes, tokens in row-major B*S order ------
+        within_cols, counts = [], []
         for j in range(k):
-            yj = ye[ei[:, j], cpos[:, j]].to(odt)  # (N,d)
-            out = out + torch.where(keep[:, j, None], gates[:, j, None].to(odt) * yj, torch.zeros_like(yj))
-
-    # --- shared experts ----------------------------------------------------
-    if m.n_shared:
-        sp = p["shared"]
-        sg = F.silu(xf @ sp["w_gate"].to(xf.dtype))
-        su = xf @ sp["w_up"].to(xf.dtype)
-        if experts is None:
-            out = out + (sg * su) @ sp["w_down"].to(xf.dtype)
+            oh = F.one_hot(topi[:, j], E)  # (N,E)
+            within = torch.cumsum(oh, dim=0) - oh  # exclusive count per expert
+            within_cols.append(within.gather(1, topi[:, j : j + 1])[:, 0])
+            counts.append(oh.sum(0))
+        counts = torch.stack(counts)  # (k,E)
+        base = route.offsets(counts) if route is not None else torch.cumsum(counts, dim=0) - counts
+        pos = torch.stack([c + base[j][topi[:, j]] for j, c in enumerate(within_cols)], dim=1)  # (N,k)
+        keep = pos < C
+        for fn in observers:
+            fn(torch.sum(~keep))
+        if route is None:
+            aux = router_aux_loss(probs, topi, E) * m.router_aux_weight
         else:
-            out = out + (sg * su).float() @ sp["w_down"].float()
+            top1 = F.one_hot(topi[:, 0], E).sum(0).float()
+            aux = torch.cat([top1, probs.sum(0), torch.sum(~keep).float()[None], top1.new_full((1,), float(N))])
+
+        # --- dispatch: token-id table (E,C), sentinel N, then gather ----------
+        # flat (e, c) of every kept choice, unique by construction; a dropped
+        # choice goes to the padding slot E*C, sliced off below
+        slot = torch.where(keep, topi * C + pos, E * C).reshape(-1)
+        table = torch.full((E * C + 1,), N, dtype=torch.long, device=x.device)
+        table[slot] = torch.arange(N, device=x.device)[:, None].expand(N, k).reshape(-1)
+        table = table[: E * C]
+        e0, e1 = experts if experts is not None else (0, E)
+        if experts is not None:  # this rank's experts only
+            keep = keep & (topi >= e0) & (topi < e1)
+            table = table[e0 * C: e1 * C]
+        x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
+
+    with span("moe.experts"):
+        # --- grouped expert FFN ----------------------------------------------
+        if dispatch is not None and C % 16 == 0:
+            ye = dispatch(table.view(e1 - e0, C), x_pad, lambda xe: _expert_ffn(p, xe))
+        else:
+            ye = _expert_ffn(p, x_pad[table.view(e1 - e0, C)])  # (E,C,d)
+
+    with span("moe.combine"):
+        # --- combine -----------------------------------------------------------
+        odt = x.dtype if experts is None else torch.float32
+        if cfg.moe_scatter_combine:
+            gate_table = torch.zeros((E * C + 1,), dtype=torch.float32, device=x.device)
+            gate_table[slot] = gates.reshape(-1)
+            yw = ye * gate_table[e0 * C: e1 * C].view(e1 - e0, C, 1).to(ye.dtype)
+            out = x.new_zeros((N + 1, d), dtype=odt).index_add_(0, table, yw.reshape(-1, d).to(odt))[:N]
+        else:
+            out = x.new_zeros((N, d), dtype=odt)
+            cpos = torch.where(keep, pos, torch.zeros_like(pos))
+            ei = topi if experts is None else (topi - e0).clamp(0, e1 - e0 - 1)
+            for j in range(k):
+                yj = ye[ei[:, j], cpos[:, j]].to(odt)  # (N,d)
+                out = out + torch.where(keep[:, j, None], gates[:, j, None].to(odt) * yj, torch.zeros_like(yj))
+
+        # --- shared experts ----------------------------------------------------
+        if m.n_shared:
+            sp = p["shared"]
+            sg = F.silu(xf @ sp["w_gate"].to(xf.dtype))
+            su = xf @ sp["w_up"].to(xf.dtype)
+            if experts is None:
+                out = out + (sg * su) @ sp["w_down"].to(xf.dtype)
+            else:
+                out = out + (sg * su).float() @ sp["w_down"].float()
 
     return out.reshape(B, S, d), aux

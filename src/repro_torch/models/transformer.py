@@ -47,6 +47,7 @@ from repro_torch.models.common import (
     tag_act,
 )
 from repro_torch.models.config import ModelConfig
+from repro_torch.tracing import span
 
 __all__ = [
     "LayerSpec",
@@ -200,18 +201,20 @@ class DecoderLayer(nn.Module):
         selects the MoE's train capacity, ``route`` its routing over the dp
         groups (``moe.moe_apply``: the aux comes back as its sums)."""
         spec = self.spec
-        h = apply_norm(cfg, self.ln1, x)
-        if spec.attn == "mla":
-            a, seed = mla_mod.mla_full(cfg, self.attn, h, positions, spec.theta)
-        else:
-            a, seed = gqa_attention_full(cfg, self.attn, h, positions, window=spec.window, theta=spec.theta)
-        x = x + tag_act(cfg, a, "attn_out")
-        h = apply_norm(cfg, self.ln2, x)
-        if spec.moe:
-            f, aux = moe_mod.moe_apply(cfg, self.ffn, h, train=train, route=route)
-        else:
-            f, aux = swiglu(cfg, self.ffn, h), torch.zeros((), dtype=torch.float32, device=x.device)
-        return x + tag_act(cfg, f, "ffn_out"), aux, seed
+        with span("model.attn"):
+            h = apply_norm(cfg, self.ln1, x)
+            if spec.attn == "mla":
+                a, seed = mla_mod.mla_full(cfg, self.attn, h, positions, spec.theta)
+            else:
+                a, seed = gqa_attention_full(cfg, self.attn, h, positions, window=spec.window, theta=spec.theta)
+            x = x + tag_act(cfg, a, "attn_out")
+        with span("model.moe" if spec.moe else "model.ffn"):
+            h = apply_norm(cfg, self.ln2, x)
+            if spec.moe:
+                f, aux = moe_mod.moe_apply(cfg, self.ffn, h, train=train, route=route)
+            else:
+                f, aux = swiglu(cfg, self.ffn, h), torch.zeros((), dtype=torch.float32, device=x.device)
+            return x + tag_act(cfg, f, "ffn_out"), aux, seed
 
     def forward_full(self, cfg: ModelConfig, x, positions):
         """(x, cache seed) of the full-sequence layer at eval capacity."""
@@ -223,15 +226,17 @@ class DecoderLayer(nn.Module):
     def forward_decode(self, cfg: ModelConfig, x, cache, pos):
         """One-token layer; ``cache`` (this layer's pair) is written in place."""
         spec = self.spec
-        h = apply_norm(cfg, self.ln1, x)
-        if spec.attn == "mla":
-            a, _ = mla_mod.mla_decode(cfg, self.attn, h, cache, pos, spec.theta)
-        else:
-            a, _ = gqa_attention_decode(cfg, self.attn, h, cache, pos, window=spec.window, theta=spec.theta)
-        x = x + a
-        h = apply_norm(cfg, self.ln2, x)
-        f = moe_mod.moe_apply(cfg, self.ffn, h)[0] if spec.moe else swiglu(cfg, self.ffn, h)
-        return x + f
+        with span("model.attn"):
+            h = apply_norm(cfg, self.ln1, x)
+            if spec.attn == "mla":
+                a, _ = mla_mod.mla_decode(cfg, self.attn, h, cache, pos, spec.theta)
+            else:
+                a, _ = gqa_attention_decode(cfg, self.attn, h, cache, pos, window=spec.window, theta=spec.theta)
+            x = x + a
+        with span("model.moe" if spec.moe else "model.ffn"):
+            h = apply_norm(cfg, self.ln2, x)
+            f = moe_mod.moe_apply(cfg, self.ffn, h)[0] if spec.moe else swiglu(cfg, self.ffn, h)
+            return x + f
 
 
 class MTPHead(nn.Module):
@@ -451,28 +456,30 @@ def prefill(cfg: ModelConfig, model: TransformerLM, batch, max_len: Optional[int
     last T positions, position p at slot p % T). Only the last position's
     logits are computed: each row of the output projection is independent,
     so they equal the JAX package's full-sequence logits taken at ``[:, -1]``."""
-    x, _, seeds, _, _ = _trunk(cfg, model, batch, collect_cache=True)
-    logits = logits_out(cfg, model.embed, apply_norm(cfg, model.final_norm, x[:, -1]))
-    S = x.shape[1]
-    max_len = max_len or S
-    cache = []
-    for (pattern, reps), g_seeds in zip(layer_groups(cfg), seeds):
-        entries = []
-        for pi, spec in enumerate(pattern):
-            T = _cache_len(spec, max_len)
-            pair = []
-            for j in (0, 1):
-                a = torch.stack([g_seeds[r * len(pattern) + pi][j] for r in range(reps)])
-                if S >= T:
-                    # ring convention: position p lives at slot p % T
-                    pair.append(torch.roll(a[:, :, S - T :], shifts=(S - T) % T, dims=2))
-                else:
-                    full = torch.zeros(a.shape[:2] + (T,) + a.shape[3:], dtype=a.dtype, device=a.device)
-                    full[:, :, :S] = a
-                    pair.append(full)
-            entries.append(tuple(pair))
-        cache.append(tuple(entries))
-    return logits, cache
+    with span("model.prefill"):
+        x, _, seeds, _, _ = _trunk(cfg, model, batch, collect_cache=True)
+        logits = logits_out(cfg, model.embed, apply_norm(cfg, model.final_norm, x[:, -1]))
+        S = x.shape[1]
+        max_len = max_len or S
+        with span("model.cache"):
+            cache = []
+            for (pattern, reps), g_seeds in zip(layer_groups(cfg), seeds):
+                entries = []
+                for pi, spec in enumerate(pattern):
+                    T = _cache_len(spec, max_len)
+                    pair = []
+                    for j in (0, 1):
+                        a = torch.stack([g_seeds[r * len(pattern) + pi][j] for r in range(reps)])
+                        if S >= T:
+                            # ring convention: position p lives at slot p % T
+                            pair.append(torch.roll(a[:, :, S - T :], shifts=(S - T) % T, dims=2))
+                        else:
+                            full = torch.zeros(a.shape[:2] + (T,) + a.shape[3:], dtype=a.dtype, device=a.device)
+                            full[:, :, :S] = a
+                            pair.append(full)
+                    entries.append(tuple(pair))
+                cache.append(tuple(entries))
+        return logits, cache
 
 
 @torch.no_grad()
@@ -480,16 +487,17 @@ def decode_step(cfg: ModelConfig, model: TransformerLM, cache, tokens, pos):
     """One-token decode. tokens (B,), pos (B,) absolute positions. Returns
     (logits (B,vocab), cache) — the cache tensors are updated in place
     (see :func:`repro_torch.models.common.gqa_attention_decode`)."""
-    tokens = _tokens(model, tokens)
-    pos = _tokens(model, pos)
-    x = embed(cfg, model.embed, tokens[:, None])
-    for (pattern, reps), layers, gc in zip(layer_groups(cfg), model.groups, cache):
-        for i, layer in enumerate(layers):
-            r, pi = divmod(i, len(pattern))
-            a, b = gc[pi]
-            x = layer.forward_decode(cfg, x, (a[r], b[r]), pos)
-    x = apply_norm(cfg, model.final_norm, x)
-    return logits_out(cfg, model.embed, x)[:, 0], cache
+    with span("model.decode"):
+        tokens = _tokens(model, tokens)
+        pos = _tokens(model, pos)
+        x = embed(cfg, model.embed, tokens[:, None])
+        for (pattern, reps), layers, gc in zip(layer_groups(cfg), model.groups, cache):
+            for i, layer in enumerate(layers):
+                r, pi = divmod(i, len(pattern))
+                a, b = gc[pi]
+                x = layer.forward_decode(cfg, x, (a[r], b[r]), pos)
+        x = apply_norm(cfg, model.final_norm, x)
+        return logits_out(cfg, model.embed, x)[:, 0], cache
 
 
 # ----------------------------------------------------------------------

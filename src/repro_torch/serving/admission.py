@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional
 
 from repro_torch.core.threadcomm import HostThreadComm
 from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.tracing import span
 
 __all__ = ["AdmissionFrontEnd", "Completion", "make_offer"]
 
@@ -44,7 +45,8 @@ def make_offer(prompt, max_new_tokens: int = 16, eos_id: int = -1) -> dict:
 
 @dataclass
 class Completion:
-    """One finished request with its admission-path timestamps."""
+    """One finished request with its admission-path timestamps, all on the
+    front end's clock (the engine stamps ``req.t_first`` on it too)."""
 
     req: Request
     t_arrival: float  # loader pulled the offer off the stream
@@ -64,13 +66,18 @@ class Completion:
         return self.t_submit - self.t_arrival
 
     @property
+    def t_first(self) -> float:
+        """The engine's stamp of the first token on the host (``Request.t_first``)."""
+        return self.req.t_first
+
+    @property
     def latency_s(self) -> float:
         return self.t_done - self.t_arrival
 
     @property
-    def per_token_s(self) -> float:
-        """Normalized per-token latency: arrival -> done over tokens out."""
-        return self.latency_s / max(1, self.n_out)
+    def ttft_s(self) -> float:
+        """Arrival to the first token on the host."""
+        return self.t_first - self.t_arrival
 
 
 class AdmissionFrontEnd:
@@ -83,7 +90,7 @@ class AdmissionFrontEnd:
     def __init__(
         self,
         engine: ServeEngine,
-        clock: Callable[[], float] = time.monotonic,
+        clock: Callable[[], float] = time.perf_counter,
         idle_park_s: float = 0.02,
         name: str = "serve-admit",
     ):
@@ -93,7 +100,7 @@ class AdmissionFrontEnd:
                 "(completion streaming uses engine.wait_any)"
             )
         self.engine = engine
-        self.clock = clock
+        self.clock = engine.clock = clock  # the engine stamps first tokens on it too
         self.idle_park_s = idle_park_s
         self.name = name
         self.rejected: List[Dict[str, Any]] = []
@@ -184,7 +191,8 @@ class AdmissionFrontEnd:
                     # nothing to decode and the loader is mid-gap: park on
                     # the ingest mailbox instead of spinning
                     try:
-                        r0.probe(src=1, timeout=self.idle_park_s)
+                        with span("front.park"):
+                            r0.probe(src=1, timeout=self.idle_park_s)
                     except TimeoutError:
                         pass  # re-check the loop (offers may still be coming)
             else:

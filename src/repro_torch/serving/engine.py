@@ -33,6 +33,7 @@ from __future__ import annotations
 import collections
 import itertools
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Deque, List, Optional
 
@@ -49,6 +50,7 @@ from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.paged_kv import PagedKVCache, PoolExhausted
 from repro_torch.serving.paged_kv import cache_leaves as _leaves
+from repro_torch.tracing import span
 
 __all__ = ["Request", "ServeEngine", "PagedServeEngine"]
 
@@ -62,6 +64,9 @@ class Request:
     out_tokens: List[int] = field(default_factory=list)
     done: bool = False
     grequest: Optional[GeneralizedRequest] = None  # set when a progress engine is attached
+    # stamps on the engine's clock: first token on the host, done
+    t_first: Optional[float] = None
+    t_done: Optional[float] = None
 
 
 def _cache_signature(cache):
@@ -107,6 +112,9 @@ class ServeEngine:
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.queue: Deque[Request] = collections.deque()
         self._rid = itertools.count()
+        # the clock of the requests' stamps; an AdmissionFrontEnd sets its own,
+        # so that a Completion's stamps share one clock
+        self.clock = time.perf_counter
 
     def _decode(self, params, cache, tokens, pos):
         return api.decode_step(self.cfg, params, cache, tokens, pos)
@@ -176,34 +184,48 @@ class ServeEngine:
         the request's first output token, so EOS/limit are checked here.
         Returns ``(done, cache1)``; a done request must not occupy a
         slot."""
-        last_logits, cache1 = self._prefill(self.params, {"tokens": req.prompt[None, :]})
-        tok = int(torch.argmax(last_logits[0]))
-        req.out_tokens.append(tok)
-        if tok == req.eos_id or len(req.out_tokens) >= req.max_new_tokens:
-            req.done = True
-            if req.grequest is not None:
-                req.grequest.complete()
-            return True, cache1
-        return False, cache1
+        with span("serve.prefill", rid=req.rid):
+            last_logits, cache1 = self._prefill(self.params, {"tokens": req.prompt[None, :]})
+            with span("serve.sync"):
+                tok = int(torch.argmax(last_logits[0]))
+            req.t_first = self.clock()
+            req.out_tokens.append(tok)
+            if tok == req.eos_id or len(req.out_tokens) >= req.max_new_tokens:
+                self._finish(req)
+                return True, cache1
+            return False, cache1
 
-    def _admit(self) -> None:
-        for slot in self._free_slots():
-            while True:
-                if not self.queue:
-                    return
-                req = self.queue.popleft()
-                done, cache1 = self._prefill_request(req)
-                if not done:
-                    break
-                # finished at admission (EOS/limit on the prefill token):
-                # the slot stays free for the next queued request
-            # splice the single-row cache into this slot (batch dim = axis 1
-            # of every stacked (reps, B, T, ...) leaf), in place
+    def _finish(self, req: Request) -> None:
+        """Mark ``req`` done (EOS or limit), stamp it and wake its waiters."""
+        req.done = True
+        req.t_done = self.clock()
+        if req.grequest is not None:
+            req.grequest.complete()
+
+    def _splice_in(self, slot: int, req: Request, cache1, pos: int) -> None:
+        """Splice the single-row cache into ``slot`` (batch dim = axis 1 of
+        every stacked (reps, B, T, ...) leaf), in place, and seat ``req``
+        there to decode from position ``pos``."""
+        with span("serve.splice", rid=req.rid):
             for full, one in zip(_leaves(self.cache), _leaves(cache1)):
                 _splice(full, one, slot)
-            self.slot_req[slot] = req
-            self.pos[slot] = req.prompt.shape[0]
-            self.cur_tok[slot] = req.out_tokens[-1]
+        self.slot_req[slot] = req
+        self.pos[slot] = pos
+        self.cur_tok[slot] = req.out_tokens[-1]
+
+    def _admit(self) -> None:
+        with span("serve.admit"):
+            for slot in self._free_slots():
+                while True:
+                    if not self.queue:
+                        return
+                    req = self.queue.popleft()
+                    done, cache1 = self._prefill_request(req)
+                    if not done:
+                        break
+                    # finished at admission (EOS/limit on the prefill token):
+                    # the slot stays free for the next queued request
+                self._splice_in(slot, req, cache1, req.prompt.shape[0])
 
     # -- decode loop ----------------------------------------------------------
     def _step_inputs(self):
@@ -218,11 +240,13 @@ class ServeEngine:
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         if not active:
             return active, None
-        if self.step_schedule is not None:
-            logits = self._decode_scheduled()
-        else:
-            logits, self.cache = self._decode(self.params, self.cache, *self._step_inputs())
-        return active, torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        with span("serve.decode"):
+            if self.step_schedule is not None:
+                logits = self._decode_scheduled()
+            else:
+                logits, self.cache = self._decode(self.params, self.cache, *self._step_inputs())
+            with span("serve.sync"):
+                return active, torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
 
     def _decode_scheduled(self):
         """The recorded steady-state decode. First active step records and
@@ -283,17 +307,17 @@ class ServeEngine:
         self.pos[i] += 1
         self.cur_tok[i] = tok
         if tok == req.eos_id or len(req.out_tokens) >= req.max_new_tokens or self.pos[i] >= self.max_len - 1:
-            req.done = True
-            if req.grequest is not None:
-                req.grequest.complete()  # wakes parked waiters
+            self._finish(req)
             self.slot_req[i] = None
 
     def step(self) -> int:
         """Admit + decode one token for all active slots. Returns #active."""
-        self._admit()
-        active, next_tok = self._decode_active()
-        for i in active:
-            self._advance_slot(i, int(next_tok[i]))
+        with span("serve.step"):
+            self._admit()
+            active, next_tok = self._decode_active()
+            with span("serve.advance"):
+                for i in active:
+                    self._advance_slot(i, int(next_tok[i]))
         return len(active)
 
     def run_until_done(self, max_steps: int = 10_000) -> None:
@@ -609,14 +633,15 @@ class PagedServeEngine(ServeEngine):
         the pool now has ``need`` free pages."""
         if self.kv.free_pages >= need:
             return True
-        self.kv.reclaim(wait=True)
-        for req in reversed(self.parked):
-            if self.kv.free_pages >= need:
-                break
-            short = need - self.kv.free_pages
-            if self.kv.spillable(req.rid) and self.kv.spill_prefix(req.rid, max_pages=short):
-                self.kv.reclaim(wait=True)
-        return self.kv.free_pages >= need
+        with span("kv.make_room"):
+            self.kv.reclaim(wait=True)
+            for req in reversed(self.parked):
+                if self.kv.free_pages >= need:
+                    break
+                short = need - self.kv.free_pages
+                if self.kv.spillable(req.rid) and self.kv.spill_prefix(req.rid, max_pages=short):
+                    self.kv.reclaim(wait=True)
+            return self.kv.free_pages >= need
 
     # -- admission ---------------------------------------------------------
     def _activate(self, slot: int, req: Request) -> None:
@@ -629,11 +654,7 @@ class PagedServeEngine(ServeEngine):
             # at the expense of younger parked requests and retry once
             self._make_room(sum(1 for p in self.kv.page_table(req.rid) if p is None))
             cache1 = self.kv.gather(req.rid)
-        for full, one in zip(_leaves(self.cache), _leaves(cache1)):
-            _splice(full, one, slot)
-        self.slot_req[slot] = req
-        self.pos[slot] = self.kv.length(req.rid)
-        self.cur_tok[slot] = req.out_tokens[-1]
+        self._splice_in(slot, req, cache1, self.kv.length(req.rid))
 
     def _prefill_paged(self, req: Request) -> bool:
         """Prefill + write the prompt span into fresh pages. Returns False
@@ -650,58 +671,54 @@ class PagedServeEngine(ServeEngine):
         return True
 
     def _admit(self) -> None:
-        self.kv.reclaim()  # harvest completed spill copies
-        # keep decode growth safe: every active slot sitting on a page
-        # boundary allocates at its next append
-        crossing = sum(
-            1
-            for i, r in enumerate(self.slot_req)
-            if r is not None and self.pos[i] % self.kv.page_size == 0
-        )
-        if crossing:
-            self._make_room(crossing)
-        for slot in self._free_slots():
-            if self.parked:
-                self._activate(slot, self.parked.popleft())
-                continue
-            admitted = False
+        with span("serve.admit"):
+            self.kv.reclaim()  # harvest completed spill copies
+            # keep decode growth safe: every active slot sitting on a page
+            # boundary allocates at its next append
+            crossing = sum(
+                1
+                for i, r in enumerate(self.slot_req)
+                if r is not None and self.pos[i] % self.kv.page_size == 0
+            )
+            if crossing:
+                self._make_room(crossing)
+            for slot in self._free_slots():
+                if self.parked:
+                    self._activate(slot, self.parked.popleft())
+                    continue
+                admitted = False
+                while self.queue:
+                    nxt = self.queue[0]
+                    need = self.kv.pages_for(int(nxt.prompt.shape[0]))
+                    if self.kv.free_pages < need and not self._make_room(need):
+                        break  # pool full even after spilling: stop admitting
+                    req = self.queue.popleft()
+                    if not self._prefill_paged(req):
+                        continue  # done at admission; slot stays free
+                    self._splice_in(slot, req, self.kv.gather(req.rid), req.prompt.shape[0])
+                    admitted = True
+                    break
+                if not admitted and not self.parked:
+                    break
+            # prefill-ahead: park queued requests in pages while the pool has
+            # room beyond the growth reserve — admission depth is now a page
+            # budget (actual lengths), not a slot count (max_len reservations)
             while self.queue:
                 nxt = self.queue[0]
                 need = self.kv.pages_for(int(nxt.prompt.shape[0]))
-                if self.kv.free_pages < need and not self._make_room(need):
-                    break  # pool full even after spilling: stop admitting
+                if self.kv.free_pages - self._page_reserve < need:
+                    break
                 req = self.queue.popleft()
                 if not self._prefill_paged(req):
-                    continue  # done at admission; slot stays free
-                cache1 = self.kv.gather(req.rid)
-                for full, one in zip(_leaves(self.cache), _leaves(cache1)):
-                    _splice(full, one, slot)
-                self.slot_req[slot] = req
-                self.pos[slot] = req.prompt.shape[0]
-                self.cur_tok[slot] = req.out_tokens[-1]
-                admitted = True
-                break
-            if not admitted and not self.parked:
-                break
-        # prefill-ahead: park queued requests in pages while the pool has
-        # room beyond the growth reserve — admission depth is now a page
-        # budget (actual lengths), not a slot count (max_len reservations)
-        while self.queue:
-            nxt = self.queue[0]
-            need = self.kv.pages_for(int(nxt.prompt.shape[0]))
-            if self.kv.free_pages - self._page_reserve < need:
-                break
-            req = self.queue.popleft()
-            if not self._prefill_paged(req):
-                continue
-            self.parked.append(req)
-            if self.spill_parked:
-                # park cold: move the full prefix pages to the cold store
-                # right away, keeping only the partial tail resident
-                self.kv.spill_prefix(req.rid)
-        concurrent = sum(1 for r in self.slot_req if r is not None) + len(self.parked)
-        if concurrent > self.max_concurrent:
-            self.max_concurrent = concurrent
+                    continue
+                self.parked.append(req)
+                if self.spill_parked:
+                    # park cold: move the full prefix pages to the cold store
+                    # right away, keeping only the partial tail resident
+                    self.kv.spill_prefix(req.rid)
+            concurrent = sum(1 for r in self.slot_req if r is not None) + len(self.parked)
+            if concurrent > self.max_concurrent:
+                self.max_concurrent = concurrent
 
     def _idle(self) -> bool:
         return not self.parked and super()._idle()

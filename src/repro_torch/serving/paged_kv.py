@@ -71,6 +71,7 @@ from repro_torch.core.enqueue import OffloadWindow, _poll_dispatched, _wait_disp
 from repro_torch.core.progress import ProgressEngine
 from repro_torch.core.streams import MPIXStream, STREAM_NULL
 from repro_torch.kernels import ops
+from repro_torch.tracing import span
 
 __all__ = ["PagedKVCache", "PagedKVError", "PoolExhausted", "cache_leaves", "cache_rebuild"]
 
@@ -367,7 +368,7 @@ class PagedKVCache:
         Append-only past the stored length; re-writing an already-stored
         span is allowed and overwrites it in place, byte for byte (the
         elastic loop's transactional step repair may replay a step)."""
-        with self._lock:
+        with self._lock, span("kv.append", rid=rid, k1=ops.k1_launches):
             cur = self._len[rid]
             if pos0 > cur:
                 raise PagedKVError(f"append at {pos0} past stored length {cur}")
@@ -401,25 +402,26 @@ class PagedKVCache:
         """Scatter ``rid``'s pages into a fresh B=1 cache with the
         template's nesting (positions past the stored length are zero,
         matching ``init_cache``). Reloads any spilled pages first."""
-        self.ensure_resident(rid)
-        with self._lock:
-            length = self._len[rid]
-            table = self._tables[rid]
-            with self._on_stream():
-                out = [
-                    torch.zeros((spec.reps, 1, spec.T) + spec.tail, dtype=spec.dtype, device=self.device)
-                    for spec in self._specs
-                ]
-                dsts = [_bytes(o) for o in out]
-                for j, a, n in self._chunks(0, length):
-                    pid = table[j]
-                    for spec, dst in zip(self._specs, dsts):
-                        _move(
-                            self._leaf_block(pid, spec), _page_span_dt(spec, self.page_size, a, n),
-                            dst, _cache_span_dt(spec, 1, 0, j * self.page_size + a, n),
-                        )
-                    self._gather_chunks += 1
-            self._gathers += 1
+        with span("kv.gather", rid=rid, k1=ops.k1_launches):
+            self.ensure_resident(rid)
+            with self._lock:
+                length = self._len[rid]
+                table = self._tables[rid]
+                with self._on_stream():
+                    out = [
+                        torch.zeros((spec.reps, 1, spec.T) + spec.tail, dtype=spec.dtype, device=self.device)
+                        for spec in self._specs
+                    ]
+                    dsts = [_bytes(o) for o in out]
+                    for j, a, n in self._chunks(0, length):
+                        pid = table[j]
+                        for spec, dst in zip(self._specs, dsts):
+                            _move(
+                                self._leaf_block(pid, spec), _page_span_dt(spec, self.page_size, a, n),
+                                dst, _cache_span_dt(spec, 1, 0, j * self.page_size + a, n),
+                            )
+                        self._gather_chunks += 1
+                self._gathers += 1
         return cache_rebuild(self._skeleton, out)
 
     # -- eviction: spill/reload through the offload window ------------------
@@ -467,7 +469,7 @@ class PagedKVCache:
         the offload window. Pool rows are freed by :meth:`reclaim` once
         the copies complete. Returns the number of spills submitted."""
         submitted = 0
-        with self._lock:
+        with span("kv.spill", rid=rid), self._lock:
             full = self._len[rid] // self.page_size
             table = self._tables[rid]
             for j in range(full):
@@ -498,15 +500,16 @@ class PagedKVCache:
         the free list. ``wait=True`` drains the window first."""
         if self._window is None:
             return 0
-        slots = self._window.drain() if wait else self._window.reap()
-        freed = 0
-        with self._lock:
-            for s in slots:
-                kind = s.value[0]
-                if kind == "spill":
-                    _, _rid, _j, pid = s.value
-                    self._free.append(pid)
-                    freed += 1
+        with span("kv.reclaim"):
+            slots = self._window.drain() if wait else self._window.reap()
+            freed = 0
+            with self._lock:
+                for s in slots:
+                    kind = s.value[0]
+                    if kind == "spill":
+                        _, _rid, _j, pid = s.value
+                        self._free.append(pid)
+                        freed += 1
         return freed
 
     def ensure_resident(self, rid: int) -> int:
