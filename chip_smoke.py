@@ -5,7 +5,10 @@
     python3 chip_smoke.py --timer-ab   # only time the kernels under the timer's variants
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds every
-kernel against its plain PyTorch version on the card, serves requests with
+kernel against its plain PyTorch version on the card (the decode attention
+against an fp32 reference at phi-3's, granite's, gemma3's and the smoke
+presets' decode shapes, with the cache rows past each slot's length set to
+NaN, and its launches counted on every served decode step), serves requests with
 the full-width ``qwen1.5-0.5b`` (random weights from a seed) through
 ``ServeEngine`` with the flash kernel on every prefill, runs an on-stream
 datatype enqueue (MPIX stream → ``pack_send`` → ``dispatch_enqueue`` →
@@ -100,6 +103,28 @@ KV_SPAN = 256
 WKV_SWEEP = ((64, 32), (128, 64), (256, 64), (96, 32))
 WKV_SERVE = (1, 448, 64)
 RWKV_SERVE_S = (128, 256, 448)
+# K4's checked shapes: (B, T, nq, nkv, hd, dtype, slot lengths (lo, hi) or
+# explicit positions). longgen and docqa are phi-3's served decode (32 and
+# 16 slots of the 4096-slot cache, the mixes' prompt lengths); granite's
+# served decode (G = 2); gemma3's global-width ring (hd 256, T the window,
+# positions before, at and past its wrap); an fp32 copy; llama3-405b's G of
+# 16; the smoke presets' hd 16 with one split; qwen1.5-0.5b as the serve and
+# serve_paged phases decode it (4 slots of a 512-slot cache, 16 KV heads of
+# 64, G = 1, lengths from the shortest prompt's first decode step to the
+# longest's last)
+DECODE_CASES = {
+    "longgen": (32, 4096, 32, 32, 96, "bfloat16", (1536, 3584)),
+    "docqa": (16, 4096, 32, 32, 96, "bfloat16", (1536, 3584)),
+    "granite": (4, 4096, 16, 8, 64, "bfloat16", (2048, 4000)),
+    "gemma3_ring": (4, 1024, 8, 4, 256, "bfloat16", (100, 1023, 1300, 5000)),
+    "longgen_fp32": (32, 4096, 32, 32, 96, "float32", (1536, 3584)),
+    "gemma3_ring_fp32": (4, 1024, 8, 4, 256, "float32", (100, 1023, 1300, 5000)),
+    "llama3_g16": (2, 1024, 128, 8, 128, "bfloat16", (1, 1024)),
+    "smoke_hd16": (4, 64, 4, 2, 16, "bfloat16", (3, 40, 63, 100)),
+    "smoke_hd16_fp32": (4, 64, 6, 2, 16, "float32", (1, 64)),
+    "qwen_serve": (4, 512, 16, 16, 64, "bfloat16", (FLASH_SERVE_S[0] + 1, FLASH_SERVE_S[-1] + 15)),
+}
+DECODE_TIMED = ("longgen", "docqa")
 # the paged serving phase: 12 requests, prompts cycling over the served
 # lengths, 16 new tokens each, all offered at once; pages of 16 positions
 PAGED_REQUESTS = 12
@@ -255,6 +280,14 @@ SS_TIE_GAP = 1e-6
 # deep) reached its cache at 1.44e-5 and its logits at 1.5e-5 on an H100,
 # five times qwen's, so its cache is held at 5e-5
 SS_CACHE_TOL = {"qwen": 1e-5, "granite": 5e-5}
+# a bf16 token may differ from the single-rank run's only at a top-2 margin
+# within this many bf16 steps of the top logit: the widest margin at which
+# any forced step flipped over weight seeds 0-3, with the single-rank decode
+# in the einsum's arithmetic (bf16 logits and probabilities) and in the
+# decode kernel's (fp32) alike, on an H100: qwen 2 (43 flips), granite 9 and
+# 10 (160 flips). Flips at 2 steps come before any decode step too (the
+# prefill's logits, both models); the fp32 copies flip nowhere
+SS_FLIP_STEPS = {"qwen": 2, "granite": 10}
 # the examples phase: each port example run as its users run it, in a
 # process of its own on the card with the defaults, each bounded by its own
 # timeout (seconds); train_lm runs EX_TRAIN_STEPS[0] steps, crossing its
@@ -579,8 +612,9 @@ def phase_kernels(torch, timer):
     del bufs, kv, packed, zeros
     torch.cuda.empty_cache()
     wkv = wkv6_kernel_rows(torch, timer, gen)
+    decode = decode_attention_rows(torch, timer, gen)
     return dict(flash_times=flash_times, flash_err=serve_err, flash_zoo=zoo_rows, pack=pack_t, unpack=unpack_t,
-                wkv=wkv)
+                wkv=wkv, decode=decode)
 
 
 def wkv6_bound(B, S, H, chunk, hs=64) -> dict:
@@ -664,12 +698,78 @@ def wkv6_kernel_rows(torch, timer, gen):
     return served
 
 
+def decode_attention_rows(torch, timer, gen) -> dict:
+    """K4 against an fp32 reference (its plain version on fp32 copies of the
+    inputs) at the shapes of DECODE_CASES, with every cache row at or past a
+    slot's length set to NaN (a row read that should not be would show),
+    and the bf16 plain version's own gap to that reference beside it. Timed
+    at the longgen and docqa shapes beside the bytes bound, the plain
+    version and SDPA."""
+    from repro_torch.kernels import decode_attention as da
+
+    F = torch.nn.functional
+    rows, timed = [], {}
+    for name, (B, T, nq, nkv, hd, dtype, pos_spec) in DECODE_CASES.items():
+        dt = getattr(torch, dtype)
+        if len(pos_spec) == 2:  # slot lengths drawn from [lo, hi]
+            lo, hi = pos_spec
+            pos = torch.randint(lo - 1, hi, (B,), generator=gen, device="cuda", dtype=torch.int32)
+        else:  # explicit positions (ring caches: some past T)
+            pos = torch.tensor(pos_spec, device="cuda", dtype=torch.int64)
+        q = (torch.randn(B, nq, hd, generator=gen, device="cuda") * 2).to(dt)
+        if name.startswith("granite"):  # K and V as views of one (B, T, 2 nkv, hd) buffer
+            kv = torch.randn(B, T, 2 * nkv, hd, generator=gen, device="cuda").to(dt)
+            k, v = kv[:, :, :nkv], kv[:, :, nkv:]
+        else:
+            k = torch.randn(B, T, nkv, hd, generator=gen, device="cuda").to(dt)
+            v = torch.randn(B, T, nkv, hd, generator=gen, device="cuda").to(dt)
+        ref = da.decode_attention_plain(q.float(), k.float(), v.float(), pos)
+        plain = da.decode_attention_plain(q, k, v, pos)
+        n_b = torch.clamp(pos + 1, max=T)
+        past = torch.arange(T, device="cuda")[None, :] >= n_b[:, None]
+        k[past], v[past] = float("nan"), float("nan")
+        launches = da.decode_attention.launches
+        out = da.decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        # bf16: K4 rounds once, at its fp32 output, so it lies within half a bf16
+        # step of the reference (2^-8 of a value, at most 2^-8 of the largest);
+        # the plain version rounds the logits and the probabilities to bf16
+        # besides. fp32: only the order of the sums differs (chunks merged last)
+        tol = 2 ** -8 if dt == torch.bfloat16 else 2e-5
+        chunk, splits = da.split_plan(B, nkv, T, da._sm_count(q.device))
+        row = dict(case=name, B=B, T=T, nq=nq, nkv=nkv, hd=hd, dtype=dtype, pos_dtype=str(pos.dtype).split(".")[-1],
+                   lengths=[int(n_b.min()), int(n_b.max())], chunk=chunk, splits=splits,
+                   launched=da.decode_attention.launches - launches, finite=bool(torch.isfinite(out).all()),
+                   max_abs_err=max_err(out, ref), plain_max_abs_err=max_err(plain, ref), out_scale=scale,
+                   tol_rel=tol)
+        row["ok"] = row["finite"] and row["launched"] == 1 and row["max_abs_err"] <= tol * scale
+        rows.append(row)
+        check(row["ok"], f"decode_attention vs the fp32 reference within {tol} of the output's scale: {row}")
+        if name in DECODE_TIMED:
+            k[past], v[past] = 0.0, 0.0
+            nbytes = int(n_b.sum()) * nkv * hd * 2 * k.element_size() + 2 * q.numel() * q.element_size()
+            q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+            mask = ~past[:, None, None, :]
+            timed[name] = dict(row, ms=timer(lambda: da.decode_attention(q, k, v, pos)),
+                               plain_ms=timer(lambda: da.decode_attention_plain(q, k, v, pos)),
+                               library_ms=timer(lambda: F.scaled_dot_product_attention(q4, kt, vt, attn_mask=mask)),
+                               library="F.scaled_dot_product_attention, boolean mask", bytes=nbytes,
+                               bound_ms=nbytes / HW.HBM_BW * 1e3, bound_by="bytes")
+            timed[name]["roofline_share"] = timed[name]["bound_ms"] / timed[name]["ms"]
+        del q, k, v, ref, plain, out
+        torch.cuda.empty_cache()
+    emit("kernels", kernel="decode_attention", cases=rows, timed=timed)
+    return dict(rows=rows, timed=timed)
+
+
 def phase_serve(torch):
     """Full-width qwen1.5-0.5b behind ServeEngine, flash on every prefill."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.core.progress import ProgressEngine
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import api
     from repro_torch.serving.engine import ServeEngine
@@ -692,7 +792,7 @@ def phase_serve(torch):
     pe = ProgressEngine()
     eng = ServeEngine(cfg, model, max_batch=4, max_len=512, progress_engine=pe, step_schedule=True)
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0  # count the main path only
+    fa.flash_attention.launches = da.decode_attention.launches = 0  # count the main path only
     errors = []
 
     def drive():
@@ -719,6 +819,7 @@ def phase_serve(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     flash_launches = fa.flash_attention.launches
+    k4_launches = da.decode_attention.launches
     decode_steps = eng.step_schedule.stats()["replays"]
     pe.stop_all()
     if errors:
@@ -730,6 +831,8 @@ def phase_serve(torch):
     n_prefills = len(reqs)
     check(flash_launches >= cfg.n_layers * n_prefills,
           f"flash launches {flash_launches} >= {cfg.n_layers} layers x {n_prefills} prefills")
+    check(decode_steps > 0 and k4_launches == cfg.n_layers * decode_steps,
+          f"decode_attention launches {k4_launches} == {cfg.n_layers} layers x {decode_steps} decode steps")
     toks = sum(len(r.out_tokens) for r in reqs)
     lats = [done_at[r.rid] - submitted for r in reqs]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -771,10 +874,12 @@ def phase_serve(torch):
          tokens=toks, wall_s=wall, tokens_per_s=toks / wall,
          latency_p50_ms=float(np.percentile(lats, 50) * 1e3), latency_p95_ms=float(np.percentile(lats, 95) * 1e3),
          completion_order=order, flash_launches=flash_launches, prefills=n_prefills, decode_steps=decode_steps,
+         decode_attention_launches=k4_launches,
          prefill_384_host_ms=prefill_ms, decode_step_host_ms=decode_ms, decode_step_bound_ms=decode_bound_ms,
          peak_mem_gb=peak_gb, prefill_logits_rel_err_bf16=rel_bf16, tol_bf16=tol_bf16,
          prefill_logits_rel_err_fp32=rel_fp32, tol_fp32=tol_fp32, device=torch.cuda.get_device_name(0))
-    return eng, dict(flash_launches=flash_launches, prefill_384_host_ms=prefill_ms, decode_step_host_ms=decode_ms,
+    return eng, dict(flash_launches=flash_launches, decode_attention_launches=k4_launches,
+                     prefill_384_host_ms=prefill_ms, decode_step_host_ms=decode_ms,
                      decode_step_bound_ms=decode_bound_ms)
 
 
@@ -1051,6 +1156,7 @@ def serve_paged_runs(torch, cfg, model, prompts, max_new: int, page_size: int, m
     launches and page moves of (b) and (c)."""
     from repro_torch.core.progress import ProgressEngine
     from repro_torch.ft.faultinject import FaultEvent, FaultInjector, FaultPlan, VirtualClock
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import dt_pack as dp
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.serving.admission import AdmissionFrontEnd, make_offer
@@ -1070,14 +1176,20 @@ def serve_paged_runs(torch, cfg, model, prompts, max_new: int, page_size: int, m
         """A paged engine whose prefills are counted, with the flash count
         set to 0: each prefill must launch flash once per layer."""
         eng = PagedServeEngine(cfg, model, max_batch=max_batch, max_len=max_len, progress_engine=pe, **paged_kw)
-        inner, count = eng._prefill, [0]
+        inner, inner_decode, count, lock = eng._prefill, eng._decode, [0, 0], threading.Lock()
 
         def prefill(params, batch):
-            count[0] += 1
+            with lock:
+                count[0] += 1
             return inner(params, batch)
 
-        eng._prefill = prefill
-        fa.flash_attention.launches = 0
+        def decode(*args):
+            with lock:
+                count[1] += 1
+            return inner_decode(*args)
+
+        eng._prefill, eng._decode = prefill, decode
+        fa.flash_attention.launches = da.decode_attention.launches = 0
         return eng, count
 
     # (a) the oracle: contiguous engine, one driver
@@ -1114,7 +1226,8 @@ def serve_paged_runs(torch, cfg, model, prompts, max_new: int, page_size: int, m
     out["admission"] = dict(tokens=[list(c.req.out_tokens) for c in cs], wall_s=wall,
                             latencies_s=[c.t_done - t0 for c in cs], steps=fe.steps, page_moves=pm,
                             max_concurrent=eng.max_concurrent, kv=eng.stats()["kv"], prefills=prefills[0],
-                            flash_launches=fa.flash_attention.launches)
+                            flash_launches=fa.flash_attention.launches, decode_steps=prefills[1],
+                            decode_attention_launches=da.decode_attention.launches)
     pe.stop_all()
     del eng
 
@@ -1134,7 +1247,8 @@ def serve_paged_runs(torch, cfg, model, prompts, max_new: int, page_size: int, m
     moves += pm["append_chunks"] + pm["gather_chunks"]
     out["elastic"] = dict(tokens=[list(r.out_tokens) for r in reqs], wall_s=wall, latencies_s=lats(),
                           summary=summary, page_moves=pm, max_concurrent=eng.max_concurrent,
-                          kv=eng.stats()["kv"], prefills=prefills[0], flash_launches=fa.flash_attention.launches)
+                          kv=eng.stats()["kv"], prefills=prefills[0], flash_launches=fa.flash_attention.launches,
+                          decode_steps=prefills[1], decode_attention_launches=da.decode_attention.launches)
     pe.stop_all()
     del eng
     out["k1"] = dict(dt_pack=dp.dt_pack.launches, dt_unpack_into=dp.dt_unpack_into.launches,
@@ -1157,6 +1271,9 @@ def check_serve_paged(runs: dict, n: int, max_new: int, n_layers: int) -> None:
         run = runs[name]
         check(run["prefills"] >= n and run["flash_launches"] == n_layers * run["prefills"],
               f"{name}: flash launches {run['flash_launches']} == {n_layers} layers x {run['prefills']} prefills")
+        check(run["decode_steps"] > 0 and run["decode_attention_launches"] == n_layers * run["decode_steps"],
+              f"{name}: decode_attention launches {run['decode_attention_launches']} == {n_layers} layers x "
+              f"{run['decode_steps']} decode steps")
     summary = runs["elastic"]["summary"]
     check(summary["dead_ranks"] == [1] and summary["epochs"] >= 2, f"elastic summary {summary}")
     k1 = runs["k1"]
@@ -1288,7 +1405,8 @@ def phase_serve_paged(torch, timer, model) -> dict:
         rows[name] = dict(tokens=toks, wall_s=run["wall_s"], tokens_per_s=toks / run["wall_s"],
                           latency_p50_ms=float(np.percentile(lat, 50)),
                           latency_p95_ms=float(np.percentile(lat, 95)))
-        for key in ("steps", "page_moves", "max_concurrent", "summary", "kv", "prefills", "flash_launches"):
+        for key in ("steps", "page_moves", "max_concurrent", "summary", "kv", "prefills", "flash_launches",
+                    "decode_steps", "decode_attention_launches"):
             if key in run:
                 rows[name][key] = run[key]
     pool = runs["admission"]["kv"]
@@ -1297,8 +1415,9 @@ def phase_serve_paged(torch, timer, model) -> dict:
          token_bytes=pool["token_bytes"], pool_mb=pool["num_pages"] * pool["page_bytes"] / 1e6, runs=rows,
          k1=runs["k1"], step=step, dt_unpack_into=unpack, device=torch.cuda.get_device_name(0))
     flash = sum(runs[name]["flash_launches"] for name in ("admission", "elastic"))
+    k4 = sum(runs[name]["decode_attention_launches"] for name in ("admission", "elastic"))
     return dict(launches=runs["k1"]["dt_unpack_into"], pack_launches=runs["k1"]["dt_pack"], flash_launches=flash,
-                unpack=unpack)
+                decode_attention_launches=k4, unpack=unpack)
 
 
 def device_ms(torch, fn, reps: int = 3) -> tuple:
@@ -2272,7 +2391,29 @@ def route_flips(torch, a: MoERoutes, b_calls: list) -> dict:
                 gap_median=torch.cat(a.gaps).median().item())
 
 
-def decode_vs_full(torch, cfg, model, batch, n_prefix: int, steps: int, routes: dict | None = None) -> float:
+@contextlib.contextmanager
+def fp32_attention(torch):
+    """While open, the full forward's einsum attention (``models.common.attend``)
+    takes its logits, softmax and P·V in fp32 and rounds its output once to
+    q's dtype: the decode-attention kernel's arithmetic (and flash's plain
+    version's), so a full forward run under it is the like-for-like oracle of
+    a bf16 decode through that kernel."""
+    from repro_torch.models import common
+
+    einsum_attend = common.attend
+
+    def attend(q, k, v, mask, scale):
+        return einsum_attend(q.float(), k.float(), v.float(), mask, scale).to(q.dtype)
+
+    common.attend = attend
+    try:
+        yield
+    finally:
+        common.attend = einsum_attend
+
+
+def decode_vs_full(torch, cfg, model, batch, n_prefix: int, steps: int, routes: dict | None = None,
+                   fp32_oracle: bool = False) -> float:
     """Prefill the first ``n_prefix`` tokens of ``batch``, decode the next
     ``steps`` tokens of it through the cache, and hold each step's logits
     against the full forward (``lm_forward``, or ``jamba_forward`` for
@@ -2281,7 +2422,15 @@ def decode_vs_full(torch, cfg, model, batch, n_prefix: int, steps: int, routes: 
     the routing's part in that error is put into it: how the cached path's
     top-k choices differ from the full forward's (:func:`route_flips`), and
     the largest error again with the full forward's choices imposed on the
-    cached path (``rel_shared``)."""
+    cached path (``rel_shared``). With ``fp32_oracle`` the full forward's
+    attention runs the decode kernel's fp32 arithmetic (:func:`fp32_attention`,
+    einsum route): in bf16 the decode (K4) and the bf16 einsum forward round
+    the attention at different places, and a random-weight MoE turns that
+    into whole-model differences, as it does flash against einsum
+    (``residual_rels``). Granite with shared routes, six random prompts on an
+    H100: a decode against the forward of its own arithmetic reads 0.041-0.055
+    (einsum decode, bf16 einsum forward) and 0.043-0.061 (K4, this oracle);
+    crossed, 0.077-0.093 either way."""
     from repro_torch.models import api
     from repro_torch.models.jamba import jamba_forward
     from repro_torch.models.transformer import lm_forward
@@ -2291,8 +2440,10 @@ def decode_vs_full(torch, cfg, model, batch, n_prefix: int, steps: int, routes: 
     n_img = cfg.n_img_tokens if "img_embeds" in extra else 0
     B, T, k = tokens.shape[0], n_img + tokens.shape[1], cfg.moe.top_k
     forward = jamba_forward if api.family(cfg) == "jamba" else lambda *a: lm_forward(*a)[:1]
-    with torch.no_grad(), MoERoutes(torch) as full_routes:
-        full = forward(cfg, model, {"tokens": tokens, **extra})[0]
+    oracle = fp32_attention(torch) if fp32_oracle else contextlib.nullcontext()
+    full_cfg = cfg.replace(attn_impl="einsum") if fp32_oracle else cfg
+    with torch.no_grad(), MoERoutes(torch) as full_routes, oracle:
+        full = forward(full_cfg, model, {"tokens": tokens, **extra})[0]
 
     def full_choice(i):  # the full forward's choices for the cached path's i-th call
         n = len(full_routes.calls)
@@ -2378,6 +2529,9 @@ def route_checks(torch, cfg, model, batch, decode_batch, n_prefix: int, steps: i
     imposed on the other, beside how many choices differ: the decode held
     within 5e-2, the prefill reported with its residual stream's growth
     over the layers (:func:`residual_rels`) in bf16 and on the fp32 copy.
+    The bf16 decode runs the decode-attention kernel (fp32 logits, softmax
+    and P·V), so its held oracle is the full forward with that arithmetic
+    (``fp32_oracle``); its gap to the bf16 einsum forward is reported.
     On ``model32``, an fp32 copy of the same weights: the whole model's last
     logits flash vs einsum (held within 1e-3: only summation order differs),
     its decode vs the full forward (held within 5e-2), and the model's own
@@ -2397,7 +2551,14 @@ def route_checks(torch, cfg, model, batch, decode_batch, n_prefix: int, steps: i
         l_ein16, _ = api.prefill(ein, model, batch, max_len=max_len)
     out["prefill_flash_vs_einsum_rel_bf16"] = rel_err(l_flash, l_ein16)
     dec_routes = {} if cfg.moe.enabled else None
-    out["decode_vs_full_rel_bf16"] = decode_vs_full(torch, cfg, model, decode_batch, n_prefix, steps, dec_routes)
+    out["decode_vs_full_rel_bf16"] = decode_vs_full(torch, cfg, model, decode_batch, n_prefix, steps, dec_routes,
+                                                    fp32_oracle=True)
+    # the same decode against the bf16 einsum forward, reported: the attention rounded at other places
+    ein_routes = {} if cfg.moe.enabled else None
+    out["decode_vs_einsum_full_rel_bf16"] = decode_vs_full(torch, cfg, model, decode_batch, n_prefix, steps,
+                                                           ein_routes)
+    if ein_routes is not None:
+        out["decode_vs_einsum_full_rel_bf16_shared_routes"] = ein_routes["rel_shared"]
     if hold_bf16:
         for k in ("prefill_flash_vs_einsum_rel_bf16", "decode_vs_full_rel_bf16"):
             checks.append((out[k] <= 5e-2, f"{k}: {out[k]} <= 5e-2"))
@@ -3704,18 +3865,18 @@ def ss_layer_rels(torch, cfg, params, mesh, batch) -> list:
 
 
 def ss_compare(torch, single: dict, sharded: dict, tol: float) -> dict:
-    """Per-step relative logit errors, token equality and the first
-    argmax divergence with the single-rank top-2 margin there."""
+    """Per-step relative logit errors, token equality, the first argmax
+    divergence with the single-rank top-2 margin there, and every
+    divergence's margin in bf16 steps of its row's top logit (the bf16
+    steps are forced on the single-rank tokens, so each is a sample)."""
     rels = [rel_err(a, b) for a, b in zip(sharded["logits"], single["logits"])]
-    first = None
+    flips = []
     for i, (a, b) in enumerate(zip(sharded["tokens"], single["tokens"])):
-        bad = (a != b).nonzero()
-        if bad.numel():
-            r = int(bad[0, 0])
+        for r in (a != b).nonzero()[:, 0].tolist():
             top = single["top2"][i][r]
-            first = dict(step=i, row=r, margin=(top[0] - top[1]).item(), bf16_step=bf16_step(top[0].item()))
-            break
-    return dict(logit_rels=rels, max_rel=max(rels), tokens_equal=first is None, first_divergence=first, tol=tol)
+            flips.append(dict(step=i, row=r, margin=(top[0] - top[1]).item(), bf16_step=bf16_step(top[0].item())))
+    return dict(logit_rels=rels, max_rel=max(rels), tokens_equal=not flips, first_divergence=flips[0] if flips else None,
+                flip_margins_bf16_steps=[f["margin"] / f["bf16_step"] for f in flips], tol=tol)
 
 
 def ss_collectives_predicted(cfg) -> dict:
@@ -3793,8 +3954,9 @@ def ss_one(torch, name: str, cfg, smi: str) -> tuple:
             r["single_last_vs_fp32_rel"] = rel_err(single["logits"][0], fp32_last)
             r["sharded_last_vs_fp32_rel"] = rel_err(sh["logits"][0], fp32_last)
             checks += [(r["logit_rels"][0] <= 5e-2, f"{name} bf16: last logits rel {r['logit_rels'][0]} <= 5e-2"),
-                       (fd is None or fd["margin"] <= fd["bf16_step"],
-                        f"{name} bf16: tokens equal or first divergence at a top-2 margin <= one bf16 step: {fd}")]
+                       (fd is None or fd["margin"] <= SS_FLIP_STEPS[name] * fd["bf16_step"],
+                        f"{name} bf16: tokens equal or first divergence at a top-2 margin <= "
+                        f"{SS_FLIP_STEPS[name]} bf16 steps: {fd}")]
             rels = ss_layer_rels(torch, c, sh["params"], sh["mesh"], batch)
             r["layer_attn_rels_max"] = max(rels)
             checks.append((max(rels) <= 2e-2 and len(rels) == want_k2,
@@ -4308,6 +4470,18 @@ def run_phases(torch, smi: str, dry: dict) -> int:
              replaces="src/repro/serving/paged_kv.py:289", launches=paged["launches"], max_abs_err=0.0,
              ms=ut["ms"], plain_ms=ut["plain_ms"], bound_ms=ut["bound_ms"], bound_by="bytes",
              library_ms=ut["library_ms"]),
+        dict(name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+             replaces=None, replaces_note="no TPU kernel: the reference's decode attention is an einsum under "
+             "decode_mask (src/repro/models/common.py), which XLA fuses",
+             launches=serve["decode_attention_launches"] + paged["decode_attention_launches"],
+             launches_by_path=dict(serve=serve["decode_attention_launches"],
+                                   serve_paged=paged["decode_attention_launches"]),
+             max_abs_err=max(r["max_abs_err"] for r in kern["decode"]["rows"]),
+             **{k: kern["decode"]["timed"]["longgen"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                                    "library_ms")},
+             by_shape=[{k: r[k] for k in ("case", "B", "T", "nq", "nkv", "hd", "lengths", "chunk", "splits", "ms",
+                                          "plain_ms", "library_ms", "bound_ms", "roofline_share")}
+                       for r in kern["decode"]["timed"].values()]),
         dict(name="wkv6", route="cuda", source="src/repro_torch/csrc/rwkv6_scan.cu",
              replaces="src/repro/kernels/rwkv6_scan.py:81", launches=rwkv["launches"],
              max_abs_err=kern["wkv"]["max_abs_err"], ms=kern["wkv"]["ms"], plain_ms=kern["wkv"]["plain_ms"],

@@ -104,6 +104,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_dt_unpack_into.restype = i32
     lib.repro_wkv6_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, p64, vp]
     lib.repro_wkv6_fwd.restype = i32
+    lib.repro_decode_attention.argtypes = [vp, vp, vp, vp, i32, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                                           p64, p64, p64, i32, i32, vp]
+    lib.repro_decode_attention.restype = i32
 
 
 def load() -> ctypes.CDLL:

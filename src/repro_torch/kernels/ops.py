@@ -1,6 +1,7 @@
 """Public wrappers around the port's kernels, mirroring
 ``repro.kernels.ops``: the integration points the models and the enqueue
-path call (flash attention for GQA layers, the chunked WKV for RWKV-6,
+path call (flash attention for GQA layers' prefill, decode attention for
+their one-token steps, the chunked WKV for RWKV-6,
 dt_pack for datatype-described send buffers and, with its in-place
 unpack, the paged KV cache's page moves). Each wrapper launches the
 CUDA kernel for CUDA tensors and the kernel's plain PyTorch version for CPU
@@ -11,17 +12,26 @@ tensor's device decides.
 from __future__ import annotations
 
 from repro_torch.core import datatype as dt
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dt_pack as _dtp
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rwkv6_scan as _wkv
 
-__all__ = ["gqa_flash_attention", "wkv6", "pack_datatype", "unpack_datatype", "unpack_datatype_into", "k1_launches"]
+__all__ = ["gqa_flash_attention", "decode_attention", "wkv6", "pack_datatype", "unpack_datatype",
+           "unpack_datatype_into", "k1_launches"]
 
 
 def gqa_flash_attention(q, k, v, causal: bool = True):
     """q (B,S,nq,hd); k/v (B,S,nkv,hd) → (B,S,nq,hd). GQA by head index:
     query head h reads KV head h // (nq // nkv) — no repeated KV copy."""
     return _fa.flash_attention(q, k, v, causal=causal)
+
+
+def decode_attention(q, k, v, pos):
+    """q (B,nq,hd); k/v the cache (B,T,nkv,hd), read in place; pos (B,) →
+    (B,nq,hd): each slot over its first ``min(pos + 1, T)`` rows, query head
+    h on KV head h // (nq // nkv)."""
+    return _da.decode_attention(q, k, v, pos)
 
 
 def wkv6(w, r, k, v, bonus, state0, chunk: int = 64):

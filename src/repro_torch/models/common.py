@@ -55,7 +55,6 @@ __all__ = [
     "apply_rope",
     "attend",
     "causal_mask",
-    "decode_mask",
     "gqa_qkv",
     "gqa_attention_full",
     "gqa_attention_decode",
@@ -181,17 +180,6 @@ def causal_mask(S: int, T: int, offset: int = 0, window: int = 0, device=None):
     return m[None, None, None]  # (1,1,1,S,T)
 
 
-def decode_mask(T: int, pos, ring: bool = False):
-    """Mask for one-token decode against a cache of physical length T.
-
-    Full cache: slots <= pos are valid. Ring cache: all slots valid once
-    pos+1 >= T, else slots <= pos."""
-    m = torch.arange(T, device=pos.device)[None, :] <= pos[:, None]
-    if ring:
-        m = m | (pos[:, None] + 1 >= T)
-    return m[:, None, None, None]  # (B,1,1,1,T)
-
-
 def gqa_qkv(cfg: ModelConfig, p, x, positions, theta: float, use_rope: bool = True):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -265,7 +253,13 @@ def gqa_attention_decode(cfg: ModelConfig, p, x, cache_kv, pos, window: int = 0,
     (``index_put_``), where the JAX package returns an updated copy: the
     serving engine's batch cache is updated without a per-step copy of
     every layer. Returns (out, (K, V)) with K/V the same tensors that were
-    passed in."""
+    passed in.
+
+    The attention reads each slot's first ``min(pos + 1, T)`` cache rows:
+    the rows up to ``pos`` of a full cache, every row of a ring cache once
+    ``pos + 1 >= T``. On the card the decode-attention kernel reads them in
+    place (``kernels.ops.decode_attention``); on the CPU its plain version
+    runs :func:`attend`'s arithmetic over them."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     q, k_new, v_new = gqa_qkv(cfg, p, x, pos[:, None], theta, use_rope=use_rope)
@@ -275,8 +269,9 @@ def gqa_attention_decode(cfg: ModelConfig, p, x, cache_kv, pos, window: int = 0,
     bidx = torch.arange(B, device=x.device)
     K.index_put_((bidx, slot), k_new[:, 0].to(K.dtype))
     V.index_put_((bidx, slot), v_new[:, 0].to(V.dtype))
-    mask = decode_mask(T, pos, ring=window > 0)
-    out = attend(q, K.to(cfg.cdtype), V.to(cfg.cdtype), mask, 1.0 / math.sqrt(hd))
+    from repro_torch.kernels.ops import decode_attention
+
+    out = decode_attention(q[:, 0], K, V, pos)
     out = out.reshape(B, 1, cfg.n_heads * hd) @ p["wo"].to(cfg.cdtype)
     return out, (K, V)
 
