@@ -5,9 +5,9 @@
 Runs the cell once per seed in this one process (set-up, a window at the
 cell's own load, the check) and reads, on the same sample of served
 requests, the program's gap readings and the control's: the float32
-reference with every projection in fp8 (``reference.model``,
-``linear="fp8"``), whose first token at each served position is judged by
-the float32 reference. Prints one JSON line per seed. A cell's limit lies
+reference with every projection in fp8 (the architecture's
+``reference.py``, ``linear="fp8"``), whose first token at each served
+position is judged by the float32 reference. Prints one JSON line per seed. A cell's limit lies
 between the largest reading of the program over a dozen seeds or more and
 the smallest of the control's; ``PERF.md`` keeps the readings. The
 benchmark's own runs never run this.

@@ -28,13 +28,12 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from portbench.harness import arch
 from portbench.harness import check as check_mod
 from portbench.harness import program
-from portbench.harness.counts import Model
 from portbench.harness.engine import Recorder, bench_engine_class
 from portbench.harness.trace import TraceWindow, breakdown, reduce_trace
 from portbench.harness.traffic import OfferStream, TrafficPlan
-from portbench.reference.model import Dims, draw_weights
 
 __all__ = ["Layout", "load_cell", "run_cell"]
 
@@ -54,8 +53,11 @@ class Layout:
     def cell(self, name: str) -> dict:
         return self._json("workloads", f"{name}.json")
 
+    def config_file(self, name: str) -> Path:
+        return self.base / "configs" / f"{name}.json"
+
     def config(self, name: str) -> dict:
-        return self._json("configs", f"{name}.json")
+        return json.loads(self.config_file(name).read_text())
 
     def traffic(self, name: str) -> dict:
         return self._json("traffic", f"{name}.json")
@@ -118,6 +120,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_process: fl
     layout = layout or Layout()
     cell, cfg, mix = load_cell(name, layout)
     cell = {**cell, **(overrides or {})}
+    architecture = arch.load(cfg, layout, layout.config_file(cell["config"]))
     device = torch.device(device)
     phases: Dict[str, float] = {"start": clock() - t_process}  # set-up's parts, for the record
 
@@ -129,12 +132,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_process: fl
     if device.type == "cuda":
         side.load_kernels()
     phase("kernels")
-    dims = Dims(cfg)
-    mcfg = program.model_config(cfg)
+    dims = architecture.reference.Dims(cfg)
+    mcfg = architecture.program.model_config(cfg)
 
     # -- set-up -----------------------------------------------------------------
-    weights = draw_weights(dims, seed, device)
-    model = program.build_model(mcfg, weights, device)
+    weights = architecture.reference.draw_weights(dims, seed, device)
+    model = architecture.program.build_model(mcfg, weights, device)
     del weights
     phase("weights")
     rec = Recorder(clock)
@@ -202,7 +205,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_process: fl
         a, b = tracer.step_range
         trace_steps = rec.steps[a:b]
     run = SimpleNamespace(
-        cell=cell, cfg=cfg, model=Model(cfg), setup_s=setup_s, setup_phases=phases, seconds=float(seconds),
+        cell=cell, cfg=cfg, model=architecture.counts.Model(cfg), setup_s=setup_s, setup_phases=phases,
+        seconds=float(seconds),
         t_start=t_start, t_close=t_close, t_end=max((s.t1 for s in steps), default=t_start),
         steps=steps, offered=offered, held=held, completions=completions,
         prefill_spans=rec.prefill_spans, decode_spans=rec.decode_spans, page_spans=rec.page_spans,
@@ -217,8 +221,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_process: fl
     if device.type == "cuda":
         torch.cuda.empty_cache()
     chk = cell["check"]
-    result = check_mod.run_check(cfg, seed, device, offered, held, rejected, chk["limits"], int(chk["sample"]),
-                                 control=control)
+    result = check_mod.run_check(architecture, cfg, seed, device, offered, held, rejected, chk["limits"],
+                                 int(chk["sample"]), control=control)
     log(f"check: {result['sampled']} requests, {result['tokens_compared']} tokens, {result['seconds']:.1f} s")
     attempted = len(offered) + len(held) + rejected
     failed = rejected + result["numbers"]["unfinished"][0]

@@ -2,10 +2,11 @@
 
 Once the window has closed and the program's state is freed, a sample of
 the requests the window served, drawn from the seed and always holding the
-longest, is run through the float32 reference: each prompt with its
-served tokens, once. At every position where the program served a token,
-the reference's logits give the gap by which that token lies below the
-reference's best. The cell's file names the readings it compares and
+longest, is run through the float32 reference of the configuration's
+architecture (``architectures/<name>/reference.py``, which the caller hands
+in): each prompt with its served tokens, once. At every position where the
+program served a token, the reference's logits give the gap by which that
+token lies below the reference's best. The cell's file names the readings it compares and
 their limits: the widest gap over the sample, or the mean gap over every
 token compared (:func:`gap_readings`). In a closed loop the requests still in flight at the close
 count with the tokens they were served; an open loop has finished every
@@ -25,8 +26,6 @@ from typing import Dict, List
 
 import numpy as np
 import torch
-
-from portbench.reference.model import Dims, Reference, draw_weights
 
 __all__ = ["sample_served", "served_gaps", "control_gaps", "gap_readings", "run_check"]
 
@@ -52,7 +51,7 @@ def _sequence(rec):
     return tokens, at, out
 
 
-def served_gaps(ref: Reference, rec) -> torch.Tensor:
+def served_gaps(ref, rec) -> torch.Tensor:
     """The gap of each served token below the reference's best logit."""
     tokens, at, out = _sequence(rec)
     logits = ref.logits(tokens, at)
@@ -60,7 +59,7 @@ def served_gaps(ref: Reference, rec) -> torch.Tensor:
     return logits.max(dim=-1).values - served
 
 
-def control_gaps(ref: Reference, ctrl: Reference, rec) -> torch.Tensor:
+def control_gaps(ref, ctrl, rec) -> torch.Tensor:
     """At each served position, the gap under ``ref`` of the token ``ctrl``
     puts first."""
     tokens, at, _ = _sequence(rec)
@@ -69,22 +68,24 @@ def control_gaps(ref: Reference, ctrl: Reference, rec) -> torch.Tensor:
     return logits.max(dim=-1).values - logits[torch.arange(len(at)), pick]
 
 
-def run_check(cfg: dict, seed: int, device, offered: list, held: list, rejected: int, limits: dict,
-              sample: int, control: bool = False) -> dict:
-    """Every compared number beside its limit, and ``correct``."""
+def run_check(architecture, cfg: dict, seed: int, device, offered: list, held: list, rejected: int,
+              limits: dict, sample: int, control: bool = False) -> dict:
+    """Every compared number beside its limit, and ``correct``, judged by the
+    reference of ``architecture`` (``arch.load``'s)."""
     t0 = time.perf_counter()
     finished_or_cut = [r for r in offered + held if r.t_done is not None]
     unfinished = sum(1 for r in offered if r.t_done is None)
     short = sum(1 for r in finished_or_cut if not r.cut and len(r.req.out_tokens) != r.max_new)
     picked = sample_served(offered + held, sample, seed)
-    dims = Dims(cfg)
-    weights = draw_weights(dims, seed, device)
-    ref = Reference(dims, weights)
+    reference = architecture.reference
+    dims = reference.Dims(cfg)
+    weights = reference.draw_weights(dims, seed, device)
+    ref = reference.Reference(dims, weights)
     gaps = [served_gaps(ref, rec) for rec in picked]
     readings = gap_readings(gaps)
     ctrl = None
     if control:
-        fp8 = Reference(dims, weights, linear="fp8")
+        fp8 = reference.Reference(dims, weights, linear="fp8")
         ctrl = gap_readings([control_gaps(ref, fp8, rec) for rec in picked])
     del weights, ref
     numbers: Dict[str, list] = {k: [readings[k], float(v)] for k, v in limits.items()}

@@ -6,7 +6,8 @@ from pathlib import Path
 
 import pytest
 
-from portbench.harness.counts import Model, attention_cost, roofline_s
+from portbench.architectures.gqa.counts import Model
+from portbench.harness.counts import attention_cost, roofline_s
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 

@@ -13,9 +13,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from portbench.architectures.gqa import program
+from portbench.architectures.gqa.reference import Dims, draw_weights
 from portbench.harness import cell as cell_mod
-from portbench.harness import program
-from portbench.reference.model import Dims, draw_weights
 from portbench.tests.faults import faulty_engine_class
 
 PB = Path(__file__).resolve().parents[1]

@@ -1,9 +1,12 @@
 """No module under ``portbench/`` imports JAX, Flax, the JAX package
-``repro`` or the old ``benchmarks/``; the plain reference imports nothing
-of the port either. Names are compared whole at their top level (the part
-before the first dot), since ``repro_torch`` begins with ``repro``."""
+``repro`` or the old ``benchmarks/``; each architecture's plain reference
+imports ``torch`` and the standard library alone, and its counts import
+neither the port nor that reference. Names are compared whole at their top
+level (the part before the first dot), since ``repro_torch`` begins with
+``repro``."""
 
 import ast
+import sys
 from pathlib import Path
 
 import pytest
@@ -22,6 +25,23 @@ def top_level_imports(path: Path) -> set:
     return names
 
 
+def full_imports(path: Path) -> set:
+    """Every absolute module name imported, whole (``a.b.c``)."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.add(node.module)
+            names.update(f"{node.module}.{a.name}" for a in node.names)
+    return names
+
+
+def relative_imports(path: Path) -> set:
+    return {"." * n.level + (n.module or "") for n in ast.walk(ast.parse(path.read_text(), str(path)))
+            if isinstance(n, ast.ImportFrom) and n.level > 0}
+
+
 FILES = sorted(PB.rglob("*.py"))
 
 
@@ -30,14 +50,23 @@ def test_no_jax_and_no_jax_package(path):
     assert not (top_level_imports(path) & FORBIDDEN), path
 
 
-@pytest.mark.parametrize("path", sorted((PB / "reference").rglob("*.py")),
+@pytest.mark.parametrize("path", sorted(PB.glob("architectures/*/reference.py")),
                          ids=lambda p: str(p.relative_to(PB)))
 def test_reference_imports_nothing_of_the_program(path):
     names = top_level_imports(path)
     assert "repro_torch" not in names and not (names & FORBIDDEN)
-    # nor the harness, which holds the program's side
-    text = path.read_text()
-    assert "portbench.harness" not in text
+    # nor the harness, which holds the program's side, nor its architecture's other files
+    assert names - set(sys.stdlib_module_names) == {"torch"}, names
+    assert not relative_imports(path)
+
+
+@pytest.mark.parametrize("path", sorted(PB.glob("architectures/*/counts.py")),
+                         ids=lambda p: str(p.relative_to(PB)))
+def test_counts_import_neither_the_port_nor_the_reference(path):
+    names = top_level_imports(path)
+    assert "repro_torch" not in names and not (names & FORBIDDEN)
+    modules = full_imports(path) | relative_imports(path)
+    assert not any(m.split(".")[-1] == "reference" or m.startswith("portbench.architectures") for m in modules), modules
 
 
 def test_the_check_compares_whole_names():

@@ -10,8 +10,9 @@ from types import SimpleNamespace
 
 import pytest
 
+from portbench.architectures.gqa.counts import Model
 from portbench.harness import readers
-from portbench.harness.counts import PEAK, Model
+from portbench.harness.counts import PEAK
 from portbench.harness.engine import StepRecord
 from portbench.harness.trace import reduce_trace
 

@@ -10,8 +10,8 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
+from portbench.architectures.gqa.counts import Model
 from portbench.harness import readers, traffic
-from portbench.harness.counts import Model
 from portbench.harness.engine import ReqRecord, StepRecord
 from portbench.harness.trace import breakdown, reduce_trace
 
@@ -158,6 +158,29 @@ def test_a_closed_loop_serves_the_same_pool_in_the_seeds_order():
     # the pool starts again, in a new order, when it runs out
     again = [a.next_request()[0].shape[0] for _ in range(n)]
     assert sorted(again) == sorted(lens_a) and again != lens_a
+
+
+@pytest.mark.parametrize("slots", [32, 4])
+def test_a_closed_loop_fills_its_slots_with_the_same_sizes_for_every_seed(slots):
+    mix = json.loads((PB / "traffic" / "longgen_uniform_backlog.json").read_text())
+    assert mix["fill_slots"]
+    cell = {"max_batch": slots}
+    a = traffic.TrafficPlan(mix, cell, 32064, 2**31 + 11, 40.0)
+    b = traffic.TrafficPlan(mix, cell, 32064, 9, 40.0)
+    n = len(a.pool)
+    reqs_a = [a.next_request() for _ in range(2 * n)]  # two passes of the pool
+    reqs_b = [b.next_request() for _ in range(2 * n)]
+    sizes_a = [(r[0].shape[0], r[1]) for r in reqs_a]
+    sizes_b = [(r[0].shape[0], r[1]) for r in reqs_b]
+    for g in range(0, 2 * n, slots):  # each group of slots holds the same sizes
+        assert sorted(sizes_a[g:g + slots]) == sorted(sizes_b[g:g + slots])
+    assert sizes_a != sizes_b  # in the seed's order within a group
+    assert sorted(sizes_a[:n]) == sorted(a.pool) == sorted(sizes_a[n:])  # each pass is the whole pool
+    assert sizes_a[:n] != sizes_a[n:]  # in new groups
+    assert not np.array_equal(reqs_a[0][0], reqs_b[0][0])  # other token ids
+    # the same seed gives the same requests
+    c = traffic.TrafficPlan(mix, cell, 32064, 2**31 + 11, 40.0)
+    assert all(np.array_equal(c.next_request()[0], r[0]) for r in reqs_a[:slots])
 
 
 def test_warm_lengths_are_few_and_cover_the_extremes():
